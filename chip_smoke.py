@@ -1,0 +1,569 @@
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases, each fatal on failure (the script exits non-zero and prints no
+result line):
+
+1. banner   card name and power limit, torch/CUDA/nvcc versions; TF32 off
+2. build    compile the port's CUDA kernels from src/repro_torch/kernels/csrc
+3. kernels  every kernel against its plain PyTorch version on the card, at
+            the main path's shapes and at ragged ones, with times
+4. slice    the paper's §V federated round (784-64-10 MLP, D = 50,890,
+            13 chunks of 4096, S = 1024, κ = 80, BIHT 30 iterations, U = 10)
+            through ``FederatedTrainer`` with ``use_kernels=True``; the
+            launch counters must show every kernel of the path
+
+The line before the last is ``{"kernels": [...]}``; the last line is
+``{"ok": true, "device": {...}}``. Without a CUDA device the script exits 1.
+"""
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+# H100 SXM peaks (NVIDIA data sheet): f32 outside the tensor cores, HBM3
+PEAK_F32_FLOPS = 67e12
+PEAK_BYTES_PER_S = 3.35e12
+
+# §V geometry (examples/fl_mnist.py)
+CHUNK, MEASURE, KAPPA, BIHT_ITERS = 4096, 1024, 80, 30
+D_MLP = 784 * 64 + 64 + 64 * 10 + 10
+N_CHUNKS = -(-D_MLP // CHUNK)
+U_WORKERS, SAMPLES = 10, 3000
+DECODE_K = min(4 * KAPPA, MEASURE // 2)
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def fail(msg: str) -> None:
+    print(f"FAIL: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def bound(n_bytes: float, n_ops: float):
+    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = n_ops / PEAK_F32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def call_ms(fn, reps: int = 50) -> float:
+    """Time per call of ``fn`` called back to back (CUDA events around
+    ``reps`` calls): what a Python caller sees, the larger of the kernel's
+    device time and its wrapper's host time."""
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(reps):
+        fn()
+    e1.record()
+    e1.synchronize()
+    return e0.elapsed_time(e1) / reps
+
+
+def time_ms(fn, calls: int = 20, reps: int = 10) -> float:
+    """Device time of one ``fn()``: ``calls`` calls captured in a CUDA
+    graph and replayed ``reps`` times between CUDA events, so the host's
+    cost of launching is not in the number (back to back, a 15 µs kernel
+    would measure the ~30 µs its Python wrapper takes). Inputs stay in L2
+    where they fit, as in the BIHT loop."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(reps):
+        graph.replay()
+    e1.record()
+    e1.synchronize()
+    return e0.elapsed_time(e1) / (reps * calls)
+
+
+# -- phase 1 ------------------------------------------------------------------
+
+def banner() -> str:
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    if smi.returncode:
+        fail(f"nvidia-smi failed: {smi.stderr.strip()}")
+    card = smi.stdout.strip().splitlines()[0]
+    log(f"card: {card}")
+    log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+        f"python {sys.version.split()[0]}")
+    from repro_torch.kernels import build
+    nv = subprocess.run([build._nvcc(), "--version"], capture_output=True,
+                        text=True, timeout=60)
+    log("nvcc: " + nv.stdout.strip().splitlines()[-1])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return card
+
+
+# -- phase 2 ------------------------------------------------------------------
+
+def build_kernels() -> None:
+    from repro_torch.kernels import build
+    info = build.build()
+    log(f"build: {info.seconds:.1f} s -> {os.path.relpath(info.path, ROOT)}")
+    for line in info.ptxas_log.splitlines():
+        if "registers" in line or line.startswith("=="):
+            log("  " + line.strip())
+    build.lib()
+
+
+# -- phase 3 ------------------------------------------------------------------
+
+def sign_flips(phi, x, got, want):
+    """Lanes where two ±1 outputs differ, and how many of those are not
+    borderline. A lane is borderline when |x·Φ_s| ≤ 2·D·2⁻²⁴·‖x‖·‖Φ_s‖:
+    two f32 sums of D products in different orders can each be off by
+    D·2⁻²⁴·Σ|x_d Φ_sd| ≤ D·2⁻²⁴·‖x‖‖Φ_s‖, so only there may they
+    disagree on the sign."""
+    d = x.shape[1]
+    acc = x.double() @ phi.double().T
+    lim = 2 * d * 2.0 ** -24 * (torch.linalg.vector_norm(x.double(), dim=1)
+                                [:, None]
+                                * torch.linalg.vector_norm(phi.double(),
+                                                           dim=1)[None])
+    diff = got != want
+    return int(diff.sum()), int((diff & (acc.abs() > lim)).sum())
+
+
+def sparse_rows(n, d, k, gen, dev, scale=1e-2):
+    """Rows shaped like the path's data: k-sparse, gradient-sized."""
+    from repro_torch.kernels import ref
+    x = torch.randn(n, d, generator=gen, device=dev) * scale
+    return ref.topk_select_ref(x, k)[0].contiguous()
+
+
+def close(got, want, rtol=1e-5, atol=1e-5) -> float:
+    err = (got - want).abs()
+    if not bool((err <= atol + rtol * want.abs()).all()):
+        fail(f"float output off by {float(err.max()):.3e} "
+             f"(rtol {rtol}, atol {atol})")
+    return float(err.max())
+
+
+def check_kernels(dev) -> dict:
+    from repro_torch.kernels import build, ops, ref
+    from repro_torch.kernels.cs_project import project
+    from repro_torch.kernels.sign import unpack_signs
+    gen = torch.Generator(device=dev).manual_seed(0)
+    results = {}
+
+    def phi_of(s, d):
+        return torch.randn(s, d, generator=gen, device=dev) / s ** 0.5
+
+    # K1 topk_select: compression (130, κ=80), decode (13, κ=320), ragged,
+    # and the zero-padded tail chunk (1738 live entries of 4096)
+    tail = torch.zeros(U_WORKERS, CHUNK, device=dev)
+    tail[:, :D_MLP - (N_CHUNKS - 1) * CHUNK] = torch.randn(
+        U_WORKERS, D_MLP - (N_CHUNKS - 1) * CHUNK, generator=gen,
+        device=dev)
+    tail[:, 1700:] = 0  # fewer than κ nonzeros in one row's window
+    tail[0, 40:] = 0
+    cases = [(torch.randn(130, CHUNK, generator=gen, device=dev), KAPPA),
+             (torch.randn(13, CHUNK, generator=gen, device=dev), DECODE_K),
+             (torch.randn(7, 1000, generator=gen, device=dev), 33),
+             (tail, KAPPA)]
+    for x, k in cases:
+        v, m = ops.topk_select(x, k)
+        pv, pm = ref.topk_select_ref(x, k)
+        if not (torch.equal(m, pm) and torch.equal(v, pv)):
+            fail(f"topk_select {tuple(x.shape)} k={k}: mask or values "
+                 f"differ from the plain version")
+    # timed at the decode shape, 31 of its 32 launches a round
+    x, k = cases[1]
+    n, d = x.shape
+    xc, kc = cases[0]
+    results["topk_select"] = dict(
+        shape=f"n={n} D={d} k={k}", max_abs_err=0.0,
+        ms=time_ms(lambda: ops.topk_select(x, k)),
+        call_ms=call_ms(lambda: ops.topk_select(x, k)),
+        plain_ms=time_ms(lambda: ref.topk_select_ref(x, k)),
+        library_ms=time_ms(lambda: torch.topk(x.abs(), k, dim=-1)),
+        bound=bound(9 * n * d, n * d * (2 * 33 + 2)),
+        ms_compress=time_ms(lambda: ops.topk_select(xc, kc)))
+    log(f"K1 topk_select ok: masks and values exact on "
+        f"{[tuple(c[0].shape) for c in cases]}")
+
+    # K2 cs_project none/sign/pack at the compression shape and a ragged one
+    for n, s, d in [(N_CHUNKS * U_WORKERS, MEASURE, CHUNK), (7, 96, 1000)]:
+        phi = phi_of(s, d)
+        x = sparse_rows(n, d, max(1, d * KAPPA // CHUNK), gen, dev)
+        raw = ops.cs_project(phi, x)
+        err = close(raw, ref.cs_project_ref(phi, x))
+        sg = ops.cs_project_sign(phi, x)
+        flips, hard = sign_flips(phi, x, sg, ref.cs_project_sign_ref(phi, x))
+        words = ops.cs_project_pack(phi, x)
+        pflips, phard = sign_flips(phi, x, unpack_signs(words),
+                                   unpack_signs(ref.cs_project_pack_ref(
+                                       phi, x)))
+        if hard or phard:
+            fail(f"cs_project {n, s, d}: {hard} sign / {phard} packed "
+                 "lanes differ beyond the borderline bound")
+        if not torch.equal(unpack_signs(words), sg):
+            fail(f"cs_project {n, s, d}: pack and sign epilogues disagree")
+        log(f"K2 cs_project ok at n={n} S={s} D={d}: none max err "
+            f"{err:.2e}, {flips} sign / {pflips} packed borderline flips")
+        if n == N_CHUNKS * U_WORKERS:
+            results["cs_project"] = dict(
+                shape=f"n={n} S={s} D={d} sign", max_abs_err=err,
+                ms=time_ms(lambda: ops.cs_project_sign(phi, x)),
+                call_ms=call_ms(lambda: ops.cs_project_sign(phi, x)),
+                plain_ms=time_ms(lambda: ref.cs_project_sign_ref(phi, x)),
+                library_ms=time_ms(lambda: torch.matmul(x, phi.T)),
+                bound=bound(4 * (n * d + s * d + n * s), 2 * n * s * d))
+
+    # K3 cs_project sign_residual/residual at the decode shape and ragged
+    for n, s, d in [(N_CHUNKS, MEASURE, CHUNK), (7, 96, 1000)]:
+        phi = phi_of(s, d)
+        x = sparse_rows(n, d, max(1, d * DECODE_K // CHUNK), gen, dev)
+        x = x / torch.linalg.vector_norm(x, dim=1, keepdim=True)
+        y = torch.where(torch.randn(n, s, generator=gen, device=dev) >= 0,
+                        1.0, -1.0)
+        res = project(phi, x, mode="residual", y=y)
+        err = close(res, ref.cs_project_ref(phi, x, mode="residual", y=y))
+        sr = project(phi, x, mode="sign_residual", y=y)
+        want = ref.cs_project_ref(phi, x, mode="sign_residual", y=y)
+        flips, hard = sign_flips(phi, x, y - sr, y - want)
+        if hard:
+            fail(f"cs_project sign_residual {n, s, d}: {hard} lanes differ "
+                 "beyond the borderline bound")
+        log(f"K3 cs_project_resid ok at n={n} S={s} D={d}: residual max "
+            f"err {err:.2e}, {flips} borderline sign flips")
+        if n == N_CHUNKS:
+            results["cs_project_resid"] = dict(
+                shape=f"n={n} S={s} D={d} sign_residual", max_abs_err=err,
+                ms=time_ms(lambda: project(phi, x, mode="sign_residual",
+                                           y=y)),
+                call_ms=call_ms(lambda: project(phi, x, mode="sign_residual",
+                                                y=y)),
+                plain_ms=time_ms(lambda: ref.cs_project_ref(
+                    phi, x, mode="sign_residual", y=y)),
+                library_ms=time_ms(lambda: torch.matmul(x, phi.T)),
+                bound=bound(4 * (n * d + s * d + 2 * n * s),
+                            2 * n * s * d + 2 * n * s))
+
+    # K4 backproject at the decode shape, the compression row count and
+    # a ragged one, for the two step sizes the decode uses
+    for n, s, d in [(N_CHUNKS, MEASURE, CHUNK), (130, MEASURE, CHUNK),
+                    (7, 96, 1000)]:
+        phi = phi_of(s, d)
+        x = sparse_rows(n, d, max(1, d * DECODE_K // CHUNK), gen, dev)
+        x = x / torch.linalg.vector_norm(x, dim=1, keepdim=True)
+        y = torch.where(torch.randn(n, s, generator=gen, device=dev) >= 0,
+                        1.0, -1.0)
+        r = ref.cs_project_ref(phi, x, mode="sign_residual", y=y)
+        err = 0.0
+        for tau in (1.0 / s, 1.0):
+            err = max(err, close(ops.backproject(x, r, phi, tau),
+                                 ref.backproject_ref(x, r, phi, tau)))
+        log(f"K4 backproject ok at n={n} S={s} D={d}: max err {err:.2e}")
+        if n == N_CHUNKS:
+            tau = 1.0 / s
+            results["backproject"] = dict(
+                shape=f"n={n} S={s} D={d}", max_abs_err=err,
+                ms=time_ms(lambda: ops.backproject(x, r, phi, tau)),
+                call_ms=call_ms(lambda: ops.backproject(x, r, phi, tau)),
+                plain_ms=time_ms(lambda: ref.backproject_ref(x, r, phi,
+                                                             tau)),
+                library_ms=time_ms(lambda: torch.matmul(r, phi)),
+                bound=bound(4 * (2 * n * d + n * s + s * d),
+                            2 * n * s * d + 2 * n * d))
+    torch.cuda.synchronize()
+    log(f"topk_select at the compression shape n=130 k={KAPPA}: kernel "
+        f"{results['topk_select']['ms_compress']:.4f} ms")
+    for name, r in results.items():
+        log(f"{name}: {r['shape']}: kernel {r['ms']:.4f} ms (back to back "
+            f"{r['call_ms']:.4f} ms a call), plain "
+            f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
+            f"bound {r['bound'][0]:.4f} ms ({r['bound'][1]})")
+    build.reset_launch_counts()
+    return results
+
+# -- phase 4 ------------------------------------------------------------------
+
+ROUNDS, EVAL_EVERY = 30, 10
+PER_ROUND = {"topk_select": 2 + BIHT_ITERS, "cs_project": 1,
+             "cs_project_resid": BIHT_ITERS, "backproject": 1 + BIHT_ITERS}
+
+
+def cosine(a, b) -> float:
+    return float(torch.dot(a, b) / (torch.linalg.vector_norm(a)
+                                    * torch.linalg.vector_norm(b)))
+
+
+def check_round_against_plain(dev) -> None:
+    """One OBCSAA round with the kernels against the same round on the
+    plain versions (sort top-κ, matmul projections), same gradients and
+    AWGN: at a small input (the CPU tests' width, whose plain path is held
+    to the JAX package) and at the §V width. Tolerance: cosine ≥ 0.999
+    and ≥ 0.99, since one borderline sign flip changes every later BIHT
+    iterate."""
+    from repro_torch.core.obcsaa import OBCSAAConfig, simulate_round
+    gen = torch.Generator(device=dev).manual_seed(1)
+    for u, d, chunk, s, k, iters, tol in [
+            (4, 6370, 1024, 256, 32, 5, 0.999),
+            (U_WORKERS, D_MLP, CHUNK, MEASURE, KAPPA, BIHT_ITERS, 0.99)]:
+        g = torch.randn(u, d, generator=gen, device=dev) * 1e-2
+        kw = torch.full((u,), float(SAMPLES), device=dev)
+        beta = torch.ones(u, device=dev)
+        b_t = torch.tensor(1e-3, device=dev)
+        h = torch.ones(u, device=dev)
+        n_chunks = -(-d // chunk)
+        noise = torch.randn(n_chunks, s, generator=gen, device=dev) * 1e-2
+        out = {}
+        for name, use_kernels, where in [
+                ("kernels", True, dev), ("plain on the card", False, dev),
+                ("plain on the CPU", False, torch.device("cpu"))]:
+            cfg = OBCSAAConfig(chunk=chunk, measure=s, topk=k,
+                               biht_iters=iters, use_kernels=use_kernels)
+            phi = cfg.phi(dev).to(where)
+            ghat, _ = simulate_round(
+                cfg, g.to(where), kw.to(where), beta.to(where),
+                b_t.to(where), h.to(where), phi=phi, noise=noise.to(where))
+            out[name] = ghat.to(dev)
+        got = out.pop("kernels")
+        if got.shape != (d,) or not bool(torch.isfinite(got).all()):
+            fail(f"round at D={d}: output not finite of shape ({d},)")
+        for name, want in out.items():
+            c = cosine(got, want)
+            log(f"round at D={d}: kernels vs {name}: cosine {c:.6f}")
+            if c < tol:
+                fail(f"round at D={d}: kernels vs {name}: cosine {c:.6f} "
+                     f"< {tol}")
+
+
+def median(xs):
+    return float(np.median(np.asarray(xs)))
+
+
+def where_the_time_goes(tr, agg: str) -> None:
+    """After the counted run: ten more rounds timed one by one (host
+    clock, synchronised), the stages of one round timed apart (median of
+    five, synchronised between stages), and a torch.profiler trace of
+    three rounds for the device's busy share and its top kernels."""
+    from repro_torch.core.obcsaa import compress_chunks, reconstruct_chunks
+    from repro_torch.core.sparsify import flatten_pytree
+    from repro_torch.engine.core import stacked_grads
+
+    t_next = len(tr.sched_logs)
+    per_round = []
+    for t in range(t_next, t_next + 10):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr.run_round(t)
+        torch.cuda.synchronize()
+        per_round.append((time.perf_counter() - t0) * 1e3)
+    log(f"{agg}: per-round ms after the run: median {median(per_round):.3f}"
+        f", min {min(per_round):.3f}, max {max(per_round):.3f}")
+
+    if agg == "obcsaa":
+        ob = tr.cfg.obcsaa
+        st = tr.state
+        stages = {"grads": [], "compress": [], "mac": [], "decode": [],
+                  "update": []}
+
+        def timed(name, fn):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            stages[name].append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        u = tr.k_weights.shape[0]
+        unflatten = flatten_pytree(st.params)[1]
+        for _ in range(5):
+            g = timed("grads", lambda: stacked_grads(
+                tr.loss_fn, st.params, tr.worker_data))
+            gpad = torch.nn.functional.pad(g, (0, (-tr.D) % ob.chunk))
+            signs, mags = timed("compress", lambda: compress_chunks(
+                ob, gpad.reshape(u, -1, ob.chunk), tr.phi))
+            y = timed("mac", lambda: (torch.einsum(
+                "u,ucs->cs", tr.k_weights * 1e-3, signs)
+                + torch.randn(signs.shape[1:], device=signs.device) * 1e-2)
+                / (tr.k_weights.sum() * 1e-3))
+            ghat = timed("decode", lambda: reconstruct_chunks(
+                ob, y, mags.mean(0), tr.phi))
+            timed("update", lambda: tr.opt.update(
+                unflatten(ghat[:tr.D]), st.opt_state, st.params,
+                tr.cfg.learning_rate))
+        log("obcsaa: stage ms (median of 5, synchronised): " + ", ".join(
+            f"{k} {median(v):.3f}" for k, v in stages.items()))
+
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts):      # the first session sets CUPTI up
+        tr.run_round(t_next + 10)
+        torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for t in range(t_next + 11, t_next + 14):
+            tr.run_round(t)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    events = [e for e in prof.key_averages()
+              if getattr(e, "self_device_time_total", 0) > 0]
+    busy_us = sum(e.self_device_time_total for e in events)
+    log(f"{agg}: profiler, 3 rounds: wall {wall_us / 1e3:.3f} ms, device "
+        f"busy {busy_us / 1e3:.3f} ms ({100 * busy_us / wall_us:.1f}%)")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
+        log(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:5d}x  "
+            f"{e.key[:70]}")
+    host = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
+    for e in host[:8]:
+        log(f"  host {e.self_cpu_time_total / 1e3:9.3f} ms  {e.count:5d}x  "
+            f"{e.key[:70]}")
+
+
+def run_slice(dev) -> dict:
+    """The §V experiment through ``FederatedTrainer`` on the card:
+    30 rounds, eval every 10, kernels on; then the same rounds with the
+    perfect aggregator beside it. Returns the kernels' launch counts of
+    the kernel run."""
+    from repro_torch.core.obcsaa import OBCSAAConfig, comm_stats
+    from repro_torch.data import load_mnist, partition_workers
+    from repro_torch.engine import FLConfig
+    from repro_torch.fl import FederatedTrainer
+    from repro_torch.kernels import build
+    from repro_torch.models import mlp_mnist as mm
+
+    t0 = time.perf_counter()
+    xtr, ytr, xte, yte = load_mnist()
+    wx, wy = partition_workers(xtr, ytr, U_WORKERS, SAMPLES, seed=0)
+    data = {"x": torch.from_numpy(wx), "y": torch.from_numpy(wy)}
+    xe, ye = torch.from_numpy(xte).to(dev), torch.from_numpy(yte).to(dev)
+    log(f"data: {len(xtr)} train / {len(xte)} test samples, "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    def eval_fn(p):
+        return mm.mlp_mnist_loss(p, xe, ye), mm.mlp_mnist_accuracy(p, xe, ye)
+
+    def loss_fn(p, d):
+        return mm.mlp_mnist_loss(p, d["x"], d["y"])
+
+    params0 = mm.init_mlp_mnist(seed=0, device=dev)
+    if mm.param_dim(params0) != D_MLP:
+        fail(f"MLP has {mm.param_dim(params0)} parameters, not {D_MLP}")
+    loss0, acc0 = (float(v) for v in eval_fn(params0))
+    ob = OBCSAAConfig(chunk=CHUNK, measure=MEASURE, topk=KAPPA,
+                      biht_iters=BIHT_ITERS, noise_var=1e-4, p_max=10.0,
+                      use_kernels=True)
+    st = comm_stats(ob, D_MLP)
+    log(f"slice: D={D_MLP}, {st['n_chunks']} chunks of {CHUNK}, S={MEASURE}"
+        f", κ={KAPPA}, decode k={ob.decode_k}, BIHT {BIHT_ITERS}, "
+        f"U={U_WORKERS} x {SAMPLES} samples, {ROUNDS} rounds")
+    runs = {}
+    counts = None
+    for agg in ("obcsaa", "perfect"):
+        cfg = FLConfig(aggregator=agg, learning_rate=0.1, rounds=ROUNDS,
+                       eval_every=EVAL_EVERY, seed=0, obcsaa=ob)
+        tr = FederatedTrainer(cfg, loss_fn, params0, data,
+                              np.full(U_WORKERS, float(SAMPLES)),
+                              eval_fn=eval_fn, device=dev)
+        torch.cuda.synchronize()
+        build.reset_launch_counts()
+        t = time.perf_counter()
+        logs = tr.run(ROUNDS)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3 / ROUNDS
+        if agg == "obcsaa":
+            counts = build.launch_counts()
+            state = [*tr.state.params.values(), tr.state.fade,
+                     tr.state.prev_beta, tr.phi, tr.k_weights]
+            off = [tuple(x.shape) for x in state if x.device.type != "cuda"]
+            if off:
+                fail(f"carried state off the card: {off}")
+        runs[agg] = (ms, logs)
+        where_the_time_goes(tr, agg)
+        log(f"{agg}: {ms:.2f} ms/round (host clock, eval cadence "
+            f"included); loss {loss0:.4f} -> "
+            + " -> ".join(f"{l.loss:.4f}@{l.round}" for l in logs)
+            + f"; accuracy {acc0:.4f} -> {logs[-1].accuracy:.4f}")
+        if not all(np.isfinite([l.loss, l.accuracy]).all() for l in logs):
+            fail(f"{agg}: non-finite loss or accuracy")
+        if not logs[-1].loss < loss0:
+            fail(f"{agg}: loss did not fall ({loss0} -> {logs[-1].loss})")
+    want = {k: v * ROUNDS for k, v in PER_ROUND.items()}
+    if counts != want:
+        fail(f"launch counts {counts} != {want} ({PER_ROUND} per round)")
+    log(f"launches over {ROUNDS} rounds: {counts} = per round {PER_ROUND}")
+    log("slice: obcsaa vs perfect final loss "
+        f"{runs['obcsaa'][1][-1].loss:.4f} vs {runs['perfect'][1][-1].loss:.4f}"
+        f", accuracy {runs['obcsaa'][1][-1].accuracy:.4f} vs "
+        f"{runs['perfect'][1][-1].accuracy:.4f}")
+    return counts
+
+
+SOURCES = {
+    "topk_select": ("src/repro_torch/kernels/csrc/topk_select.cu",
+                    "src/repro/kernels/topk_select.py:23"),
+    "cs_project": ("src/repro_torch/kernels/csrc/cs_project.cu",
+                   "src/repro/kernels/cs_project.py:57"),
+    "cs_project_resid": ("src/repro_torch/kernels/csrc/cs_project.cu",
+                         "src/repro/kernels/cs_project.py:78"),
+    "backproject": ("src/repro_torch/kernels/csrc/backproject.cu",
+                    "src/repro/kernels/backproject.py:42"),
+}
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this script needs a "
+             "CUDA device")
+    src = os.path.join(ROOT, "src")
+    if not os.path.isdir(os.path.join(src, "repro_torch")):
+        fail(f"no src/repro_torch beside {__file__}: run from a checkout")
+    sys.path.insert(0, src)
+    dev = torch.device("cuda")
+    card = banner()
+    build_kernels()
+    results = check_kernels(dev)
+    check_round_against_plain(dev)
+    launches = run_slice(dev)
+    kernels = []
+    for name, r in results.items():
+        source, replaces = SOURCES[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
+            "bound_by": r["bound"][1], "library_ms": r["library_ms"],
+            "result": "ok", "shape": r["shape"], "call_ms": r["call_ms"],
+            **({"ms_compress_n130": r["ms_compress"]}
+               if "ms_compress" in r else {})})
+    print(json.dumps({"kernels": kernels}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,34 @@
+"""Carry arrays between the JAX package and the port, as NumPy.
+
+``params_from_jax`` turns a JAX parameter dict (``np.asarray`` of each
+leaf) into tensors in the same layout (``w1`` stays (784, 64));
+``params_to_numpy`` goes back. ``arrays_from_jax`` turns the reference's
+draws — Φ, fades (complex64) and AWGN — into tensors, so a test can feed
+both packages the same numbers.
+"""
+from __future__ import annotations
+
+from typing import Dict, Mapping, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+
+
+def params_from_jax(np_params: Mapping, device=None
+                    ) -> Dict[str, torch.Tensor]:
+    dev = resolve_device(device)
+    return {k: torch.from_numpy(np.array(v, copy=True)).to(dev)
+            for k, v in np_params.items()}
+
+
+def params_to_numpy(params: Mapping[str, torch.Tensor]
+                    ) -> Dict[str, np.ndarray]:
+    return {k: v.detach().cpu().numpy() for k, v in params.items()}
+
+
+def arrays_from_jax(*arrays, device=None) -> Tuple[torch.Tensor, ...]:
+    dev = resolve_device(device)
+    return tuple(torch.from_numpy(np.array(a, copy=True)).to(dev)
+                 for a in arrays)

@@ -1,0 +1,58 @@
+"""Wireless MAC model (paper §II-B.4), port of ``repro/core/channel.py``.
+
+Block Rayleigh fading h_{i,t} = |g_{i,t}| stepped by the Gauss-Markov
+recursion g_t = ρ g_{t−1} + √(1−ρ²) w_t, w ~ CN(0, 1) (ρ = 0 is the
+paper's i.i.d. redraw), clamped at ``H_MIN`` so channel inversion (eq. 10)
+stays bounded; AWGN z ~ N(0, σ²I) at the PS. Every draw takes an explicit
+``torch.Generator``, and the caller can pass the draw itself instead
+(``w=`` / ``noise=``): that is how tests feed both packages the same
+numbers.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+
+H_MIN = 1e-3  # clamp |h| to keep 1/h bounded (worker would be unscheduled)
+
+
+def draw_cn(generator: torch.Generator, shape, device) -> torch.Tensor:
+    """w ~ CN(0, 1): unit-variance circularly-symmetric complex Gaussian."""
+    re = torch.randn(shape, generator=generator, device=device)
+    im = torch.randn(shape, generator=generator, device=device)
+    return torch.complex(re, im) / math.sqrt(2.0)
+
+
+def draw_fades(generator: Optional[torch.Generator] = None, shape=None, *,
+               rho: float = 0.0, prev: Optional[torch.Tensor] = None,
+               w: Optional[torch.Tensor] = None, device=None,
+               clamp: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One round of block-fading magnitudes. Returns ``(|h| f32, g
+    complex64)``. ``prev=None`` starts from the stationary g ~ CN(0, 1);
+    otherwise g = ρ·prev + √(1−ρ²)·w. ``w`` is the CN(0, 1) draw; when it
+    is not given it is drawn from ``generator``."""
+    if w is None:
+        if prev is not None:
+            shape, device = prev.shape, prev.device
+        w = draw_cn(generator, shape, device)
+    w = w.to(torch.complex64)
+    if prev is None:
+        g = w
+    else:
+        innov = math.sqrt(max(1.0 - float(rho) ** 2, 0.0))
+        g = float(rho) * prev + innov * w
+    g = g.to(torch.complex64)
+    h = g.abs().to(torch.float32)
+    if clamp:
+        h = torch.clamp(h, min=H_MIN)
+    return h, g
+
+
+def draw_noise(generator: torch.Generator, shape, noise_var: float,
+               device=None) -> torch.Tensor:
+    """AWGN z_t ~ N(0, σ²I) added at the PS receiver (eq. 12)."""
+    z = torch.randn(shape, generator=generator, device=device)
+    return z * torch.sqrt(torch.tensor(float(noise_var), dtype=torch.float32,
+                                       device=z.device))

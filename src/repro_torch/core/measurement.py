@@ -1,0 +1,35 @@
+"""Measurement matrix Φ (paper §II-B.2).
+
+Port of ``repro/core/measurement.py``. Φ ∈ R^{S×D} has i.i.d. N(0, 1/S)
+entries, drawn with a seeded ``torch.Generator``: the same seed gives the
+same Φ in the port, but not JAX's threefry bits, so parity tests inject
+the reference's Φ.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.device import resolve_device
+
+
+def make_phi(seed: int, s_dim: int, d_dim: int, device=None,
+             generator: Optional[torch.Generator] = None,
+             dtype=torch.float32) -> torch.Tensor:
+    """Φ with entries N(0, 1/S) — the paper's normalization (§V).
+    ``generator`` overrides the one seeded from ``seed``."""
+    dev = resolve_device(device)
+    if generator is None:
+        generator = torch.Generator(device=dev).manual_seed(seed)
+    phi = torch.randn((s_dim, d_dim), generator=generator, device=dev,
+                      dtype=torch.float32)
+    return (phi / torch.sqrt(torch.tensor(float(s_dim), device=dev))).to(
+        dtype)
+
+
+def project_chunked(phi: torch.Tensor, g_chunks: torch.Tensor
+                    ) -> torch.Tensor:
+    """Block-diagonal Φ-projection, the linear half of C(g) (eq. 7):
+    g_chunks (n, D_c) -> (n, S_c)."""
+    return g_chunks @ phi.T

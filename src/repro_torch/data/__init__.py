@@ -1,0 +1,4 @@
+from repro_torch.data.mnist import load_mnist, partition_workers
+from repro_torch.data.synthetic import synthetic_mnist
+
+__all__ = ["load_mnist", "partition_workers", "synthetic_mnist"]

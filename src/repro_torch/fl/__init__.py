@@ -1,0 +1,5 @@
+from repro_torch.fl.rounds import FederatedTrainer, RoundLog, SchedLog
+from repro_torch.fl.worker import local_gradient, stacked_local_gradients
+
+__all__ = ["FederatedTrainer", "RoundLog", "SchedLog", "local_gradient",
+           "stacked_local_gradients"]

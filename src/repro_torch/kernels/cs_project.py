@@ -1,0 +1,82 @@
+"""K2/K3: fused Φ-projection with a sign, pack or residual epilogue.
+
+Port of ``repro/kernels/cs_project.py``. ``project(phi, chunks, mode)``
+computes ``chunks @ Φᵀ`` (phi (S, D), chunks (n, D)) and applies:
+
+- ``"none"``:          x Φᵀ                     (K2, plain projection)
+- ``"sign"``:          sign(x Φᵀ)               (K2, eq. 7 compression)
+- ``"pack"``:          pack32(sign(x Φᵀ))       (K2, int32 (n, S//32))
+- ``"sign_residual"``: y − sign(x Φᵀ)           (K3, BIHT residual)
+- ``"residual"``:      y − x Φᵀ                 (K3, IHT residual)
+
+The packed BIHT residual (``pack_sign_residual``, K5) is not ported yet.
+The CUDA kernel is ``csrc/cs_project.cu``; ``project_plain`` is the
+PyTorch version the CPU runs and the card checks against.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.sign import pack_bool, packed_width, sign_pm1
+
+MODES = ("none", "sign", "pack", "sign_residual", "residual")
+_MODE_ID = {m: i for i, m in enumerate(MODES)}
+_Y_MODES = ("sign_residual", "residual")
+
+
+def _check_mode(mode: str, y) -> None:
+    if mode not in MODES:
+        raise ValueError(f"cs_project: unknown or not yet ported mode "
+                         f"{mode!r}; one of {MODES}")
+    if mode in _Y_MODES and y is None:
+        raise ValueError(f"cs_project: mode {mode!r} needs y")
+
+
+def project_plain(phi: torch.Tensor, chunks: torch.Tensor, *,
+                  mode: str = "sign", y: torch.Tensor = None):
+    _check_mode(mode, y)
+    acc = chunks.to(torch.float32) @ phi.to(torch.float32).T
+    if mode == "pack":
+        packed_width(acc.shape[-1])
+        return pack_bool(acc >= 0)
+    if mode == "sign":
+        out = sign_pm1(acc)
+    elif mode == "sign_residual":
+        out = y.to(torch.float32) - sign_pm1(acc)
+    elif mode == "residual":
+        out = y.to(torch.float32) - acc
+    else:
+        out = acc
+    return out.to(chunks.dtype)
+
+
+def project(phi: torch.Tensor, chunks: torch.Tensor, *, mode: str = "sign",
+            y: torch.Tensor = None) -> torch.Tensor:
+    """phi (S, D), chunks (n, D) -> (n, S) f32, or int32 (n, S//32) words
+    for ``mode="pack"``. A CPU tensor takes the plain version; a CUDA
+    tensor launches the kernel (K2 for none/sign/pack, K3 for the
+    residual modes)."""
+    _check_mode(mode, y)
+    if chunks.device.type == "cpu":
+        return project_plain(phi, chunks, mode=mode, y=y)
+    n, d = chunks.shape
+    s = phi.shape[0]
+    build.require(chunks, "chunks", (n, d))
+    build.require(phi, "phi", (s, d), device=chunks.device)
+    if mode == "pack":
+        out = chunks.new_empty((n, packed_width(s)), dtype=torch.int32)
+    else:
+        out = chunks.new_empty((n, s))
+    y_ptr = None
+    if mode in _Y_MODES:
+        build.require(y, "y", (n, s), device=chunks.device)
+        y_ptr = y.data_ptr()
+    if n == 0:
+        return out
+    rc = build.lib().cs_project_f32(
+        chunks.data_ptr(), phi.data_ptr(), y_ptr, out.data_ptr(), n, s, d,
+        _MODE_ID[mode], build.stream_ptr(chunks))
+    build.check(rc, f"cs_project[{mode}]")
+    build.count("cs_project_resid" if mode in _Y_MODES else "cs_project")
+    return out

@@ -1,0 +1,69 @@
+"""Public wrappers for the port's kernels, and the decode loops composed
+from them.
+
+Port of ``repro/kernels/ops.py``. Every wrapper dispatches on the device of
+its input: a CPU tensor runs the kernel's plain PyTorch version, a CUDA
+tensor launches the hand-written kernel or raises. The kernels mask ragged
+shapes themselves, so unlike the JAX wrappers nothing here pads rows.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import ref
+from repro_torch.kernels.backproject import backproject
+from repro_torch.kernels.cs_project import project
+from repro_torch.kernels.topk_select import topk_select
+
+__all__ = ["backproject", "biht", "cs_project", "cs_project_pack",
+           "cs_project_sign", "iht", "ref", "topk_select"]
+
+
+def cs_project_sign(phi: torch.Tensor, chunks: torch.Tensor) -> torch.Tensor:
+    """sign(chunks @ phiᵀ): phi (S, D), chunks (n, D) -> (n, S)."""
+    return project(phi, chunks, mode="sign")
+
+
+def cs_project_pack(phi: torch.Tensor, chunks: torch.Tensor) -> torch.Tensor:
+    """Fused sign+pack compression: -> int32 (n, S//32) words; unpacking
+    reproduces ``cs_project_sign`` bit for bit (one sign predicate)."""
+    return project(phi, chunks, mode="pack")
+
+
+def cs_project(phi: torch.Tensor, chunks: torch.Tensor) -> torch.Tensor:
+    """Plain projection chunks @ phiᵀ -> (n, S)."""
+    return project(phi, chunks, mode="none")
+
+
+def biht(y: torch.Tensor, phi: torch.Tensor, k: int, iters: int,
+         tau: float) -> torch.Tensor:
+    """Full BIHT decode composed from K1, K3 and K4, exactly as
+    ``repro.kernels.ops.biht``: y (n, S), phi (S, D) -> unit-norm (n, D).
+
+    One round at ``iters`` costs 1 + iters launches of topk_select and
+    backproject and ``iters`` of the sign_residual projection."""
+    s = phi.shape[0]
+    x0 = backproject(torch.zeros((y.shape[0], phi.shape[1]), dtype=y.dtype,
+                                 device=y.device), y, phi, 1.0 / s)
+    x, _ = topk_select(x0, k)
+    for _ in range(iters):
+        resid = project(phi, x, mode="sign_residual", y=y)
+        x = backproject(x, resid, phi, tau / s)
+        x, _ = topk_select(x, k)
+    norm = torch.linalg.vector_norm(x, dim=-1, keepdim=True)
+    return x / torch.clamp(norm, min=1e-12)
+
+
+def iht(y: torch.Tensor, phi: torch.Tensor, k: int, iters: int = 10,
+        tau: float = 1.0, x0=None) -> torch.Tensor:
+    """Fixed-step IHT on real measurements through K3 (residual epilogue),
+    K4 and K1 — the semantics of ``repro.decode.fused.fused_iht``: the
+    ``repro.decode.iht.iht`` loop with the bisection hard threshold."""
+    x = (torch.zeros((y.shape[0], phi.shape[1]), dtype=y.dtype,
+                     device=y.device)
+         if x0 is None else x0.to(y.dtype).contiguous())
+    for _ in range(iters):
+        resid = project(phi, x, mode="residual", y=y)
+        x = backproject(x, resid, phi, tau)
+        x, _ = topk_select(x, k)
+    return x

@@ -1,0 +1,183 @@
+"""The port's kernel wrappers against ``repro.kernels`` on the same NumPy
+inputs. JAX runs its Pallas kernels as ``tests/test_kernels.py`` does
+(``repro.kernels.ops``, interpret mode on the CPU); the port runs on the
+CPU, i.e. through each kernel's plain PyTorch version.
+
+Tolerances:
+- topk_select masks and values: exact. Both run the same 32-round f32
+  bisection, op for op.
+- signs (sign / pack / sign_residual): a lane may differ only where
+  |x·Φ_s| ≤ 2·D·2⁻²⁴·‖x‖·‖Φ_s‖ — each f32 sum of D products is within
+  D·2⁻²⁴·‖x‖‖Φ_s‖ of the exact value, and the two packages sum in
+  different orders.
+- float projections and back-projections: rtol = atol = 1e-5 (f32 sums in
+  another order).
+- BIHT: cosine ≥ 0.999 per row and ≥ 95% support overlap, because one
+  flipped borderline lane changes every later iterate.
+
+The CUDA kernels themselves are held against these plain versions on the
+card by tests/test_torch_cuda.py and chip_smoke.py.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import cs_project as jcs
+from repro.kernels import ops as jops
+from repro_torch.kernels import build, ops
+from repro_torch.kernels.cs_project import project
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a, copy=True))
+
+
+def _phi(s, d, seed):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((s, d)) / np.sqrt(s)).astype(np.float32)
+
+
+def _rows(n, d, seed, k=None):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((n, d)).astype(np.float32)
+    if k is not None:   # k-sparse rows, like the top-κ output the path feeds
+        drop = np.argsort(-np.abs(x), axis=1)[:, k:]
+        np.put_along_axis(x, drop, 0.0, axis=1)
+    return x
+
+
+def _hard_flips(phi, x, got, want):
+    """Lanes where two ±1 arrays differ although the projection is not
+    borderline (see the module docstring)."""
+    d = x.shape[1]
+    acc = x.astype(np.float64) @ phi.astype(np.float64).T
+    lim = 2 * d * 2.0 ** -24 * (np.linalg.norm(x.astype(np.float64), axis=1)
+                                [:, None]
+                                * np.linalg.norm(phi.astype(np.float64),
+                                                 axis=1)[None])
+    return int(np.sum((got != want) & (np.abs(acc) > lim)))
+
+
+@pytest.mark.parametrize("n,d,k", [(8, 256, 5), (13, 1024, 64),
+                                   (3, 512, 1), (7, 1000, 33)])
+def test_topk_select_exact(n, d, k):
+    x = _rows(n, d, n * d + k)
+    x[0, k // 2:] = 0.0      # a row with fewer than k nonzeros
+    x[1, 5] = -x[1, 6]       # a magnitude tie
+    gv, gm = ops.topk_select(_t(x), k)
+    wv, wm = jops.topk_select(jnp.asarray(x), k)
+    assert gm.dtype == torch.int8 and gv.dtype == torch.float32
+    np.testing.assert_array_equal(gm.numpy(), np.asarray(wm))
+    np.testing.assert_array_equal(gv.numpy(), np.asarray(wv))
+    assert gm[0].sum() == d  # the lo fallback selects the whole row
+
+
+def test_topk_select_tail_chunk():
+    """The zero-padded last chunk of the MLP gradient: 1738 live entries
+    of 4096 at the paper's geometry, here 6370 - 6*1024 = 226 of 1024."""
+    x = np.zeros((4, 1024), np.float32)
+    x[:, :226] = _rows(4, 226, 3)
+    x[2, 20:] = 0.0
+    gv, gm = ops.topk_select(_t(x), 32)
+    wv, wm = jops.topk_select(jnp.asarray(x), 32)
+    np.testing.assert_array_equal(gm.numpy(), np.asarray(wm))
+    np.testing.assert_array_equal(gv.numpy(), np.asarray(wv))
+
+
+@pytest.mark.parametrize("n,s,d", [(8, 128, 512), (28, 256, 1024),
+                                   (130, 128, 512)])
+def test_cs_project_epilogues(n, s, d):
+    phi, x = _phi(s, d, 0), _rows(n, d, 1, k=d // 16)
+    jp, jx = jnp.asarray(phi), jnp.asarray(x)
+    raw = ops.cs_project(_t(phi), _t(x)).numpy()
+    np.testing.assert_allclose(raw, np.asarray(jops.cs_project(jp, jx)),
+                               rtol=1e-5, atol=1e-5)
+    sg = ops.cs_project_sign(_t(phi), _t(x)).numpy()
+    assert _hard_flips(phi, x, sg,
+                       np.asarray(jops.cs_project_sign(jp, jx))) == 0
+    words = ops.cs_project_pack(_t(phi), _t(x))
+    assert words.dtype == torch.int32 and words.shape == (n, s // 32)
+    from repro.kernels.sign import unpack_signs as j_unpack
+    unpacked = np.asarray(j_unpack(jnp.asarray(words.numpy().view(
+        np.uint32))))
+    np.testing.assert_array_equal(unpacked, sg)   # pack ≡ sign, one rule
+    assert _hard_flips(phi, x, unpacked, np.asarray(j_unpack(
+        jops.cs_project_pack(jp, jx)))) == 0
+
+
+@pytest.mark.parametrize("mode", ["sign_residual", "residual"])
+def test_cs_project_residual_epilogues(mode):
+    n, s, d = 13, 256, 1024
+    phi, x = _phi(s, d, 2), _rows(n, d, 3, k=64)
+    y = np.where(_rows(n, s, 4) >= 0, 1.0, -1.0).astype(np.float32)
+    got = project(_t(phi), _t(x), mode=mode, y=_t(y)).numpy()
+    want = np.asarray(jcs.project(jnp.asarray(phi), jnp.asarray(x),
+                                  mode=mode, y=jnp.asarray(y),
+                                  interpret=True))
+    if mode == "residual":
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    else:
+        assert set(np.unique(got)) <= {-2.0, 0.0, 2.0}
+        assert _hard_flips(phi, x, y - got, y - want) == 0
+
+
+@pytest.mark.parametrize("n,s,d", [(8, 128, 512), (13, 256, 1024)])
+@pytest.mark.parametrize("tau", [1.0, 1.0 / 256])
+def test_backproject(n, s, d, tau):
+    phi, x, r = _phi(s, d, 5), _rows(n, d, 6), _rows(n, s, 7)
+    got = ops.backproject(_t(x), _t(r), _t(phi), tau).numpy()
+    want = np.asarray(jops.backproject(jnp.asarray(x), jnp.asarray(r),
+                                       jnp.asarray(phi), tau))
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("iters", [0, 5])
+def test_biht_composition(iters):
+    n, s, d, k = 7, 256, 1024, 32
+    phi, xt = _phi(s, d, 8), _rows(n, d, 9, k=k)
+    y = np.where(xt @ phi.T >= 0, 1.0, -1.0).astype(np.float32)
+    got = ops.biht(_t(y), _t(phi), k, iters, 1.0).numpy()
+    want = np.asarray(jops.biht(jnp.asarray(y), jnp.asarray(phi), k, iters,
+                                1.0))
+    cos = np.sum(got * want, axis=1) / (np.linalg.norm(got, axis=1)
+                                       * np.linalg.norm(want, axis=1))
+    assert cos.min() >= 0.999, cos
+    overlap = np.sum((got != 0) & (want != 0), axis=1) / np.maximum(
+        np.sum(want != 0, axis=1), 1)
+    assert overlap.min() >= 0.95, overlap
+    np.testing.assert_allclose(np.linalg.norm(got, axis=1), 1.0, rtol=1e-5)
+
+
+def test_plain_path_builds_nothing(monkeypatch):
+    """A CPU tensor never reaches the kernel library or its counters."""
+    def no_lib():
+        raise AssertionError("a CPU tensor reached the CUDA kernel library")
+
+    monkeypatch.setattr(build, "lib", no_lib)
+    build.reset_launch_counts()
+    x = _t(_rows(4, 256, 10))
+    phi = _t(_phi(64, 256, 11))
+    ops.topk_select(x, 8)
+    ops.cs_project_sign(phi, x)
+    ops.backproject(x, ops.cs_project(phi, x), phi, 0.5)
+    ops.biht(ops.cs_project_sign(phi, x), phi, 8, 2, 1.0)
+    assert set(build.launch_counts().values()) == {0}
+
+
+@pytest.mark.parametrize("bad", ["cpu", "dtype", "shape", "layout"])
+def test_kernel_input_checks(bad):
+    """What a CUDA wrapper refuses before it reaches the kernel (checked
+    here on CPU tensors: the check refuses them first of all)."""
+    t = {"cpu": torch.zeros(4, 8),
+         "dtype": torch.zeros(4, 8, dtype=torch.int32),
+         "shape": torch.zeros(8, 4), "layout": torch.zeros(8, 4).T}[bad]
+    with pytest.raises(ValueError, match="CUDA kernel takes"):
+        build.require(t, "x", (4, 8))
+
+
+def test_unported_modes_raise():
+    with pytest.raises(ValueError, match="not yet ported"):
+        project(torch.zeros(32, 8), torch.zeros(2, 8),
+                mode="pack_sign_residual", y=torch.zeros(2, 1))
+
