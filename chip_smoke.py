@@ -13,9 +13,20 @@ result line):
             13 chunks of 4096, S = 1024, κ = 80, BIHT 30 iterations, U = 10)
             through ``FederatedTrainer`` with ``use_kernels=True``; the
             launch counters must show every kernel of the path
+5a. packed  the packed 1-bit BIHT decode (``decode`` with packed=True) of
+            one worker's §V gradient: equal to the f32 kernel decode, and
+            through K5 / K6
+5b. greedy  the §V round again with the packed codec and the
+            ``greedy_batched`` scheduler through the prefix_eval kernel
+5c. fleet   ``schedule`` on 64 instances of 8192 workers (the fleet
+            shape of benchmarks/sched_bench.py), kernel against plain
 
-The line before the last is ``{"kernels": [...]}``; the last line is
-``{"ok": true, "device": {...}}``. Without a CUDA device the script exits 1.
+Each path's launch counters are set to 0 just before it and read just
+after; a kernel of the path that was not launched fails the run.
+
+The last three lines are ``{"kernels": [...]}``, the card's name and
+power limit, and ``{"ok": true, "device": {...}}``. Without a CUDA device
+the script exits 1.
 """
 from __future__ import annotations
 
@@ -40,6 +51,10 @@ D_MLP = 784 * 64 + 64 + 64 * 10 + 10
 N_CHUNKS = -(-D_MLP // CHUNK)
 U_WORKERS, SAMPLES = 10, 3000
 DECODE_K = min(4 * KAPPA, MEASURE // 2)
+# the fleet scheduling shape and instance recipe of benchmarks/sched_bench.py
+FLEET_B, FLEET_U = 64, 8192
+FLEET_K, FLEET_PMAX, FLEET_NV = 3000.0, 10.0, 1e-4
+FLEET_GEOM = dict(D=50890, S=1000, kappa=1000)
 
 
 def log(msg: str) -> None:
@@ -97,6 +112,18 @@ def time_ms(fn, calls: int = 20, reps: int = 10) -> float:
     e1.record()
     e1.synchronize()
     return e0.elapsed_time(e1) / (reps * calls)
+
+
+def host_ms(fn, reps: int = 10) -> list:
+    """Host-clock ms of ``fn()`` calls, each ended by a synchronise."""
+    out = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
 
 
 # -- phase 1 ------------------------------------------------------------------
@@ -293,16 +320,137 @@ def check_kernels(dev) -> dict:
                 library_ms=time_ms(lambda: torch.matmul(r, phi)),
                 bound=bound(4 * (2 * n * d + n * s + s * d),
                             2 * n * s * d + 2 * n * d))
+    check_packed_kernels(dev, gen, phi_of, results)
+    check_prefix_kernel(dev, gen, results)
     torch.cuda.synchronize()
     log(f"topk_select at the compression shape n=130 k={KAPPA}: kernel "
         f"{results['topk_select']['ms_compress']:.4f} ms")
     for name, r in results.items():
+        lib = ("n/a" if r["library_ms"] is None
+               else f"{r['library_ms']:.4f} ms")
+        extra = (f" (cumsum only {r['cumsum_only_ms']:.4f} ms)"
+                 if "cumsum_only_ms" in r else "")
         log(f"{name}: {r['shape']}: kernel {r['ms']:.4f} ms (back to back "
             f"{r['call_ms']:.4f} ms a call), plain "
-            f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
-            f"bound {r['bound'][0]:.4f} ms ({r['bound'][1]})")
+            f"{r['plain_ms']:.4f} ms, library {lib}{extra}, "
+            f"bound {r['bound'][0]:.5f} ms ({r['bound'][1]})")
     build.reset_launch_counts()
     return results
+
+
+def check_packed_kernels(dev, gen, phi_of, results) -> None:
+    """K5 cs_project pack_sign_residual and K6 backproject_packed at the
+    packed decode's shape and a ragged one. Exact, kernel against kernel:
+    K5's planes are K3's sign residual (one accumulation), K6 on the
+    planes is K4 on 2·(plus − minus). Against the plain versions: signs
+    outside the borderline bound, K6 within rtol = atol = 1e-5."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.backproject import packed_residual
+    from repro_torch.kernels.cs_project import project
+    from repro_torch.kernels.sign import pack_signs
+
+    for n, s, d in [(N_CHUNKS, MEASURE, CHUNK), (7, 96, 1000)]:
+        phi = phi_of(s, d)
+        x = sparse_rows(n, d, max(1, d * DECODE_K // CHUNK), gen, dev)
+        x = x / torch.linalg.vector_norm(x, dim=1, keepdim=True)
+        y = torch.where(torch.randn(n, s, generator=gen, device=dev) >= 0,
+                        1.0, -1.0)
+        yp = pack_signs(y)
+        plus, minus = ops.cs_pack_sign_residual(phi, x, yp)
+        got = packed_residual(plus, minus)
+        if not torch.equal(got, project(phi, x, mode="sign_residual", y=y)):
+            fail(f"cs_project pack_sign_residual {n, s, d}: the planes "
+                 "differ from K3's sign residual")
+        pplus, pminus = ref.cs_pack_sign_residual_ref(phi, x, yp)
+        want = packed_residual(pplus, pminus)
+        flips, hard = sign_flips(phi, x, y - got, y - want)
+        if hard:
+            fail(f"cs_project pack_sign_residual {n, s, d}: {hard} lanes "
+                 "differ beyond the borderline bound")
+        log(f"K5 cs_project_pack_resid ok at n={n} S={s} D={d}: equal to "
+            f"K3, {flips} borderline flips against plain")
+        w = s // 32
+        if n == N_CHUNKS:
+            results["cs_project_pack_resid"] = dict(
+                shape=f"n={n} S={s} D={d} pack_sign_residual",
+                max_abs_err=float((got - want).abs().max()),
+                ms=time_ms(lambda: ops.cs_pack_sign_residual(phi, x, yp)),
+                call_ms=call_ms(lambda: ops.cs_pack_sign_residual(phi, x,
+                                                                  yp)),
+                plain_ms=time_ms(lambda: ref.cs_pack_sign_residual_ref(
+                    phi, x, yp)),
+                library_ms=time_ms(lambda: torch.matmul(x, phi.T)),
+                bound=bound(4 * (n * d + s * d + 3 * n * w),
+                            2 * n * s * d))
+
+        r = packed_residual(pplus, pminus)
+        err = 0.0
+        for tau in (1.0 / s, 1.0):
+            got = ops.backproject_packed(x, pplus, pminus, phi, tau)
+            err = max(err, close(got, ref.backproject_packed_ref(
+                x, pplus, pminus, phi, tau)))
+            if not torch.equal(got, ops.backproject(x, r, phi, tau)):
+                fail(f"backproject_packed {n, s, d}: differs from K4 on "
+                     "the equivalent f32 residual")
+        log(f"K6 backproject_packed ok at n={n} S={s} D={d}: equal to K4, "
+            f"max err {err:.2e} against plain")
+        if n == N_CHUNKS:
+            tau = 1.0 / s
+            results["backproject_packed"] = dict(
+                shape=f"n={n} S={s} D={d}", max_abs_err=err,
+                ms=time_ms(lambda: ops.backproject_packed(x, pplus, pminus,
+                                                          phi, tau)),
+                call_ms=call_ms(lambda: ops.backproject_packed(
+                    x, pplus, pminus, phi, tau)),
+                plain_ms=time_ms(lambda: ref.backproject_packed_ref(
+                    x, pplus, pminus, phi, tau)),
+                library_ms=time_ms(lambda: torch.matmul(r, phi)),
+                bound=bound(4 * (2 * n * d + s * d + 2 * n * w),
+                            2 * n * s * d + 2 * n * d))
+
+
+def fleet_problem(h, dev):
+    """benchmarks/sched_bench.py's instances for the channels ``h``."""
+    from repro_torch.sched import BatchedProblem
+    from repro_torch.theory import AnalysisConstants
+    return BatchedProblem.from_arrays(
+        h, FLEET_K, FLEET_PMAX, FLEET_NV,
+        const=AnalysisConstants(rho1=200.0, G=1.0), device=dev,
+        **FLEET_GEOM)
+
+
+def check_prefix_kernel(dev, gen, results) -> None:
+    """K7 prefix_eval at the fleet shape, the FL round's (1, U) and a
+    ragged one, K_i = 3000: every prefix sum is exact in f32, so R equals
+    the plain version exactly. No one PyTorch call computes the function:
+    ``library_ms`` is null, and ``torch.cumsum`` over the same (B, U) is
+    timed beside it as "cumsum only"."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.sched import pack_coefs
+
+    for b, u in [(FLEET_B, FLEET_U), (1, U_WORKERS), (5, 1000)]:
+        h = torch.randn(b, u, generator=gen, device=dev).abs() + 1e-3
+        bp = fleet_problem(h, dev)
+        caps = bp.caps()
+        order = torch.sort(-caps, dim=-1, stable=True).indices
+        caps_s = torch.gather(caps, -1, order)
+        k_s = torch.gather(bp.k_weights, -1, order)
+        coefs = pack_coefs(bp)
+        got = ops.prefix_eval(caps_s, k_s, coefs)
+        if not torch.equal(got, ref.prefix_eval_ref(caps_s, k_s, coefs)):
+            fail(f"prefix_eval ({b}, {u}): R differs from the plain version")
+        log(f"K7 prefix_eval ok at B={b} U={u}: R exact")
+        if (b, u) == (FLEET_B, FLEET_U):
+            results["prefix_eval"] = dict(
+                shape=f"B={b} U={u} K=3000", max_abs_err=0.0,
+                ms=time_ms(lambda: ops.prefix_eval(caps_s, k_s, coefs)),
+                call_ms=call_ms(lambda: ops.prefix_eval(caps_s, k_s,
+                                                        coefs)),
+                plain_ms=time_ms(lambda: ref.prefix_eval_ref(caps_s, k_s,
+                                                             coefs)),
+                library_ms=None,
+                cumsum_only_ms=time_ms(lambda: torch.cumsum(k_s, dim=-1)),
+                bound=bound(4 * (3 * b * u + 8 * b), 11 * b * u))
 
 # -- phase 4 ------------------------------------------------------------------
 
@@ -361,25 +509,27 @@ def median(xs):
     return float(np.median(np.asarray(xs)))
 
 
-def where_the_time_goes(tr, agg: str) -> None:
+def where_the_time_goes(tr, agg: str) -> float:
     """After the counted run: ten more rounds timed one by one (host
     clock, synchronised), the stages of one round timed apart (median of
-    five, synchronised between stages), and a torch.profiler trace of
-    three rounds for the device's busy share and its top kernels."""
+    five, synchronised between stages; the scheduler's alone under
+    ``greedy_batched``), and a torch.profiler trace of three rounds for
+    the device's busy share and its top kernels. Returns the median
+    ms/round of the ten."""
     from repro_torch.core.obcsaa import compress_chunks, reconstruct_chunks
     from repro_torch.core.sparsify import flatten_pytree
     from repro_torch.engine.core import stacked_grads
 
     t_next = len(tr.sched_logs)
-    per_round = []
-    for t in range(t_next, t_next + 10):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        tr.run_round(t)
-        torch.cuda.synchronize()
-        per_round.append((time.perf_counter() - t0) * 1e3)
+    rounds = iter(range(t_next, t_next + 10))
+    per_round = host_ms(lambda: tr.run_round(next(rounds)), 10)
     log(f"{agg}: per-round ms after the run: median {median(per_round):.3f}"
         f", min {min(per_round):.3f}, max {max(per_round):.3f}")
+
+    if tr.cfg.scheduler == "greedy_batched":
+        h, _ = tr.fns.fade_step(tr.state.fade)
+        sched = host_ms(lambda: tr.fns.schedule(h, tr.k_weights), 5)
+        log(f"{agg}: schedule stage {median(sched):.3f} ms (median of 5)")
 
     if agg == "obcsaa":
         ob = tr.cfg.obcsaa
@@ -439,84 +589,239 @@ def where_the_time_goes(tr, agg: str) -> None:
     for e in host[:8]:
         log(f"  host {e.self_cpu_time_total / 1e3:9.3f} ms  {e.count:5d}x  "
             f"{e.key[:70]}")
+    return median(per_round)
 
 
-def run_slice(dev) -> dict:
-    """The §V experiment through ``FederatedTrainer`` on the card:
-    30 rounds, eval every 10, kernels on; then the same rounds with the
-    perfect aggregator beside it. Returns the kernels' launch counts of
-    the kernel run."""
-    from repro_torch.core.obcsaa import OBCSAAConfig, comm_stats
-    from repro_torch.data import load_mnist, partition_workers
-    from repro_torch.engine import FLConfig
-    from repro_torch.fl import FederatedTrainer
-    from repro_torch.kernels import build
-    from repro_torch.models import mlp_mnist as mm
+class Task:
+    """The §V task on the card: data, MLP at seed 0, loss and eval."""
 
-    t0 = time.perf_counter()
-    xtr, ytr, xte, yte = load_mnist()
-    wx, wy = partition_workers(xtr, ytr, U_WORKERS, SAMPLES, seed=0)
-    data = {"x": torch.from_numpy(wx), "y": torch.from_numpy(wy)}
-    xe, ye = torch.from_numpy(xte).to(dev), torch.from_numpy(yte).to(dev)
-    log(f"data: {len(xtr)} train / {len(xte)} test samples, "
-        f"{time.perf_counter() - t0:.1f} s")
+    def __init__(self, dev):
+        from repro_torch.data import load_mnist, partition_workers
+        from repro_torch.models import mlp_mnist as mm
 
-    def eval_fn(p):
-        return mm.mlp_mnist_loss(p, xe, ye), mm.mlp_mnist_accuracy(p, xe, ye)
+        t0 = time.perf_counter()
+        xtr, ytr, xte, yte = load_mnist()
+        wx, wy = partition_workers(xtr, ytr, U_WORKERS, SAMPLES, seed=0)
+        self.data = {"x": torch.from_numpy(wx), "y": torch.from_numpy(wy)}
+        xe, ye = torch.from_numpy(xte).to(dev), torch.from_numpy(yte).to(dev)
+        log(f"data: {len(xtr)} train / {len(xte)} test samples, "
+            f"{time.perf_counter() - t0:.1f} s")
+        self.eval_fn = lambda p: (mm.mlp_mnist_loss(p, xe, ye),
+                                  mm.mlp_mnist_accuracy(p, xe, ye))
+        self.loss_fn = lambda p, d: mm.mlp_mnist_loss(p, d["x"], d["y"])
+        self.params0 = mm.init_mlp_mnist(seed=0, device=dev)
+        if mm.param_dim(self.params0) != D_MLP:
+            fail(f"MLP has {mm.param_dim(self.params0)} parameters, not "
+                 f"{D_MLP}")
+        self.loss0, self.acc0 = (float(v) for v in self.eval_fn(self.params0))
 
-    def loss_fn(p, d):
-        return mm.mlp_mnist_loss(p, d["x"], d["y"])
+    def obcsaa(self, **kw):
+        from repro_torch.core.obcsaa import OBCSAAConfig
+        return OBCSAAConfig(chunk=CHUNK, measure=MEASURE, topk=KAPPA,
+                            biht_iters=BIHT_ITERS, noise_var=1e-4,
+                            p_max=10.0, use_kernels=True, **kw)
 
-    params0 = mm.init_mlp_mnist(seed=0, device=dev)
-    if mm.param_dim(params0) != D_MLP:
-        fail(f"MLP has {mm.param_dim(params0)} parameters, not {D_MLP}")
-    loss0, acc0 = (float(v) for v in eval_fn(params0))
-    ob = OBCSAAConfig(chunk=CHUNK, measure=MEASURE, topk=KAPPA,
-                      biht_iters=BIHT_ITERS, noise_var=1e-4, p_max=10.0,
-                      use_kernels=True)
-    st = comm_stats(ob, D_MLP)
-    log(f"slice: D={D_MLP}, {st['n_chunks']} chunks of {CHUNK}, S={MEASURE}"
-        f", κ={KAPPA}, decode k={ob.decode_k}, BIHT {BIHT_ITERS}, "
-        f"U={U_WORKERS} x {SAMPLES} samples, {ROUNDS} rounds")
-    runs = {}
-    counts = None
-    for agg in ("obcsaa", "perfect"):
-        cfg = FLConfig(aggregator=agg, learning_rate=0.1, rounds=ROUNDS,
-                       eval_every=EVAL_EVERY, seed=0, obcsaa=ob)
-        tr = FederatedTrainer(cfg, loss_fn, params0, data,
-                              np.full(U_WORKERS, float(SAMPLES)),
-                              eval_fn=eval_fn, device=dev)
+    def trainer(self, dev, **cfg_kw):
+        from repro_torch.engine import FLConfig
+        from repro_torch.fl import FederatedTrainer
+        cfg = FLConfig(learning_rate=0.1, rounds=ROUNDS,
+                       eval_every=EVAL_EVERY, seed=0, **cfg_kw)
+        return FederatedTrainer(cfg, self.loss_fn, self.params0, self.data,
+                                np.full(U_WORKERS, float(SAMPLES)),
+                                eval_fn=self.eval_fn, device=dev)
+
+    def run(self, tr, label: str):
+        """The counted 30-round run: counters set to 0 just before it and
+        read just after. Returns (ms/round, logs, launch counts)."""
+        from repro_torch.kernels import build
         torch.cuda.synchronize()
         build.reset_launch_counts()
         t = time.perf_counter()
         logs = tr.run(ROUNDS)
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t) * 1e3 / ROUNDS
+        counts = build.launch_counts()
+        log(f"{label}: {ms:.2f} ms/round (host clock, eval cadence "
+            f"included); loss {self.loss0:.4f} -> "
+            + " -> ".join(f"{l.loss:.4f}@{l.round}" for l in logs)
+            + f"; accuracy {self.acc0:.4f} -> {logs[-1].accuracy:.4f}")
+        if not all(np.isfinite([l.loss, l.accuracy]).all() for l in logs):
+            fail(f"{label}: non-finite loss or accuracy")
+        if not logs[-1].loss < self.loss0:
+            fail(f"{label}: loss did not fall ({self.loss0} -> "
+                 f"{logs[-1].loss})")
+        return ms, logs, counts
+
+
+def expect_counts(path: str, counts: dict, per_call: dict,
+                  calls: int) -> None:
+    """The path launched each of its kernels ``per_call[k] * calls`` times
+    and no other kernel."""
+    want = {k: per_call.get(k, 0) * calls for k in counts}
+    if counts != want:
+        fail(f"{path}: launch counts {counts} != {want} ({per_call} per "
+             "call)")
+    log(f"{path}: launches {({k: v for k, v in counts.items() if v})} = "
+        f"{calls} x {per_call}")
+
+
+def run_slice(dev, task: Task):
+    """Phase 4: the §V experiment through ``FederatedTrainer`` on the
+    card: 30 rounds, eval every 10, kernels on; then the same rounds with
+    the perfect aggregator beside it. Returns the launch counts and the
+    steady ms/round of the kernel run."""
+    from repro_torch.core.obcsaa import comm_stats
+
+    ob = task.obcsaa()
+    st = comm_stats(ob, D_MLP)
+    log(f"slice: D={D_MLP}, {st['n_chunks']} chunks of {CHUNK}, S={MEASURE}"
+        f", κ={KAPPA}, decode k={ob.decode_k}, BIHT {BIHT_ITERS}, "
+        f"U={U_WORKERS} x {SAMPLES} samples, {ROUNDS} rounds")
+    runs = {}
+    for agg in ("obcsaa", "perfect"):
+        tr = task.trainer(dev, aggregator=agg, obcsaa=ob)
+        ms, logs, counts = task.run(tr, agg)
         if agg == "obcsaa":
-            counts = build.launch_counts()
+            slice_counts = counts
             state = [*tr.state.params.values(), tr.state.fade,
                      tr.state.prev_beta, tr.phi, tr.k_weights]
             off = [tuple(x.shape) for x in state if x.device.type != "cuda"]
             if off:
                 fail(f"carried state off the card: {off}")
-        runs[agg] = (ms, logs)
-        where_the_time_goes(tr, agg)
-        log(f"{agg}: {ms:.2f} ms/round (host clock, eval cadence "
-            f"included); loss {loss0:.4f} -> "
-            + " -> ".join(f"{l.loss:.4f}@{l.round}" for l in logs)
-            + f"; accuracy {acc0:.4f} -> {logs[-1].accuracy:.4f}")
-        if not all(np.isfinite([l.loss, l.accuracy]).all() for l in logs):
-            fail(f"{agg}: non-finite loss or accuracy")
-        if not logs[-1].loss < loss0:
-            fail(f"{agg}: loss did not fall ({loss0} -> {logs[-1].loss})")
-    want = {k: v * ROUNDS for k, v in PER_ROUND.items()}
-    if counts != want:
-        fail(f"launch counts {counts} != {want} ({PER_ROUND} per round)")
-    log(f"launches over {ROUNDS} rounds: {counts} = per round {PER_ROUND}")
+        runs[agg] = (ms, logs, where_the_time_goes(tr, agg))
+    expect_counts("slice", slice_counts, PER_ROUND, ROUNDS)
     log("slice: obcsaa vs perfect final loss "
         f"{runs['obcsaa'][1][-1].loss:.4f} vs {runs['perfect'][1][-1].loss:.4f}"
         f", accuracy {runs['obcsaa'][1][-1].accuracy:.4f} vs "
         f"{runs['perfect'][1][-1].accuracy:.4f}")
+    return slice_counts, runs["obcsaa"][2]
+
+
+# -- phase 5 ------------------------------------------------------------------
+
+def run_packed_decode(dev, task: Task) -> dict:
+    """Phase 5a: one worker's §V gradient (the MLP at seed 0, worker 0),
+    13 chunks top-κ'd through K1 and compressed to packed y through K2
+    ``pack``, decoded by ``decode(..., packed=True, use_kernels=True)``.
+    It must equal the f32 kernel decode of ``unpack_signs(y)`` exactly
+    and agree with the plain decode on the card (cosine ≥ 0.99 per
+    chunk)."""
+    from dataclasses import replace
+
+    from repro_torch.decode import DecodeConfig, decode
+    from repro_torch.engine.core import stacked_grads
+    from repro_torch.kernels import build, ops
+    from repro_torch.kernels.sign import unpack_signs
+
+    phi = task.obcsaa().phi(dev)
+    one = {k: v[:1].to(dev) for k, v in task.data.items()}
+    g = stacked_grads(task.loss_fn, task.params0, one)[0]
+    gc = torch.nn.functional.pad(g, (0, N_CHUNKS * CHUNK - D_MLP)).reshape(
+        N_CHUNKS, CHUNK).contiguous()
+    sparse, _ = ops.topk_select(gc, KAPPA)
+    y_packed = ops.cs_project_pack(phi, sparse)
+    y_f32 = unpack_signs(y_packed)
+    cfg = DecodeConfig(algorithm="biht", iters=BIHT_ITERS, packed=True,
+                       use_kernels=True)
+    cfg_f32 = replace(cfg, packed=False)
+    torch.cuda.synchronize()
+    build.reset_launch_counts()
+    xhat = decode(y_packed, phi, DECODE_K, cfg)
+    torch.cuda.synchronize()
+    counts = build.launch_counts()
+    expect_counts("packed decode", counts,
+                  {"topk_select": 1 + BIHT_ITERS, "backproject": 1,
+                   "cs_project_pack_resid": BIHT_ITERS,
+                   "backproject_packed": BIHT_ITERS}, 1)
+    if xhat.shape != (N_CHUNKS, CHUNK) or not bool(
+            torch.isfinite(xhat).all()):
+        fail(f"packed decode: not finite of shape ({N_CHUNKS}, {CHUNK})")
+    if not torch.equal(xhat, decode(y_f32, phi, DECODE_K, cfg_f32)):
+        fail("packed decode differs from the f32 kernel decode")
+    plain = decode(y_packed, phi, DECODE_K, replace(cfg, use_kernels=False))
+
+    def row_cos(a, b):
+        return (a * b).sum(-1) / (torch.linalg.vector_norm(a, dim=-1)
+                                  * torch.linalg.vector_norm(b, dim=-1))
+
+    cos = row_cos(xhat, plain)
+    if float(cos.min()) < 0.99:
+        fail(f"packed decode vs plain: cosine {cos.tolist()} < 0.99")
+    sent = row_cos(xhat, sparse)
+    log(f"packed decode: equal to the f32 kernel decode; cosine against "
+        f"the plain decode min {float(cos.min()):.6f}; against the sent "
+        f"sparse chunks min {float(sent.min()):.4f}, mean "
+        f"{float(sent.mean()):.4f}")
+    tp, tf = [], []
+    for _ in range(5):      # in turns: packed, f32, f32, packed
+        tp += host_ms(lambda: decode(y_packed, phi, DECODE_K, cfg), 1)
+        tf += host_ms(lambda: decode(y_f32, phi, DECODE_K, cfg_f32), 2)
+        tp += host_ms(lambda: decode(y_packed, phi, DECODE_K, cfg), 1)
+    log(f"packed decode: {median(tp):.3f} ms (median of {len(tp)}, host "
+        f"clock) against the f32 kernel decode's {median(tf):.3f} ms")
+    return counts
+
+
+def run_greedy_slice(dev, task: Task, slice_steady_ms: float) -> dict:
+    """Phase 5b: the §V round with the packed codec (K2 ``pack``) and the
+    ``greedy_batched`` scheduler through K7, 30 rounds, eval every 10."""
+    from repro_torch.sched import SchedConfig
+
+    tr = task.trainer(dev, aggregator="obcsaa",
+                      obcsaa=task.obcsaa(packed=True),
+                      scheduler="greedy_batched",
+                      sched_cfg=SchedConfig(use_kernel=True))
+    label = "greedy_batched + packed"
+    ms, logs, counts = task.run(tr, label)
+    per_round = dict(PER_ROUND, prefix_eval=1)
+    expect_counts(label, counts, per_round, ROUNDS)
+    log(f"{label}: n_scheduled per round "
+        f"{[s.n_scheduled for s in tr.sched_logs]}")
+    steady = where_the_time_goes(tr, label)
+    log(f"{label}: {steady:.3f} ms/round steady against the slice's "
+        f"{slice_steady_ms:.3f} ms")
+    return counts
+
+
+def run_fleet(dev) -> dict:
+    """Phase 5c: ``schedule(BatchedProblem, "greedy_batched")`` on
+    benchmarks/sched_bench.py's fleet: 64 instances of 8192 workers,
+    instance i drawn from numpy's default_rng(20000 + i), K_i = 3000,
+    P^Max = 10, σ² = 1e-4, ρ1 = 200, G = 1. β and b_t (and R) must equal
+    the plain route's exactly."""
+    from repro_torch.kernels import build
+    from repro_torch.sched import SchedConfig, schedule
+
+    h = np.stack([np.abs(np.random.default_rng(20_000 + i).normal(
+        size=FLEET_U)) + 1e-3 for i in range(FLEET_B)])
+    bp = fleet_problem(h, dev)
+    kcfg, pcfg = SchedConfig(use_kernel=True), SchedConfig()
+    schedule(bp, "greedy_batched", kcfg)             # warm
+    torch.cuda.synchronize()
+    build.reset_launch_counts()
+    beta, b_t, r = schedule(bp, "greedy_batched", kcfg)
+    torch.cuda.synchronize()
+    counts = build.launch_counts()
+    expect_counts("fleet", counts, {"prefix_eval": 1}, 1)
+    pbeta, pb_t, pr = schedule(bp, "greedy_batched", pcfg)
+    if not (torch.equal(beta, pbeta) and torch.equal(b_t, pb_t)
+            and torch.equal(r, pr)):
+        fail("fleet: the kernel route's β, b_t or R differ from the plain "
+             "route's")
+    n = beta.sum(-1)
+    if not (bool((n >= 1).all()) and bool((b_t > 0).all())):
+        fail("fleet: an instance scheduled nobody")
+    tk, tp = [], []
+    for _ in range(10):     # in turns: kernel, plain, plain, kernel
+        tk += host_ms(lambda: schedule(bp, "greedy_batched", kcfg), 1)
+        tp += host_ms(lambda: schedule(bp, "greedy_batched", pcfg), 2)
+        tk += host_ms(lambda: schedule(bp, "greedy_batched", kcfg), 1)
+    log(f"fleet: B={FLEET_B} U={FLEET_U}: β and b_t equal to the plain "
+        f"route; scheduled {int(n.min())}..{int(n.max())} of {FLEET_U}; "
+        f"kernel route {median(tk):.3f} ms a call = "
+        f"{FLEET_B / median(tk) * 1e3:.0f} instances/s, plain route "
+        f"{median(tp):.3f} ms = {FLEET_B / median(tp) * 1e3:.0f} "
+        "instances/s (median of 20, host clock)")
     return counts
 
 
@@ -529,7 +834,19 @@ SOURCES = {
                          "src/repro/kernels/cs_project.py:78"),
     "backproject": ("src/repro_torch/kernels/csrc/backproject.cu",
                     "src/repro/kernels/backproject.py:42"),
+    "cs_project_pack_resid": ("src/repro_torch/kernels/csrc/cs_project.cu",
+                              "src/repro/kernels/cs_project.py:96"),
+    "backproject_packed": ("src/repro_torch/kernels/csrc/backproject.cu",
+                           "src/repro/kernels/backproject.py:60"),
+    "prefix_eval": ("src/repro_torch/kernels/csrc/prefix_eval.cu",
+                    "src/repro/kernels/prefix_eval.py:45"),
 }
+# the path whose run gives a kernel's ``launches``
+MAIN_PATH = {"topk_select": "slice", "cs_project": "slice",
+             "cs_project_resid": "slice", "backproject": "slice",
+             "cs_project_pack_resid": "packed_decode",
+             "backproject_packed": "packed_decode",
+             "prefix_eval": "greedy_round"}
 
 
 def main() -> None:
@@ -545,19 +862,29 @@ def main() -> None:
     build_kernels()
     results = check_kernels(dev)
     check_round_against_plain(dev)
-    launches = run_slice(dev)
+    task = Task(dev)
+    paths = {}
+    paths["slice"], slice_steady = run_slice(dev, task)
+    paths["packed_decode"] = run_packed_decode(dev, task)
+    paths["greedy_round"] = run_greedy_slice(dev, task, slice_steady)
+    paths["fleet"] = run_fleet(dev)
     kernels = []
     for name, r in results.items():
         source, replaces = SOURCES[name]
         kernels.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces,
+            "launches": paths[MAIN_PATH[name]][name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
             "bound_by": r["bound"][1], "library_ms": r["library_ms"],
             "result": "ok", "shape": r["shape"], "call_ms": r["call_ms"],
+            "launches_by_path": {p: c[name] for p, c in paths.items()
+                                 if c[name]},
             **({"ms_compress_n130": r["ms_compress"]}
-               if "ms_compress" in r else {})})
+               if "ms_compress" in r else {}),
+            **({"cumsum_only_ms": r["cumsum_only_ms"]}
+               if "cumsum_only_ms" in r else {})})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

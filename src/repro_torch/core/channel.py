@@ -15,7 +15,20 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.device import resolve_device
+
 H_MIN = 1e-3  # clamp |h| to keep 1/h bounded (worker would be unscheduled)
+
+
+def _draw_device(generator: Optional[torch.Generator], device
+                 ) -> torch.device:
+    """Where a draw lands: ``device`` when given, else the generator's
+    device, else CUDA (``resolve_device``), never the CPU by default."""
+    if device is not None:
+        return torch.device(device)
+    if generator is not None:
+        return generator.device
+    return resolve_device(None)
 
 
 def draw_cn(generator: torch.Generator, shape, device) -> torch.Tensor:
@@ -32,11 +45,12 @@ def draw_fades(generator: Optional[torch.Generator] = None, shape=None, *,
     """One round of block-fading magnitudes. Returns ``(|h| f32, g
     complex64)``. ``prev=None`` starts from the stationary g ~ CN(0, 1);
     otherwise g = ρ·prev + √(1−ρ²)·w. ``w`` is the CN(0, 1) draw; when it
-    is not given it is drawn from ``generator``."""
+    is not given it is drawn from ``generator`` on ``device``, which
+    defaults to ``prev``'s device, else the generator's, else CUDA."""
     if w is None:
         if prev is not None:
             shape, device = prev.shape, prev.device
-        w = draw_cn(generator, shape, device)
+        w = draw_cn(generator, shape, _draw_device(generator, device))
     w = w.to(torch.complex64)
     if prev is None:
         g = w
@@ -50,9 +64,11 @@ def draw_fades(generator: Optional[torch.Generator] = None, shape=None, *,
     return h, g
 
 
-def draw_noise(generator: torch.Generator, shape, noise_var: float,
-               device=None) -> torch.Tensor:
-    """AWGN z_t ~ N(0, σ²I) added at the PS receiver (eq. 12)."""
-    z = torch.randn(shape, generator=generator, device=device)
+def draw_noise(generator: Optional[torch.Generator], shape,
+               noise_var: float, device=None) -> torch.Tensor:
+    """AWGN z_t ~ N(0, σ²I) added at the PS receiver (eq. 12), on
+    ``device``, else the generator's device, else CUDA."""
+    z = torch.randn(shape, generator=generator,
+                    device=_draw_device(generator, device))
     return z * torch.sqrt(torch.tensor(float(noise_var), dtype=torch.float32,
                                        device=z.device))

@@ -7,6 +7,7 @@ the reference's Φ.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -33,3 +34,14 @@ def project_chunked(phi: torch.Tensor, g_chunks: torch.Tensor
     """Block-diagonal Φ-projection, the linear half of C(g) (eq. 7):
     g_chunks (n, D_c) -> (n, S_c)."""
     return g_chunks @ phi.T
+
+
+def reconstruction_constant(delta: float) -> float:
+    """Paper eq. (46): C = 2ϖ/(1−ϱ), ϖ = 2√(1+δ)/√(1−δ), ϱ = √2·δ/(1−δ).
+
+    Valid for δ ≤ √2 − 1 (Candès RIP condition); raises otherwise."""
+    varpi = 2.0 * math.sqrt(1.0 + delta) / math.sqrt(1.0 - delta)
+    varrho = math.sqrt(2.0) * delta / (1.0 - delta)
+    if varrho >= 1.0:
+        raise ValueError(f"delta={delta} violates RIP reconstruction bound")
+    return 2.0 * varpi / (1.0 - varrho)

@@ -3,8 +3,11 @@
 Port of ``repro/decode/registry.py``. Registered here: ``biht`` (the paper's
 §V choice), ``iht`` and its warm-capable alias ``iht_warm``. With
 ``use_kernels`` the ``biht`` and ``iht`` loops run through the CUDA kernels
-(``repro_torch.kernels.ops``). Not ported yet: ``niht``, ``iht_fused``,
-``validate`` modes other than ``"off"`` and packed ``y``.
+(``repro_torch.kernels.ops``). With ``packed``, ``biht`` takes ``y`` as
+int32 words of 32 signs each: through the packed loop
+(``decode/fused.py``) with kernels, else unpacked and through
+``biht_sign``. Not ported yet: ``niht``, ``iht_fused`` and ``validate``
+modes other than ``"off"``.
 
 ``decode`` forwards ``x0`` only to decoders registered with ``warm=True``,
 so cold decoders ignore whatever state the caller carries.
@@ -15,8 +18,10 @@ import functools
 from dataclasses import dataclass
 from typing import Callable, Dict
 
+from repro_torch.decode.fused import fused_biht_packed
 from repro_torch.decode.iht import (biht_sign, hard_threshold,
                                     hard_threshold_bisect, iht)
+from repro_torch.kernels.sign import unpack_signs
 
 
 @dataclass(frozen=True)
@@ -30,6 +35,9 @@ class DecodeConfig:
     use_kernels: bool = False
     ht: str = "sort"
     ht_iters: int = 40
+    # y arrives as int32 words of 32 signs (kernels/sign.py codec); only
+    # the sign-consistency ``biht`` decodes packed symbols
+    packed: bool = False
     validate: str = "off"
 
 
@@ -73,7 +81,8 @@ def _ht_fn(cfg: DecodeConfig):
 
 def decode(y, phi, k: int, cfg: DecodeConfig, x0=None):
     """Decode the post-processed aggregate ŷ (eq. 13) back to the sparse
-    gradient estimate (eq. 43). y: (n, S); phi: (S, D) -> (n, D)."""
+    gradient estimate (eq. 43). y: (n, S); phi: (S, D) -> (n, D). With
+    ``cfg.packed``, y is instead the int32 sign words (n, S//32)."""
     if cfg.validate != "off":
         raise NotImplementedError(
             f"decode: validate={cfg.validate!r} is not ported yet (only "
@@ -99,6 +108,10 @@ def _iht_warm(y, phi, k, cfg, x0):
 
 @register_decoder("biht")
 def _biht(y, phi, k, cfg, x0):
+    if cfg.packed:
+        if cfg.use_kernels:
+            return fused_biht_packed(y, phi, k, cfg.iters, cfg.tau)
+        y = unpack_signs(y, phi.dtype)
     if cfg.use_kernels:
         from repro_torch.kernels import ops as kops
         return kops.biht(y, phi, k, cfg.iters, cfg.tau)

@@ -4,8 +4,10 @@
 over the round functions, as the reference does:
 
 - ``fade_step``            Gauss-Markov block-fading draw (core/channel.py)
-- ``schedule``             P2 for the ``all`` scheduler: β = 1 and
-                           b_t = min_i h_i √P^Max / K_i (sched/problem.py)
+- ``schedule``             P2 for one round's channels as a B = 1
+                           ``BatchedProblem``: ``all`` (β = 1, b_t =
+                           min_i h_i √P^Max / K_i) or ``greedy_batched``
+                           (the prefix sweep, sched/greedy.py)
 - ``round_given_schedule`` local gradients (eq. 3), compress + MAC +
                            decode (eq. 6-13) or the perfect mean, and the
                            SGD update (eq. 14)
@@ -28,7 +30,8 @@ from repro_torch.core.obcsaa import simulate_round
 from repro_torch.core.sparsify import flatten_pytree
 from repro_torch.engine.config import FLConfig
 from repro_torch.engine.state import EngineState, RoundStats
-from repro_torch.sched.problem import optimal_bt
+from repro_torch.sched.greedy import greedy_solve_batched
+from repro_torch.sched.problem import BatchedProblem
 
 
 class EngineFns(NamedTuple):
@@ -81,6 +84,8 @@ def build_engine(cfg: FLConfig, loss_fn: Callable, opt, D: int, U: int,
     ob = cfg.obcsaa
     device = phi.device
     p_max = torch.tensor(ob.p_max, dtype=torch.float32, device=device)
+    noise_var = torch.tensor(ob.noise_var, dtype=torch.float32,
+                             device=device)
 
     def init_state(params) -> EngineState:
         _, fade0 = chan.draw_fades(generator, (U,), device=device)
@@ -93,8 +98,16 @@ def build_engine(cfg: FLConfig, loss_fn: Callable, opt, D: int, U: int,
                                w=w)
 
     def schedule(h, k_weights):
-        beta = torch.ones_like(h)
-        return beta, optimal_bt(h, k_weights, p_max, beta)
+        """P2 for one round's channels (B = 1) -> (β (U,), b_t)."""
+        bp = BatchedProblem.from_arrays(
+            h[None], k_weights[None], p_max, noise_var, D=D, S=ob.measure,
+            kappa=ob.topk, const=cfg.const)
+        if cfg.scheduler == "all":
+            beta = torch.ones_like(bp.h)
+            b_t = bp.optimal_bt(beta)
+        else:   # greedy_batched (FLConfig admits no other)
+            beta, b_t, _ = greedy_solve_batched(bp, cfg.sched_cfg)
+        return beta[0], b_t[0]
 
     def round_given_schedule(state: EngineState, worker_data, k_weights,
                              h, fade, beta, b_t,

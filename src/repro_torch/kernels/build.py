@@ -38,11 +38,16 @@ SIGNATURES = {
     "topk_select_f32": [_P, _P, _P, _I, _I, _I, _P],
     "cs_project_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "backproject_f32": [_P, _P, _P, _P, _I, _I, _I, _F, _P],
+    "cs_project_pack_resid_f32": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "backproject_packed_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
+    "prefix_eval_f32": [_P, _P, _P, _P, _I, _I, _P],
 }
 
 #: Kernel name -> launches since the last reset.
 LAUNCHES: Dict[str, int] = {"topk_select": 0, "cs_project": 0,
-                            "cs_project_resid": 0, "backproject": 0}
+                            "cs_project_resid": 0, "backproject": 0,
+                            "cs_project_pack_resid": 0,
+                            "backproject_packed": 0, "prefix_eval": 0}
 
 
 def count(name: str) -> None:

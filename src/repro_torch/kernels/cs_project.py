@@ -1,4 +1,4 @@
-"""K2/K3: fused Φ-projection with a sign, pack or residual epilogue.
+"""K2/K3/K5: fused Φ-projection with a sign, pack or residual epilogue.
 
 Port of ``repro/kernels/cs_project.py``. ``project(phi, chunks, mode)``
 computes ``chunks @ Φᵀ`` (phi (S, D), chunks (n, D)) and applies:
@@ -8,9 +8,13 @@ computes ``chunks @ Φᵀ`` (phi (S, D), chunks (n, D)) and applies:
 - ``"pack"``:          pack32(sign(x Φᵀ))       (K2, int32 (n, S//32))
 - ``"sign_residual"``: y − sign(x Φᵀ)           (K3, BIHT residual)
 - ``"residual"``:      y − x Φᵀ                 (K3, IHT residual)
+- ``"pack_sign_residual"``: the BIHT residual on packed ±1 ``y`` (int32
+  (n, S//32)) as two bit-planes ``(plus, minus)``, plus = y ∧ ¬s and
+  minus = s ∧ ¬y for the fresh signs s = [x Φᵀ ≥ 0], so that
+  y − sign(x Φᵀ) = 2·(plus − minus)   (K5)
 
-The packed BIHT residual (``pack_sign_residual``, K5) is not ported yet.
-The CUDA kernel is ``csrc/cs_project.cu``; ``project_plain`` is the
+The CUDA kernel is ``csrc/cs_project.cu``: one accumulation for every
+mode, so K5's fresh signs are K3's bit for bit. ``project_plain`` is the
 PyTorch version the CPU runs and the card checks against.
 """
 from __future__ import annotations
@@ -18,19 +22,29 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.sign import pack_bool, packed_width, sign_pm1
+from repro_torch.kernels.sign import (pack_bool, packed_width, sign_pm1,
+                                      unpack_bits)
 
-MODES = ("none", "sign", "pack", "sign_residual", "residual")
+MODES = ("none", "sign", "pack", "sign_residual", "residual",
+         "pack_sign_residual")
 _MODE_ID = {m: i for i, m in enumerate(MODES)}
-_Y_MODES = ("sign_residual", "residual")
+_Y_MODES = ("sign_residual", "residual", "pack_sign_residual")
 
 
 def _check_mode(mode: str, y) -> None:
     if mode not in MODES:
-        raise ValueError(f"cs_project: unknown or not yet ported mode "
-                         f"{mode!r}; one of {MODES}")
+        raise ValueError(f"cs_project: unknown mode {mode!r}; one of "
+                         f"{MODES}")
     if mode in _Y_MODES and y is None:
         raise ValueError(f"cs_project: mode {mode!r} needs y")
+
+
+def _check_packed_y(y: torch.Tensor, n: int, s: int) -> None:
+    w = packed_width(s)
+    if y.dtype != torch.int32 or tuple(y.shape) != (n, w):
+        raise ValueError(f"cs_project: pack_sign_residual needs packed y "
+                         f"int32 (n, S//32) = ({n}, {w}); got {y.dtype} "
+                         f"{tuple(y.shape)}")
 
 
 def project_plain(phi: torch.Tensor, chunks: torch.Tensor, *,
@@ -40,6 +54,11 @@ def project_plain(phi: torch.Tensor, chunks: torch.Tensor, *,
     if mode == "pack":
         packed_width(acc.shape[-1])
         return pack_bool(acc >= 0)
+    if mode == "pack_sign_residual":
+        _check_packed_y(y, *acc.shape)
+        sb = acc >= 0
+        yb = unpack_bits(y, torch.bool)
+        return pack_bool(yb & ~sb), pack_bool(sb & ~yb)
     if mode == "sign":
         out = sign_pm1(acc)
     elif mode == "sign_residual":
@@ -54,9 +73,10 @@ def project_plain(phi: torch.Tensor, chunks: torch.Tensor, *,
 def project(phi: torch.Tensor, chunks: torch.Tensor, *, mode: str = "sign",
             y: torch.Tensor = None) -> torch.Tensor:
     """phi (S, D), chunks (n, D) -> (n, S) f32, or int32 (n, S//32) words
-    for ``mode="pack"``. A CPU tensor takes the plain version; a CUDA
-    tensor launches the kernel (K2 for none/sign/pack, K3 for the
-    residual modes)."""
+    for ``mode="pack"``, or the two int32 (n, S//32) planes ``(plus,
+    minus)`` for ``mode="pack_sign_residual"``. A CPU tensor takes the
+    plain version; a CUDA tensor launches the kernel (K2 for
+    none/sign/pack, K3 for the residual modes, K5 for the packed one)."""
     _check_mode(mode, y)
     if chunks.device.type == "cpu":
         return project_plain(phi, chunks, mode=mode, y=y)
@@ -64,6 +84,8 @@ def project(phi: torch.Tensor, chunks: torch.Tensor, *, mode: str = "sign",
     s = phi.shape[0]
     build.require(chunks, "chunks", (n, d))
     build.require(phi, "phi", (s, d), device=chunks.device)
+    if mode == "pack_sign_residual":
+        return _pack_sign_residual(phi, chunks, y, n, s, d)
     if mode == "pack":
         out = chunks.new_empty((n, packed_width(s)), dtype=torch.int32)
     else:
@@ -80,3 +102,17 @@ def project(phi: torch.Tensor, chunks: torch.Tensor, *, mode: str = "sign",
     build.check(rc, f"cs_project[{mode}]")
     build.count("cs_project_resid" if mode in _Y_MODES else "cs_project")
     return out
+
+
+def _pack_sign_residual(phi, chunks, y, n, s, d):
+    """K5 on the card: both planes in one (2, n, S//32) allocation."""
+    w = packed_width(s)
+    build.require(y, "y", (n, w), dtype=torch.int32, device=chunks.device)
+    planes = chunks.new_empty((2, n, w), dtype=torch.int32)
+    if n:
+        rc = build.lib().cs_project_pack_resid_f32(
+            chunks.data_ptr(), phi.data_ptr(), y.data_ptr(),
+            planes.data_ptr(), n, s, d, build.stream_ptr(chunks))
+        build.check(rc, "cs_project[pack_sign_residual]")
+        build.count("cs_project_pack_resid")
+    return planes[0], planes[1]

@@ -1,16 +1,23 @@
-// K4 backproject: out = x + tau * (R Phi), the BIHT/IHT update step.
+// K4 / K6 backproject: out = x + tau * (R Phi), the BIHT/IHT update step.
 //
-// Replaces: src/repro/kernels/backproject.py:_backproject_kernel
-// (pallas_call at backproject.py:99). The packed variant
-// (_backproject_packed_kernel, K6) is not ported yet.
+// Replaces: src/repro/kernels/backproject.py:_backproject_kernel (K4,
+// pallas_call at backproject.py:99) and
+// backproject.py:_backproject_packed_kernel (K6, pallas_call at
+// backproject.py:138).
 //
 // R is (n, S), Phi is (S, D) and x, out are (n, D), all f32 row-major. The
 // product contracts over S, so Phi is read down its columns here, unlike
-// cs_project which reads it along its rows.
+// cs_project which reads it along its rows. K6 takes R as two uint32 bit
+// planes (n, S/32), plus and minus, and R = 2 (plus - minus) in {-2, 0, 2}.
 //
 // Bound on the H100: bytes. At the decode shape (n=13, S=1024, D=4096)
 // the kernel reads the 16.8 MB Phi once for 0.11 GFLOP: 5 us of traffic
-// against 1.6 us of f32 work.
+// against 1.6 us of f32 work. K6 reads 1/16 of K4's residual bytes.
+//
+// The two kernels are one template: it takes how a residual element is
+// loaded (DenseResid or PackedResid) and nothing else differs. The packed
+// values are exact floats in the same summation order, so K6 on the
+// planes equals K4 on 2 (plus - minus) bit for bit.
 //
 // Design (the layout of column_tile.cuh). A block owns 32 D columns and
 // ROWS rows (16 for n <= 16, the decode; 32 otherwise), a thread one
@@ -29,6 +36,7 @@
 // __fadd_rn(x, __fmul_rn(tau, acc)) so that nvcc cannot contract it into
 // an FMA: the plain version rounds the product before the add.
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 #include "column_tile.cuh"
 
@@ -39,15 +47,35 @@ using column_tile::kThreads;
 
 constexpr int kBK = 128;       // S-depth of a slab
 
+// Residual element (row, k) of R (n, S), read through the read-only path.
+struct DenseResid {            // K4: f32 R
+  const float* r;
+  __device__ __forceinline__ float operator()(int row, int k, int s) const {
+    return __ldg(r + static_cast<size_t>(row) * s + k);
+  }
+};
+
+struct PackedResid {           // K6: bit k & 31 of word k >> 5 of each plane
+  const uint32_t* plus;
+  const uint32_t* minus;
+  __device__ __forceinline__ float operator()(int row, int k, int s) const {
+    const size_t w = static_cast<size_t>(row) * (s / 32) + (k >> 5);
+    const int p = (__ldg(plus + w) >> (k & 31)) & 1;
+    const int m = (__ldg(minus + w) >> (k & 31)) & 1;
+    return static_cast<float>(2 * (p - m));
+  }
+};
+
 // One kBK-deep slab of R (ROWS rows) and Phi (kBK rows x 32 columns),
 // staged in registers: R element k0 + 32q + lane of rows warp + 8i, and
-// Phi row k0 + warp + 8i at column col0 + lane.
-template <int ROWS>
+// Phi row k0 + warp + 8i at column col0 + lane. With the packed planes,
+// the 32 lanes of a warp read one word (S % 32 == 0, k0 % 32 == 0).
+template <int ROWS, class Resid>
 struct Slab {
   static constexpr int KQ = kBK / 32;
   float rr[(ROWS / 8) * KQ], pr[kBK / 8];
 
-  __device__ __forceinline__ void load(const float* __restrict__ r,
+  __device__ __forceinline__ void load(const Resid& r,
                                        const float* __restrict__ phi, int n,
                                        int s, int d, int row0, int col0,
                                        int k0, int lane, int warp) {
@@ -57,8 +85,7 @@ struct Slab {
 #pragma unroll
       for (int i = 0; i < ROWS / 8; ++i) {
         const int gr = row0 + warp + 8 * i;
-        rr[q * (ROWS / 8) + i] =
-            (gk < s && gr < n) ? r[static_cast<size_t>(gr) * s + gk] : 0.f;
+        rr[q * (ROWS / 8) + i] = (gk < s && gr < n) ? r(gr, gk, s) : 0.f;
       }
     }
     const int gc = col0 + lane;
@@ -86,9 +113,9 @@ struct Slab {
 // Block (x, y, z) owns D columns [32x, 32x + 32), rows [ROWS y, ROWS y +
 // ROWS) and the z-th kBK-aligned segment of S; clusters of SPLIT blocks
 // along z.
-template <int ROWS, int SPLIT>
+template <int ROWS, int SPLIT, class Resid>
 __global__ void __launch_bounds__(kThreads)
-backproject_kernel(const float* __restrict__ x, const float* __restrict__ r,
+backproject_kernel(const float* __restrict__ x, const Resid r,
                    const float* __restrict__ phi, float* __restrict__ out,
                    int n, int s, int d, float tau) {
   constexpr int KW = kBK / 8;    // slab depth per warp
@@ -110,7 +137,7 @@ backproject_kernel(const float* __restrict__ x, const float* __restrict__ r,
 #pragma unroll
   for (int i = 0; i < ROWS; ++i) acc[i] = 0.f;
 
-  Slab<ROWS> slab;
+  Slab<ROWS, Resid> slab;
   if (k_begin < k_end)
     slab.load(r, phi, n, s, d, row0, col0, k_begin, lane, warp);
   for (int k0 = k_begin; k0 < k_end; k0 += kBK) {
@@ -145,14 +172,22 @@ backproject_kernel(const float* __restrict__ x, const float* __restrict__ r,
   }
 }
 
-template <int ROWS, int SPLIT>
-cudaError_t launch(const float* x, const float* r, const float* phi,
-                   float* out, int n, int s, int d, float tau,
-                   cudaStream_t st) {
+template <int ROWS, int SPLIT, class Resid>
+cudaError_t launch(const float* x, Resid r, const float* phi, float* out,
+                   int n, int s, int d, float tau, cudaStream_t st) {
   return column_tile::launch_clusters(
-      backproject_kernel<ROWS, SPLIT>,
+      backproject_kernel<ROWS, SPLIT, Resid>,
       dim3((d + 31) / 32, (n + ROWS - 1) / ROWS, SPLIT), SPLIT, st, x, r,
       phi, out, n, s, d, tau);
+}
+
+template <class Resid>
+cudaError_t launch_rows(const float* x, Resid r, const float* phi,
+                        float* out, int n, int s, int d, float tau,
+                        void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return n <= 16 ? launch<16, 4>(x, r, phi, out, n, s, d, tau, st)
+                 : launch<32, 2>(x, r, phi, out, n, s, d, tau, st);
 }
 
 }  // namespace
@@ -160,8 +195,16 @@ cudaError_t launch(const float* x, const float* r, const float* phi,
 extern "C" int backproject_f32(const float* x, const float* r,
                                const float* phi, float* out, int n, int s,
                                int d, float tau, void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(
-      n <= 16 ? launch<16, 4>(x, r, phi, out, n, s, d, tau, st)
-              : launch<32, 2>(x, r, phi, out, n, s, d, tau, st));
+  return static_cast<int>(launch_rows(x, DenseResid{r}, phi, out, n, s, d,
+                                      tau, stream));
+}
+
+// plus, minus: (n, s/32) uint32 bit planes, s % 32 == 0.
+extern "C" int backproject_packed_f32(const float* x, const uint32_t* plus,
+                                      const uint32_t* minus,
+                                      const float* phi, float* out, int n,
+                                      int s, int d, float tau, void* stream) {
+  if (s % 32) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch_rows(x, PackedResid{plus, minus}, phi,
+                                      out, n, s, d, tau, stream));
 }

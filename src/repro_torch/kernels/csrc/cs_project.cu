@@ -1,10 +1,10 @@
-// K2 / K3 cs_project: C = X Phi^T with an epilogue chosen by `mode`.
+// K2 / K3 / K5 cs_project: C = X Phi^T with an epilogue chosen by `mode`.
 //
 // Replaces: src/repro/kernels/cs_project.py:_proj_kernel (K2: epilogues
 // none, sign, pack) and cs_project.py:_proj_resid_kernel (K3: epilogues
 // sign_residual, residual), both launched by the pallas_call at
-// cs_project.py:209. The packed BIHT residual (_proj_pack_resid_kernel,
-// K5) is not ported yet.
+// cs_project.py:209, and cs_project.py:_proj_pack_resid_kernel (K5, the
+// packed BIHT residual, pallas_call at cs_project.py:182).
 //
 //   none          out = acc                      (n, S) f32
 //   sign          out = acc >= 0 ? +1 : -1       (n, S) f32   (eq. 7)
@@ -12,6 +12,9 @@
 //                 LSB-first                       (n, S/32) uint32 bits
 //   sign_residual out = y - sign(acc)            (n, S) f32   (BIHT)
 //   residual      out = y - acc                  (n, S) f32   (IHT)
+//   pack_sign_residual  with y packed (n, S/32) and s = ballot(acc >= 0):
+//                 plus = y & ~s, minus = s & ~y   (2, n, S/32) uint32 bits
+//                 so that y - sign(acc) = 2 (plus - minus)    (packed BIHT)
 //
 // X is (n, D) and Phi is (S, D), both row-major, so both operands are read
 // along their contiguous D axis. Accumulation is f32 FMA on the CUDA cores:
@@ -20,7 +23,8 @@
 // Bound on the H100: at the compression shape (n=130, S=1024, D=4096) the
 // product is 1.09 GFLOP on about 19 MB, 16 us of f32 work against 6 us of
 // traffic: operations. At the decode shape (n=13) it is 0.11 GFLOP on the
-// 16.8 MB Phi: bytes, 5 us.
+// 16.8 MB Phi: bytes, 5 us. K5 reads the same Phi, 1/32 of K3's y bytes
+// and writes 1/16 of its residual bytes: also bytes, 5 us.
 //
 // Design (the layout of column_tile.cuh). A block owns 32 S columns and
 // ROWS rows of X (16 for n <= 16, the decode; 32 otherwise), a thread one
@@ -35,8 +39,10 @@
 // through distributed shared memory, both summed in a fixed order
 // (deterministic), and block 0 alone runs the epilogue. Lane i of a warp
 // holds S column 32j + i, so the pack epilogue is one __ballot_sync per
-// word. The epilogue never writes the dense projection in the sign, pack
-// and residual modes.
+// word; the packed residual adds one load of the y word and two stores.
+// Every mode shares the accumulation, so K5's signs are K3's bit for bit
+// at the same n. The epilogue never writes the dense projection in the
+// sign, pack and residual modes.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -48,7 +54,7 @@ using column_tile::kPad;
 using column_tile::kThreads;
 
 enum Mode { kNone = 0, kSign = 1, kPack = 2, kSignResidual = 3,
-            kResidual = 4 };
+            kResidual = 4, kPackSignResidual = 5 };
 
 // One BK-deep slab of X (ROWS rows) and Phi (32 rows), staged in
 // registers: lane l of warp w loads element k0 + 32q + l of rows w + 8i.
@@ -95,26 +101,36 @@ struct Slab {
   }
 };
 
+// y is f32 (n, S) for the residual modes and uint32 words (n, S/32) for
+// the packed residual; out is f32, uint32 words, or the two word planes.
 template <int MODE>
 __device__ __forceinline__ void epilogue(float v, int r, int c, int n, int s,
-                                         const float* __restrict__ y,
+                                         const void* __restrict__ y,
                                          void* __restrict__ out, int lane) {
-  if (MODE == kPack) {
+  if (MODE == kPack || MODE == kPackSignResidual) {
     // all 32 lanes vote; S % 32 == 0, so a word is all in or all out
-    const unsigned bits = __ballot_sync(0xffffffffu, v >= 0.f);
-    if (lane == 0 && r < n && c < s)
-      static_cast<uint32_t*>(out)[static_cast<size_t>(r) * (s / 32) +
-                                  c / 32] = bits;
+    const uint32_t bits = __ballot_sync(0xffffffffu, v >= 0.f);
+    if (lane != 0 || r >= n || c >= s) return;
+    const size_t w = static_cast<size_t>(r) * (s / 32) + c / 32;
+    uint32_t* words = static_cast<uint32_t*>(out);
+    if (MODE == kPack) {
+      words[w] = bits;
+    } else {
+      const uint32_t yw = static_cast<const uint32_t*>(y)[w];
+      words[w] = yw & ~bits;                                  // plus
+      words[static_cast<size_t>(n) * (s / 32) + w] = bits & ~yw;  // minus
+    }
     return;
   }
   if (r >= n || c >= s) return;
   const size_t idx = static_cast<size_t>(r) * s + c;
+  const float* yf = static_cast<const float*>(y);
   const float sgn = v >= 0.f ? 1.f : -1.f;
   float o;
   if (MODE == kNone) o = v;
   else if (MODE == kSign) o = sgn;
-  else if (MODE == kSignResidual) o = y[idx] - sgn;
-  else o = y[idx] - v;
+  else if (MODE == kSignResidual) o = yf[idx] - sgn;
+  else o = yf[idx] - v;
   static_cast<float*>(out)[idx] = o;
 }
 
@@ -124,7 +140,7 @@ __device__ __forceinline__ void epilogue(float v, int r, int c, int n, int s,
 template <int ROWS, int BK, int SPLIT, int MODE>
 __global__ void __launch_bounds__(kThreads)
 cs_project_kernel(const float* __restrict__ x, const float* __restrict__ phi,
-                  const float* __restrict__ y, void* __restrict__ out, int n,
+                  const void* __restrict__ y, void* __restrict__ out, int n,
                   int s, int d) {
   constexpr int KW = BK / 8;     // slab depth per warp
   constexpr int RPT = ROWS / 8;  // rows a thread finishes
@@ -175,7 +191,7 @@ cs_project_kernel(const float* __restrict__ x, const float* __restrict__ phi,
 }
 
 template <int ROWS, int BK, int SPLIT, int MODE>
-cudaError_t launch_mode(const float* x, const float* phi, const float* y,
+cudaError_t launch_mode(const float* x, const float* phi, const void* y,
                         void* out, int n, int s, int d, cudaStream_t st) {
   return column_tile::launch_clusters(
       cs_project_kernel<ROWS, BK, SPLIT, MODE>,
@@ -184,7 +200,7 @@ cudaError_t launch_mode(const float* x, const float* phi, const float* y,
 }
 
 template <int MODE>
-cudaError_t launch_rows(const float* x, const float* phi, const float* y,
+cudaError_t launch_rows(const float* x, const float* phi, const void* y,
                         void* out, int n, int s, int d, cudaStream_t st) {
   return n <= 16
       ? launch_mode<16, 128, 8, MODE>(x, phi, y, out, n, s, d, st)
@@ -219,4 +235,14 @@ extern "C" int cs_project_f32(const float* x, const float* phi,
                               int mode, void* stream) {
   return static_cast<int>(launch(x, phi, y, out, n, s, d, mode,
                                  static_cast<cudaStream_t>(stream)));
+}
+
+// x: (n, d), phi: (s, d) f32 row-major; y: (n, s/32) uint32 words of the
+// packed +-1 measurements; planes: (2, n, s/32) uint32, plus then minus.
+extern "C" int cs_project_pack_resid_f32(const float* x, const float* phi,
+                                         const uint32_t* y, uint32_t* planes,
+                                         int n, int s, int d, void* stream) {
+  if (s % 32) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch_rows<kPackSignResidual>(
+      x, phi, y, planes, n, s, d, static_cast<cudaStream_t>(stream)));
 }

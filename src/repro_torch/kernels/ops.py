@@ -11,12 +11,14 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels.backproject import backproject
+from repro_torch.kernels.backproject import backproject, backproject_packed
 from repro_torch.kernels.cs_project import project
+from repro_torch.kernels.prefix_eval import prefix_eval
 from repro_torch.kernels.topk_select import topk_select
 
-__all__ = ["backproject", "biht", "cs_project", "cs_project_pack",
-           "cs_project_sign", "iht", "ref", "topk_select"]
+__all__ = ["backproject", "backproject_packed", "biht",
+           "cs_pack_sign_residual", "cs_project", "cs_project_pack",
+           "cs_project_sign", "iht", "prefix_eval", "ref", "topk_select"]
 
 
 def cs_project_sign(phi: torch.Tensor, chunks: torch.Tensor) -> torch.Tensor:
@@ -28,6 +30,14 @@ def cs_project_pack(phi: torch.Tensor, chunks: torch.Tensor) -> torch.Tensor:
     """Fused sign+pack compression: -> int32 (n, S//32) words; unpacking
     reproduces ``cs_project_sign`` bit for bit (one sign predicate)."""
     return project(phi, chunks, mode="pack")
+
+
+def cs_pack_sign_residual(phi: torch.Tensor, x: torch.Tensor,
+                          y_packed: torch.Tensor):
+    """Packed BIHT residual planes: the fresh sign(x Φᵀ) is consumed
+    in-kernel; returns (plus, minus) int32 (n, S//32) with
+    resid = 2·(plus − minus)."""
+    return project(phi, x, mode="pack_sign_residual", y=y_packed)
 
 
 def cs_project(phi: torch.Tensor, chunks: torch.Tensor) -> torch.Tensor:

@@ -5,17 +5,22 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.backproject import backproject_plain
+from repro_torch.kernels.backproject import (backproject_packed_plain,
+                                             backproject_plain)
 from repro_torch.kernels.cs_project import project_plain
+from repro_torch.kernels.prefix_eval import prefix_eval_plain
 from repro_torch.kernels.sign import sign_pm1  # noqa: F401
 from repro_torch.kernels.topk_select import topk_select_plain
 
-__all__ = ["backproject_ref", "cs_project_pack_ref",
-           "cs_project_ref", "cs_project_sign_ref", "sign_pm1",
-           "topk_select_ref"]
+__all__ = ["backproject_packed_ref", "backproject_ref",
+           "cs_pack_sign_residual_ref", "cs_project_pack_ref",
+           "cs_project_ref", "cs_project_sign_ref", "prefix_eval_ref",
+           "sign_pm1", "topk_select_ref"]
 
 topk_select_ref = topk_select_plain
 backproject_ref = backproject_plain
+backproject_packed_ref = backproject_packed_plain
+prefix_eval_ref = prefix_eval_plain
 
 
 def cs_project_sign_ref(phi: torch.Tensor, chunks: torch.Tensor):
@@ -29,3 +34,8 @@ def cs_project_pack_ref(phi: torch.Tensor, chunks: torch.Tensor):
 def cs_project_ref(phi: torch.Tensor, chunks: torch.Tensor, *, mode="none",
                    y=None):
     return project_plain(phi, chunks, mode=mode, y=y)
+
+
+def cs_pack_sign_residual_ref(phi: torch.Tensor, x: torch.Tensor,
+                              y_packed: torch.Tensor):
+    return project_plain(phi, x, mode="pack_sign_residual", y=y_packed)

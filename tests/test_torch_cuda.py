@@ -11,14 +11,25 @@ ragged shapes.
 Tolerances: topk_select exact; signs may differ only where
 |x·Φ_s| ≤ 2·D·2⁻²⁴·‖x‖·‖Φ_s‖ (two f32 sums of D products in different
 orders, see tests/test_torch_kernels.py); float outputs rtol = atol = 1e-5.
+Exact, kernel against kernel: the packed residual planes (K5) against K3's
+sign residual, K6 on the planes against K4 on 2·(plus − minus), and the
+packed BIHT decode against the f32 one (one accumulation order each).
+prefix_eval (K7) is exact against its plain version where every prefix
+sum is a whole number exact in f32 (K_i = 3000), and within rtol 1e-6 on
+real K_i (the sums run in another order).
 """
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.decode import DecodeConfig, decode
 from repro_torch.kernels import build, ops, ref
+from repro_torch.kernels.backproject import packed_residual
 from repro_torch.kernels.cs_project import project
-from repro_torch.kernels.sign import unpack_signs
+from repro_torch.kernels.sign import pack_signs, unpack_signs
+from repro_torch.sched import BatchedProblem, SchedConfig
+from repro_torch.sched import greedy_solve_batched, pack_coefs
+from repro_torch.theory import AnalysisConstants
 
 SHAPES = [(13, 256, 1024, 32), (7, 96, 1000, 9), (130, 128, 512, 16),
           (40, 64, 4096, 80)]
@@ -103,9 +114,83 @@ def test_kernels_count_and_refuse(cuda):
     ops.biht(ops.cs_project_sign(phi, x), phi, 32, 3, 1.0)
     assert build.launch_counts() == {"topk_select": 4, "cs_project": 1,
                                      "cs_project_resid": 3,
-                                     "backproject": 4}
+                                     "backproject": 4,
+                                     "cs_project_pack_resid": 0,
+                                     "backproject_packed": 0,
+                                     "prefix_eval": 0}
     for bad in (x.double(), x.T.contiguous().T, x[:, :512]):
         with pytest.raises(ValueError, match="CUDA kernel takes"):
             ops.cs_project_sign(phi, bad)
     with pytest.raises(ValueError, match="CUDA kernel takes"):
         ops.backproject(x, y, phi.double(), 1.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,s,d,k", SHAPES)
+def test_pack_sign_residual(cuda, n, s, d, k):
+    phi, x, y = _inputs(n, s, d, k, cuda)
+    plus, minus = ops.cs_pack_sign_residual(phi, x, pack_signs(y))
+    got = packed_residual(plus, minus)
+    # exact against K3 on the card: the same accumulation gives the signs
+    assert torch.equal(got, project(phi, x, mode="sign_residual", y=y))
+    wp, wm = ref.cs_pack_sign_residual_ref(phi, x, pack_signs(y))
+    assert _hard_flips(phi, x, y - got, y - packed_residual(wp, wm)) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,s,d,k", SHAPES)
+def test_backproject_packed(cuda, n, s, d, k):
+    phi, x, y = _inputs(n, s, d, k, cuda)
+    plus, minus = ref.cs_pack_sign_residual_ref(phi, x, pack_signs(y))
+    r = packed_residual(plus, minus)
+    for tau in (1.0 / s, 1.0):
+        got = ops.backproject_packed(x, plus, minus, phi, tau)
+        _close(got, ref.backproject_packed_ref(x, plus, minus, phi, tau))
+        assert torch.equal(got, ops.backproject(x, r, phi, tau))
+
+
+def _sorted_prefix_inputs(b, u, dev, whole_k=True):
+    gen = torch.Generator(device=dev).manual_seed(b * u)
+    h = torch.randn(b, u, generator=gen, device=dev).abs() + 1e-3
+    k = (torch.full((b, u), 3000.0, device=dev) if whole_k else
+         1000.0 + 4000.0 * torch.rand(b, u, generator=gen, device=dev))
+    bp = BatchedProblem.from_arrays(h, k, 10.0, 1e-4, D=50890, S=1000,
+                                    kappa=1000,
+                                    const=AnalysisConstants(rho1=200.0,
+                                                            G=1.0))
+    caps = bp.caps()
+    order = torch.sort(-caps, dim=-1, stable=True).indices
+    return (torch.gather(caps, -1, order),
+            torch.gather(bp.k_weights, -1, order), pack_coefs(bp)), bp
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,u", [(1, 10), (5, 1000), (3, 2049)])
+def test_prefix_eval(cuda, b, u):
+    (caps_s, k_s, coefs), bp = _sorted_prefix_inputs(b, u, cuda)
+    assert torch.equal(ops.prefix_eval(caps_s, k_s, coefs),
+                       ref.prefix_eval_ref(caps_s, k_s, coefs))
+    beta_k, bt_k, _ = greedy_solve_batched(bp, SchedConfig(use_kernel=True))
+    beta_p, bt_p, _ = greedy_solve_batched(bp, SchedConfig(use_kernel=False))
+    assert torch.equal(beta_k, beta_p) and torch.equal(bt_k, bt_p)
+    (caps_s, k_s, coefs), _ = _sorted_prefix_inputs(b, u, cuda, False)
+    np.testing.assert_allclose(
+        ops.prefix_eval(caps_s, k_s, coefs).cpu().numpy(),
+        ref.prefix_eval_ref(caps_s, k_s, coefs).cpu().numpy(), rtol=1e-6)
+
+
+@pytest.mark.cuda
+def test_packed_decode_equals_f32_decode(cuda):
+    n, s, d, k = 13, 256, 1024, 32
+    phi, x, _ = _inputs(n, s, d, k, cuda)
+    y_packed = ops.cs_project_pack(phi, x)
+    build.reset_launch_counts()
+    got = decode(y_packed, phi, k, DecodeConfig(iters=5, packed=True,
+                                                use_kernels=True))
+    assert build.launch_counts() == {
+        "topk_select": 6, "cs_project": 0, "cs_project_resid": 0,
+        "backproject": 1, "cs_project_pack_resid": 5,
+        "backproject_packed": 5, "prefix_eval": 0}
+    want = decode(unpack_signs(y_packed), phi, k,
+                  DecodeConfig(iters=5, use_kernels=True))
+    assert torch.equal(got, want)

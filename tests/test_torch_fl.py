@@ -11,7 +11,10 @@ Tolerances:
   injected: each parameter's distance to the reference, relative to how
   far the reference moved, ≤ 1e-4. Sums in another order move the
   parameters by ~1e-6 of that; a borderline sign flip would show as a
-  larger drift, and a fault far larger.
+  larger drift, and a fault far larger. β equal every round (with the
+  greedy scheduler too); h and b_t within rtol 1e-6, since |g| of the
+  complex fade is computed by two libraries and may differ in its last
+  bit, and b_t is the h of a scheduled worker.
 """
 import ast
 import os
@@ -29,9 +32,11 @@ from repro.data import synthetic as jsyn
 from repro.data.mnist import partition_workers as jpartition
 from repro.fl import FederatedTrainer as JTrainer
 from repro.fl import FLConfig as JFL
+from repro.sched import SchedConfig as JSC
 from repro.fl.worker import stacked_local_gradients as jgrads
 from repro.models import mlp_mnist as jm
 from repro_torch import convert
+from repro_torch.core import channel as tchan
 from repro_torch.core.obcsaa import OBCSAAConfig as TOB
 from repro_torch.core.sparsify import flatten_pytree
 from repro_torch.data import synthetic as tsyn
@@ -41,6 +46,7 @@ from repro_torch.fl import FederatedTrainer as TTrainer
 from repro_torch.fl.worker import local_gradient
 from repro_torch.fl.worker import stacked_local_gradients as tgrads
 from repro_torch.models import mlp_mnist as tm
+from repro_torch.sched import SchedConfig as TSC
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 U, SAMPLES, HIDDEN = 4, 100, 8          # D = 784*8 + 8 + 8*10 + 10 = 6370
@@ -99,6 +105,13 @@ def test_default_device_needs_cuda(monkeypatch, task):
         TOB().phi()
     with pytest.raises(RuntimeError, match="CUDA"):
         convert.params_from_jax(task["p0"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tchan.draw_noise(None, (2, 3), 1e-4)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tchan.draw_fades(None, (3,))
+    gen = torch.Generator().manual_seed(0)     # a CPU generator draws there
+    assert tchan.draw_noise(gen, (2, 3), 1e-4).device.type == "cpu"
+    assert tchan.draw_fades(gen, (3,))[0].device.type == "cpu"
 
 
 def test_params_round_trip_exact(task):
@@ -161,20 +174,25 @@ def test_data_copies_exact():
             np.testing.assert_array_equal(g, w)
 
 
-def _trainers(task, aggregator, rounds):
+def _trainers(task, aggregator, rounds, scheduler="all", packed=False):
     kw = dict(chunk=1024, measure=256, topk=32, biht_iters=5,
-              use_kernels=True)
+              use_kernels=True, packed=packed)
+    sched = dict(scheduler=scheduler)
+    if scheduler == "greedy_batched":
+        sched["sched_cfg"] = JSC(use_kernel=True, interpret=True)
     job = JOB(**kw)
     jt = JTrainer(JFL(aggregator=aggregator, learning_rate=0.1,
-                      rounds=rounds, obcsaa=job, mode="host"),
+                      rounds=rounds, obcsaa=job, mode="host", **sched),
                   lambda p, d: jm.mlp_mnist_loss(p, d["x"], d["y"]),
                   {k: jnp.asarray(v) for k, v in task["p0"].items()},
                   {"x": jnp.asarray(task["wx"]),
                    "y": jnp.asarray(task["wy"])},
                   np.full(U, float(SAMPLES)))
     phi, = convert.arrays_from_jax(np.asarray(job.phi()), device="cpu")
+    if scheduler == "greedy_batched":
+        sched["sched_cfg"] = TSC(use_kernel=True)
     tt = TTrainer(TFL(aggregator=aggregator, learning_rate=0.1,
-                      rounds=rounds, obcsaa=TOB(**kw)),
+                      rounds=rounds, obcsaa=TOB(**kw), **sched),
                   lambda p, d: tm.mlp_mnist_loss(p, d["x"], d["y"]),
                   convert.params_from_jax(task["p0"], device="cpu"),
                   {"x": torch.from_numpy(task["wx"]),
@@ -183,14 +201,20 @@ def _trainers(task, aggregator, rounds):
     return jt, tt
 
 
-@pytest.mark.parametrize("aggregator", ["obcsaa", "perfect"])
-def test_slice_trajectory(task, aggregator):
+@pytest.mark.parametrize("aggregator,scheduler,packed", [
+    pytest.param("obcsaa", "all", False, id="obcsaa"),
+    pytest.param("perfect", "all", False, id="perfect"),
+    pytest.param("obcsaa", "greedy_batched", True,
+                 id="obcsaa-greedy_batched-packed")])
+def test_slice_trajectory(task, aggregator, scheduler, packed):
     """Three rounds of the §V round at small width (U=4, D=6370, chunk
     1024, S=256, κ=32, 5 BIHT iterations, kernels on): the reference's
     per-round draws — fold_in(key, t) → 0 for the fade, → 1 for the AWGN
-    (engine/core.py) — are replayed into the port."""
+    (engine/core.py) — are replayed into the port. The greedy case runs
+    the prefix sweep through the kernel's route in both packages (interpret
+    mode in JAX) and the packed sign codec; β is equal every round."""
     rounds = 3
-    jt, tt = _trainers(task, aggregator, rounds)
+    jt, tt = _trainers(task, aggregator, rounds, scheduler, packed)
     key = jax.random.PRNGKey(0)
     n_chunks = -(-6370 // 1024)
     for t in range(rounds):
@@ -205,7 +229,11 @@ def test_slice_trajectory(task, aggregator):
                                    rtol=1e-6)
         np.testing.assert_allclose(float(tinfo["b_t"]), jinfo["b_t"],
                                    rtol=1e-6)
-    assert [s.n_scheduled for s in tt.sched_logs] == [U] * rounds
+        np.testing.assert_array_equal(tinfo["beta"].numpy(), jinfo["beta"])
+    assert ([s.n_scheduled for s in tt.sched_logs]
+            == [s.n_scheduled for s in jt.sched_logs])
+    if scheduler == "all":
+        assert [s.n_scheduled for s in tt.sched_logs] == [U] * rounds
     jp = _np_params(jt.params)
     tp = convert.params_to_numpy(tt.params)
     for k in sorted(jp):

@@ -177,7 +177,7 @@ def test_kernel_input_checks(bad):
 
 
 def test_unported_modes_raise():
-    with pytest.raises(ValueError, match="not yet ported"):
-        project(torch.zeros(32, 8), torch.zeros(2, 8),
-                mode="pack_sign_residual", y=torch.zeros(2, 1))
+    """Every mode of the reference is ported; an unknown one raises."""
+    with pytest.raises(ValueError, match="unknown mode 'bogus'"):
+        project(torch.zeros(32, 8), torch.zeros(2, 8), mode="bogus")
 
