@@ -8,7 +8,8 @@ result line):
 1. banner   card name and power limit, torch/CUDA/nvcc versions; TF32 off
 2. build    compile the port's CUDA kernels from src/repro_torch/kernels/csrc
 3. kernels  every kernel against its plain PyTorch version on the card, at
-            the main path's shapes and at ragged ones, with times
+            the main path's shapes and at ragged ones, with times (warm
+            L2 from CUDA graph replay, and cold after a 256 MB read)
 4. slice    the paper's §V federated round (784-64-10 MLP, D = 50,890,
             13 chunks of 4096, S = 1024, κ = 80, BIHT 30 iterations, U = 10)
             through ``FederatedTrainer`` with ``use_kernels=True``; the
@@ -32,6 +33,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -114,6 +116,29 @@ def time_ms(fn, calls: int = 20, reps: int = 10) -> float:
     return e0.elapsed_time(e1) / (reps * calls)
 
 
+def cold_ms(fn, reps: int = 21) -> float:
+    """Device time of one ``fn()`` with a cold L2: before each call a
+    256 MB buffer (five times the 50 MB L2) is read, and CUDA events
+    bracket the call alone. The read takes ~80 µs of device time, longer
+    than the host needs to enqueue the events and the call, so the queue
+    runs ahead of the card and the kernel starts right after its event.
+    Median of the calls after the first."""
+    flush = torch.ones(64 << 20, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    events = []
+    for _ in range(reps):
+        flush.sum()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        fn()
+        e1.record()
+        events.append((e0, e1))
+    torch.cuda.synchronize()
+    return median([a.elapsed_time(b) for a, b in events[1:]])
+
+
 def host_ms(fn, reps: int = 10) -> list:
     """Host-clock ms of ``fn()`` calls, each ended by a synchronise."""
     out = []
@@ -150,13 +175,34 @@ def banner() -> str:
 
 # -- phase 2 ------------------------------------------------------------------
 
+def ptxas_entries(ptxas_log: str) -> list:
+    """(source, kernel, registers line, spill line) for every entry
+    function of the ``-Xptxas -v`` log; the kernel is named by its
+    identifier and template arguments (``cs_project_wide_kernel<1>``)."""
+    out, src, name, spill = [], "", None, ""
+    for line in ptxas_log.splitlines():
+        if line.startswith("=="):
+            src = line[2:].strip()
+        elif "Compiling entry function" in line:
+            mangled = line.split("'")[1]
+            ident = re.findall(r"\d+([a-z_]+_kernel)", mangled)
+            args = (re.findall(r"Li(\d+)E", mangled)
+                    + re.findall(r"(Dense|Packed)Resid", mangled))
+            name = (f"{ident[-1]}<{','.join(args)}>" if ident else mangled)
+        elif "spill stores" in line:
+            spill = line.strip()
+        elif "Used" in line and "registers" in line and name:
+            out.append((src, name, line.split(":", 1)[1].strip(), spill))
+            name = None
+    return out
+
+
 def build_kernels() -> None:
     from repro_torch.kernels import build
     info = build.build()
     log(f"build: {info.seconds:.1f} s -> {os.path.relpath(info.path, ROOT)}")
-    for line in info.ptxas_log.splitlines():
-        if "registers" in line or line.startswith("=="):
-            log("  " + line.strip())
+    for src, name, regs, spill in ptxas_entries(info.ptxas_log):
+        log(f"  {src} {name}: {regs}; {spill}")
     build.lib()
 
 
@@ -195,8 +241,9 @@ def close(got, want, rtol=1e-5, atol=1e-5) -> float:
 
 def check_kernels(dev) -> dict:
     from repro_torch.kernels import build, ops, ref
+    from repro_torch.kernels.backproject import packed_residual
     from repro_torch.kernels.cs_project import project
-    from repro_torch.kernels.sign import unpack_signs
+    from repro_torch.kernels.sign import pack_signs, unpack_signs
     gen = torch.Generator(device=dev).manual_seed(0)
     results = {}
 
@@ -228,6 +275,7 @@ def check_kernels(dev) -> dict:
     results["topk_select"] = dict(
         shape=f"n={n} D={d} k={k}", max_abs_err=0.0,
         ms=time_ms(lambda: ops.topk_select(x, k)),
+        cold_ms=cold_ms(lambda: ops.topk_select(x, k)),
         call_ms=call_ms(lambda: ops.topk_select(x, k)),
         plain_ms=time_ms(lambda: ref.topk_select_ref(x, k)),
         library_ms=time_ms(lambda: torch.topk(x.abs(), k, dim=-1)),
@@ -236,8 +284,11 @@ def check_kernels(dev) -> dict:
     log(f"K1 topk_select ok: masks and values exact on "
         f"{[tuple(c[0].shape) for c in cases]}")
 
-    # K2 cs_project none/sign/pack at the compression shape and a ragged one
-    for n, s, d in [(N_CHUNKS * U_WORKERS, MEASURE, CHUNK), (7, 96, 1000)]:
+    # K2 cs_project none/sign/pack at the compression shape, a ragged one
+    # past its 144-row tile, and a ragged one at n <= 16; K5 equal to K3
+    # at each n (one accumulation for every mode)
+    for n, s, d in [(N_CHUNKS * U_WORKERS, MEASURE, CHUNK), (145, 96, 1000),
+                    (7, 96, 1000)]:
         phi = phi_of(s, d)
         x = sparse_rows(n, d, max(1, d * KAPPA // CHUNK), gen, dev)
         raw = ops.cs_project(phi, x)
@@ -253,12 +304,25 @@ def check_kernels(dev) -> dict:
                  "lanes differ beyond the borderline bound")
         if not torch.equal(unpack_signs(words), sg):
             fail(f"cs_project {n, s, d}: pack and sign epilogues disagree")
+        y = torch.where(torch.randn(n, s, generator=gen, device=dev) >= 0,
+                        1.0, -1.0)
+        if not torch.equal(
+                packed_residual(*ops.cs_pack_sign_residual(phi, x,
+                                                           pack_signs(y))),
+                project(phi, x, mode="sign_residual", y=y)):
+            fail(f"cs_project {n, s, d}: K5's planes differ from K3's sign "
+                 "residual")
+        if not (torch.equal(ops.cs_project(phi, x), raw)
+                and torch.equal(ops.cs_project_sign(phi, x), sg)):
+            fail(f"cs_project {n, s, d}: a second launch gave other bits")
         log(f"K2 cs_project ok at n={n} S={s} D={d}: none max err "
-            f"{err:.2e}, {flips} sign / {pflips} packed borderline flips")
+            f"{err:.2e}, {flips} sign / {pflips} packed borderline flips; "
+            "pack = sign, K5 = K3, repeat launch bit-identical")
         if n == N_CHUNKS * U_WORKERS:
             results["cs_project"] = dict(
                 shape=f"n={n} S={s} D={d} sign", max_abs_err=err,
                 ms=time_ms(lambda: ops.cs_project_sign(phi, x)),
+                cold_ms=cold_ms(lambda: ops.cs_project_sign(phi, x)),
                 call_ms=call_ms(lambda: ops.cs_project_sign(phi, x)),
                 plain_ms=time_ms(lambda: ref.cs_project_sign_ref(phi, x)),
                 library_ms=time_ms(lambda: torch.matmul(x, phi.T)),
@@ -286,6 +350,8 @@ def check_kernels(dev) -> dict:
                 shape=f"n={n} S={s} D={d} sign_residual", max_abs_err=err,
                 ms=time_ms(lambda: project(phi, x, mode="sign_residual",
                                            y=y)),
+                cold_ms=cold_ms(lambda: project(phi, x, mode="sign_residual",
+                                                y=y)),
                 call_ms=call_ms(lambda: project(phi, x, mode="sign_residual",
                                                 y=y)),
                 plain_ms=time_ms(lambda: ref.cs_project_ref(
@@ -308,12 +374,17 @@ def check_kernels(dev) -> dict:
         for tau in (1.0 / s, 1.0):
             err = max(err, close(ops.backproject(x, r, phi, tau),
                                  ref.backproject_ref(x, r, phi, tau)))
-        log(f"K4 backproject ok at n={n} S={s} D={d}: max err {err:.2e}")
+        if not torch.equal(ops.backproject(x, r, phi, 1.0),
+                           ops.backproject(x, r, phi, 1.0)):
+            fail(f"backproject {n, s, d}: a second launch gave other bits")
+        log(f"K4 backproject ok at n={n} S={s} D={d}: max err {err:.2e}, "
+            "repeat launch bit-identical")
         if n == N_CHUNKS:
             tau = 1.0 / s
             results["backproject"] = dict(
                 shape=f"n={n} S={s} D={d}", max_abs_err=err,
                 ms=time_ms(lambda: ops.backproject(x, r, phi, tau)),
+                cold_ms=cold_ms(lambda: ops.backproject(x, r, phi, tau)),
                 call_ms=call_ms(lambda: ops.backproject(x, r, phi, tau)),
                 plain_ms=time_ms(lambda: ref.backproject_ref(x, r, phi,
                                                              tau)),
@@ -330,7 +401,8 @@ def check_kernels(dev) -> dict:
                else f"{r['library_ms']:.4f} ms")
         extra = (f" (cumsum only {r['cumsum_only_ms']:.4f} ms)"
                  if "cumsum_only_ms" in r else "")
-        log(f"{name}: {r['shape']}: kernel {r['ms']:.4f} ms (back to back "
+        log(f"{name}: {r['shape']}: kernel {r['ms']:.4f} ms (cold L2 "
+            f"{r['cold_ms']:.4f} ms, back to back "
             f"{r['call_ms']:.4f} ms a call), plain "
             f"{r['plain_ms']:.4f} ms, library {lib}{extra}, "
             f"bound {r['bound'][0]:.5f} ms ({r['bound'][1]})")
@@ -375,6 +447,8 @@ def check_packed_kernels(dev, gen, phi_of, results) -> None:
                 shape=f"n={n} S={s} D={d} pack_sign_residual",
                 max_abs_err=float((got - want).abs().max()),
                 ms=time_ms(lambda: ops.cs_pack_sign_residual(phi, x, yp)),
+                cold_ms=cold_ms(lambda: ops.cs_pack_sign_residual(phi, x,
+                                                                  yp)),
                 call_ms=call_ms(lambda: ops.cs_pack_sign_residual(phi, x,
                                                                   yp)),
                 plain_ms=time_ms(lambda: ref.cs_pack_sign_residual_ref(
@@ -392,14 +466,20 @@ def check_packed_kernels(dev, gen, phi_of, results) -> None:
             if not torch.equal(got, ops.backproject(x, r, phi, tau)):
                 fail(f"backproject_packed {n, s, d}: differs from K4 on "
                      "the equivalent f32 residual")
+            if not torch.equal(got, ops.backproject_packed(
+                    x, pplus, pminus, phi, tau)):
+                fail(f"backproject_packed {n, s, d}: a second launch gave "
+                     "other bits")
         log(f"K6 backproject_packed ok at n={n} S={s} D={d}: equal to K4, "
-            f"max err {err:.2e} against plain")
+            f"max err {err:.2e} against plain, repeat launch bit-identical")
         if n == N_CHUNKS:
             tau = 1.0 / s
             results["backproject_packed"] = dict(
                 shape=f"n={n} S={s} D={d}", max_abs_err=err,
                 ms=time_ms(lambda: ops.backproject_packed(x, pplus, pminus,
                                                           phi, tau)),
+                cold_ms=cold_ms(lambda: ops.backproject_packed(
+                    x, pplus, pminus, phi, tau)),
                 call_ms=call_ms(lambda: ops.backproject_packed(
                     x, pplus, pminus, phi, tau)),
                 plain_ms=time_ms(lambda: ref.backproject_packed_ref(
@@ -444,6 +524,7 @@ def check_prefix_kernel(dev, gen, results) -> None:
             results["prefix_eval"] = dict(
                 shape=f"B={b} U={u} K=3000", max_abs_err=0.0,
                 ms=time_ms(lambda: ops.prefix_eval(caps_s, k_s, coefs)),
+                cold_ms=cold_ms(lambda: ops.prefix_eval(caps_s, k_s, coefs)),
                 call_ms=call_ms(lambda: ops.prefix_eval(caps_s, k_s,
                                                         coefs)),
                 plain_ms=time_ms(lambda: ref.prefix_eval_ref(caps_s, k_s,
@@ -876,6 +957,7 @@ def main() -> None:
             "replaces": replaces,
             "launches": paths[MAIN_PATH[name]][name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "cold_ms": r["cold_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
             "bound_by": r["bound"][1], "library_ms": r["library_ms"],
             "result": "ok", "shape": r["shape"], "call_ms": r["call_ms"],

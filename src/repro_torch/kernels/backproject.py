@@ -6,8 +6,10 @@ of ``cs_project(mode="pack_sign_residual")`` and unpacks them in-tile to
 r = 2·(plus − minus) ∈ {−2, 0, +2}: exactly the f32 values of the BIHT
 residual, summed in K4's order, so K6 equals K4 on that residual bit for
 bit. The CUDA kernel is ``csrc/backproject.cu`` (one body for both
-residual forms); ``backproject_plain`` and ``backproject_packed_plain``
-are the PyTorch versions the CPU runs and the card checks against.
+residual forms; up to 16 rows it takes D % 4 == 0 and 16-byte aligned
+rows, and raises ``ValueError`` otherwise); ``backproject_plain`` and
+``backproject_packed_plain`` are the PyTorch versions the CPU runs and
+the card checks against.
 """
 from __future__ import annotations
 
@@ -39,6 +41,8 @@ def backproject(x: torch.Tensor, resid: torch.Tensor, phi: torch.Tensor,
     build.require(x, "x", (n, d))
     build.require(resid, "resid", (n, s), device=x.device)
     build.require(phi, "phi", (s, d), device=x.device)
+    if n <= 16:
+        build.require_vec4("backproject", d, x, phi)
     out = torch.empty_like(x)
     if n == 0:
         return out
@@ -85,6 +89,8 @@ def backproject_packed(x: torch.Tensor, plus: torch.Tensor,
     for name, t in (("plus", plus), ("minus", minus)):
         build.require(t, name, (n, w), dtype=torch.int32, device=x.device)
     build.require(phi, "phi", (s, d), device=x.device)
+    if n <= 16:
+        build.require_vec4("backproject_packed", d, x, phi)
     out = torch.empty_like(x)
     if n == 0:
         return out

@@ -170,3 +170,15 @@ def require(t: torch.Tensor, name: str, shape, dtype=torch.float32,
         f"shape {tuple(shape)} on {device or 'a CUDA device'}; got "
         f"{t.dtype} {tuple(t.shape)} on {t.device}"
         f"{'' if t.is_contiguous() else ', not contiguous'}")
+
+
+def require_vec4(name: str, d: int, *tensors: torch.Tensor) -> None:
+    """Bodies that read rows in 16-byte pieces (K2 at n > 16, K4/K6 at
+    n <= 16) take D % 4 == 0 and 16-byte aligned rows; anything else
+    raises here rather than reaching another body."""
+    if d % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in tensors):
+        return
+    raise ValueError(
+        f"{name}: the CUDA kernel takes D % 4 == 0 and 16-byte aligned "
+        f"rows at this row count; got D = {d}, data at "
+        f"{[t.data_ptr() % 16 for t in tensors]} mod 16")

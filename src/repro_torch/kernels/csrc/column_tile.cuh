@@ -1,16 +1,31 @@
-// The block layout shared by cs_project.cu (K2/K3) and backproject.cu (K4).
+// What cs_project.cu (K2/K3/K5) and backproject.cu (K4/K6) share.
 //
-// A block of kThreads = 256 threads owns 32 output columns and ROWS rows;
-// a thread owns one column and accumulates all ROWS rows, and the 8 warps
-// split each slab of the contraction between them. The contraction is
-// also split over a cluster of SPLIT blocks along grid z. This header
-// holds what both kernels do the same way: the broadcast row loads, the
-// fixed-order reduction of the warps' and the cluster's partial sums, and
-// the cluster launch.
+// 1. The column layout of the two bodies that stayed from the first port:
+//    cs_project at n <= 16 (K3 and K5 in the decode, D split over a cluster
+//    of 8) and backproject at n > 16. A block of kThreads = 256 threads
+//    owns 32 output columns and ROWS rows; a thread owns one column and
+//    accumulates all ROWS rows, and the 8 warps split each slab of the
+//    contraction between them. Here: the broadcast row loads and the
+//    fixed-order reduction of the warps' and the cluster's partial sums.
+//    At n <= 16 this layout is bound by Phi's bytes and spends most of a
+//    block's life on fixed costs; at n > 16 by FMA issue, at 18% of the
+//    f32 rate. The register-blocked (cs_project, n > 16) and streamed
+//    (backproject, n <= 16) bodies replace it on the main path.
+// 2. What the newer bodies are built from: 16-byte cp.async copies into a
+//    shared-memory ring (zero-filled past the edges of the arrays), dynamic
+//    shared memory above the 48 KB default, and the cluster launch (K2's
+//    split of D over 6 blocks). Clusters of 4 to 8 blocks reach at most
+//    120 of the H100's 132 SMs (tools/cluster_occupancy.py), which sizes
+//    both new grids.
+//
+// Every reduction here sums in a fixed order (warps, then cluster ranks,
+// in index order): a launch is deterministic, with no atomics.
 #pragma once
 
+#include <atomic>
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace column_tile {
 
@@ -72,15 +87,56 @@ __device__ __forceinline__ bool reduce_partials(const float (&acc)[ROWS],
   }
 }
 
-// Launches `kernel` on `grid` blocks of kThreads, in clusters of `split`
-// blocks along z (grid.z == split).
+// 16-byte asynchronous copy global -> shared through L2 only; `bytes` is
+// 16 or 0, and 0 fills the destination with zeros without reading `src`
+// (which must still be a valid address).
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           int bytes) {
+  const uint32_t d =
+      static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Raises `kernel`'s dynamic shared memory limit to `bytes` once per
+// device; `done` is the caller's own static, one per kernel.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, int bytes,
+                       std::atomic<uint64_t>& done) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const uint64_t bit = dev < 64 ? uint64_t{1} << dev : 0;
+  if (bit & done.load(std::memory_order_relaxed)) return cudaSuccess;
+  e = cudaFuncSetAttribute(kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           bytes);
+  if (e == cudaSuccess) done.fetch_or(bit, std::memory_order_relaxed);
+  return e;
+}
+
+// Launches `kernel` on `grid` blocks of `threads` with `smem_bytes` of
+// dynamic shared memory (above 48 KB only after allow_smem), in clusters
+// of `split` blocks along z (grid.z == split).
 template <typename... Params, typename... Args>
-cudaError_t launch_clusters(void (*kernel)(Params...), dim3 grid, int split,
+cudaError_t launch_clusters(void (*kernel)(Params...), dim3 grid,
+                            int threads, int split, int smem_bytes,
                             cudaStream_t stream, Args... args) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = grid;
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = 0;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem_bytes;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;

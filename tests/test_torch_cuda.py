@@ -5,8 +5,9 @@ so it runs where only the port is installed:
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 
 Without a CUDA device every test skips (a CUDA kernel has no CPU mode).
-The full-width checks and timings are ``chip_smoke.py``'s; these use
-ragged shapes.
+The timings are ``chip_smoke.py``'s; these use the full-width shapes of
+the compression (n = 130) and the decode (n = 13) and ragged ones around
+each kernel body's tiles.
 
 Tolerances: topk_select exact; signs may differ only where
 |x·Φ_s| ≤ 2·D·2⁻²⁴·‖x‖·‖Φ_s‖ (two f32 sums of D products in different
@@ -32,7 +33,14 @@ from repro_torch.sched import greedy_solve_batched, pack_coefs
 from repro_torch.theory import AnalysisConstants
 
 SHAPES = [(13, 256, 1024, 32), (7, 96, 1000, 9), (130, 128, 512, 16),
-          (40, 64, 4096, 80)]
+          (40, 64, 4096, 80),
+          # cs_project's register-blocked body (n > 16): the compression
+          # shape, and row counts on both sides of its 144-row tile
+          (130, 1024, 4096, 80), (17, 96, 1000, 20), (129, 96, 1000, 20),
+          (131, 96, 1000, 20), (145, 96, 1000, 20),
+          # backproject's streamed body (n <= 16): the decode shape, one
+          # row, and 16 rows with S shorter than one stage of its ring
+          (13, 1024, 4096, 320), (1, 96, 1000, 40), (16, 64, 1000, 40)]
 
 
 @pytest.fixture
@@ -147,6 +155,47 @@ def test_backproject_packed(cuda, n, s, d, k):
         got = ops.backproject_packed(x, plus, minus, phi, tau)
         _close(got, ref.backproject_packed_ref(x, plus, minus, phi, tau))
         assert torch.equal(got, ops.backproject(x, r, phi, tau))
+
+
+@pytest.mark.cuda
+def test_redesigned_kernels_repeat_bitwise(cuda):
+    """Two launches on the same inputs give the same bits: the split sums
+    meet in a fixed order, with no atomics."""
+    phi, x, _ = _inputs(130, 1024, 4096, 80, cuda)
+    for mode in ("none", "sign"):
+        assert torch.equal(project(phi, x, mode=mode),
+                           project(phi, x, mode=mode))
+    phi, x, y = _inputs(13, 1024, 4096, 320, cuda)
+    plus, minus = ref.cs_pack_sign_residual_ref(phi, x, pack_signs(y))
+    r = packed_residual(plus, minus)
+    assert torch.equal(ops.backproject(x, r, phi, 1.0 / 1024),
+                       ops.backproject(x, r, phi, 1.0 / 1024))
+    assert torch.equal(ops.backproject_packed(x, plus, minus, phi, 1.0),
+                       ops.backproject_packed(x, plus, minus, phi, 1.0))
+
+
+def _misaligned(t):
+    """A contiguous copy of ``t`` whose data starts 4 bytes past a 16-byte
+    boundary."""
+    out = torch.empty(t.numel() + 1, device=t.device)[1:].view(t.shape)
+    return out.copy_(t)
+
+
+@pytest.mark.cuda
+def test_vec4_bodies_refuse_other_rows(cuda):
+    """K2 at n > 16 and K4/K6 at n <= 16 take D % 4 == 0 and aligned rows;
+    the wrappers raise on anything else instead of taking another body."""
+    runs = [(20, lambda phi, x, y: ops.cs_project_sign(phi, x)),
+            (13, lambda phi, x, y: ops.backproject(x, y, phi, 1.0)),
+            (13, lambda phi, x, y: ops.backproject_packed(
+                x, pack_signs(y), pack_signs(-y), phi, 1.0))]
+    for n, run in runs:
+        phi, x, y = _inputs(n, 96, 1002, 20, cuda)
+        with pytest.raises(ValueError, match="D % 4 == 0"):
+            run(phi, x, y)
+        phi, x, y = _inputs(n, 96, 1000, 20, cuda)
+        with pytest.raises(ValueError, match="aligned"):
+            run(phi, _misaligned(x), y)
 
 
 def _sorted_prefix_inputs(b, u, dev, whole_k=True):
