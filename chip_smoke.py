@@ -239,6 +239,31 @@ def close(got, want, rtol=1e-5, atol=1e-5) -> float:
     return float(err.max())
 
 
+def same_bits(a, b) -> bool:
+    if isinstance(a, tuple):
+        return all(torch.equal(u, v) for u, v in zip(a, b))
+    return torch.equal(a, b)
+
+
+def repeats_bitwise(fn) -> bool:
+    """``fn()`` gives the same bits launched again, replayed three times
+    from a CUDA graph, and launched once more after the replays: the
+    split sums meet in a fixed order, and the n <= 16 body's arrival
+    tickets are back at 0 after every launch."""
+    want = fn()
+    if not same_bits(fn(), want):
+        return False
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = fn()
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        if not same_bits(got, want):
+            return False
+    return same_bits(fn(), want)
+
+
 def check_kernels(dev) -> dict:
     from repro_torch.kernels import build, ops, ref
     from repro_torch.kernels.backproject import packed_residual
@@ -284,11 +309,14 @@ def check_kernels(dev) -> dict:
     log(f"K1 topk_select ok: masks and values exact on "
         f"{[tuple(c[0].shape) for c in cases]}")
 
-    # K2 cs_project none/sign/pack at the compression shape, a ragged one
-    # past its 144-row tile, and a ragged one at n <= 16; K5 equal to K3
-    # at each n (one accumulation for every mode)
+    # K2 cs_project none/sign/pack at the compression shape and a ragged
+    # one past its 144-row tile (the n > 16 body), and at n <= 16 (the
+    # streamed body): the decode shape, 16 rows, one row, and D = 1000,
+    # not a multiple of a 128-deep stage; K5 equal to K3 at each shape
+    # (one accumulation for every mode)
     for n, s, d in [(N_CHUNKS * U_WORKERS, MEASURE, CHUNK), (145, 96, 1000),
-                    (7, 96, 1000)]:
+                    (N_CHUNKS, MEASURE, CHUNK), (16, MEASURE, 1000),
+                    (7, 96, 1000), (1, 96, 1000)]:
         phi = phi_of(s, d)
         x = sparse_rows(n, d, max(1, d * KAPPA // CHUNK), gen, dev)
         raw = ops.cs_project(phi, x)
@@ -329,7 +357,10 @@ def check_kernels(dev) -> dict:
                 bound=bound(4 * (n * d + s * d + n * s), 2 * n * s * d))
 
     # K3 cs_project sign_residual/residual at the decode shape and ragged
-    for n, s, d in [(N_CHUNKS, MEASURE, CHUNK), (7, 96, 1000)]:
+    # ones at 1 and 16 rows; at the decode shape also repeated and
+    # replayed from a CUDA graph, bit for bit
+    for n, s, d in [(N_CHUNKS, MEASURE, CHUNK), (7, 96, 1000),
+                    (16, 96, 1000), (1, MEASURE, CHUNK)]:
         phi = phi_of(s, d)
         x = sparse_rows(n, d, max(1, d * DECODE_K // CHUNK), gen, dev)
         x = x / torch.linalg.vector_norm(x, dim=1, keepdim=True)
@@ -343,8 +374,16 @@ def check_kernels(dev) -> dict:
         if hard:
             fail(f"cs_project sign_residual {n, s, d}: {hard} lanes differ "
                  "beyond the borderline bound")
+        repeat = ""
+        if n == N_CHUNKS:
+            for mode in ("sign_residual", "residual"):
+                if not repeats_bitwise(lambda: project(phi, x, mode=mode,
+                                                       y=y)):
+                    fail(f"cs_project {mode} {n, s, d}: a repeat launch or "
+                         "a graph replay gave other bits")
+            repeat = "; repeat launches and graph replays bit-identical"
         log(f"K3 cs_project_resid ok at n={n} S={s} D={d}: residual max "
-            f"err {err:.2e}, {flips} borderline sign flips")
+            f"err {err:.2e}, {flips} borderline sign flips{repeat}")
         if n == N_CHUNKS:
             results["cs_project_resid"] = dict(
                 shape=f"n={n} S={s} D={d} sign_residual", max_abs_err=err,
@@ -412,7 +451,9 @@ def check_kernels(dev) -> dict:
 
 def check_packed_kernels(dev, gen, phi_of, results) -> None:
     """K5 cs_project pack_sign_residual and K6 backproject_packed at the
-    packed decode's shape and a ragged one. Exact, kernel against kernel:
+    packed decode's shape and ragged ones at 7, 16 and 1 rows (K5 also
+    repeated and replayed from a CUDA graph at the decode shape). Exact,
+    kernel against kernel:
     K5's planes are K3's sign residual (one accumulation), K6 on the
     planes is K4 on 2·(plus − minus). Against the plain versions: signs
     outside the borderline bound, K6 within rtol = atol = 1e-5."""
@@ -421,7 +462,8 @@ def check_packed_kernels(dev, gen, phi_of, results) -> None:
     from repro_torch.kernels.cs_project import project
     from repro_torch.kernels.sign import pack_signs
 
-    for n, s, d in [(N_CHUNKS, MEASURE, CHUNK), (7, 96, 1000)]:
+    for n, s, d in [(N_CHUNKS, MEASURE, CHUNK), (7, 96, 1000),
+                    (16, MEASURE, 1000), (1, 96, 1000)]:
         phi = phi_of(s, d)
         x = sparse_rows(n, d, max(1, d * DECODE_K // CHUNK), gen, dev)
         x = x / torch.linalg.vector_norm(x, dim=1, keepdim=True)
@@ -439,8 +481,15 @@ def check_packed_kernels(dev, gen, phi_of, results) -> None:
         if hard:
             fail(f"cs_project pack_sign_residual {n, s, d}: {hard} lanes "
                  "differ beyond the borderline bound")
+        repeat = ""
+        if n == N_CHUNKS:
+            if not repeats_bitwise(lambda: ops.cs_pack_sign_residual(phi, x,
+                                                                     yp)):
+                fail(f"cs_project pack_sign_residual {n, s, d}: a repeat "
+                     "launch or a graph replay gave other bits")
+            repeat = "; repeat launches and graph replays bit-identical"
         log(f"K5 cs_project_pack_resid ok at n={n} S={s} D={d}: equal to "
-            f"K3, {flips} borderline flips against plain")
+            f"K3, {flips} borderline flips against plain{repeat}")
         w = s // 32
         if n == N_CHUNKS:
             results["cs_project_pack_resid"] = dict(

@@ -173,9 +173,9 @@ def require(t: torch.Tensor, name: str, shape, dtype=torch.float32,
 
 
 def require_vec4(name: str, d: int, *tensors: torch.Tensor) -> None:
-    """Bodies that read rows in 16-byte pieces (K2 at n > 16, K4/K6 at
-    n <= 16) take D % 4 == 0 and 16-byte aligned rows; anything else
-    raises here rather than reaching another body."""
+    """Bodies that read rows in 16-byte pieces (K2/K3/K5 at every n,
+    K4/K6 at n <= 16) take D % 4 == 0 and 16-byte aligned rows; anything
+    else raises here rather than reaching another body."""
     if d % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in tensors):
         return
     raise ValueError(

@@ -14,10 +14,11 @@ computes ``chunks @ Φᵀ`` (phi (S, D), chunks (n, D)) and applies:
   y − sign(x Φᵀ) = 2·(plus − minus)   (K5)
 
 The CUDA kernel is ``csrc/cs_project.cu``: one accumulation for every
-mode, so K5's fresh signs are K3's bit for bit. Above 16 rows it takes
-D % 4 == 0 and 16-byte aligned rows, and raises ``ValueError``
-otherwise. ``project_plain`` is the PyTorch version the CPU runs and the
-card checks against.
+mode, so K5's fresh signs are K3's bit for bit. It takes D % 4 == 0 and
+16-byte aligned rows, and raises ``ValueError`` otherwise. At n <= 16 its
+blocks split D and meet through a buffer on the device, so two launches
+on one device must not run at the same time. ``project_plain`` is the
+PyTorch version the CPU runs and the card checks against.
 """
 from __future__ import annotations
 
@@ -86,8 +87,7 @@ def project(phi: torch.Tensor, chunks: torch.Tensor, *, mode: str = "sign",
     s = phi.shape[0]
     build.require(chunks, "chunks", (n, d))
     build.require(phi, "phi", (s, d), device=chunks.device)
-    if n > 16:
-        build.require_vec4("cs_project", d, chunks, phi)
+    build.require_vec4("cs_project", d, chunks, phi)
     if mode == "pack_sign_residual":
         return _pack_sign_residual(phi, chunks, y, n, s, d)
     if mode == "pack":

@@ -1,22 +1,18 @@
 // What cs_project.cu (K2/K3/K5) and backproject.cu (K4/K6) share.
 //
-// 1. The column layout of the two bodies that stayed from the first port:
-//    cs_project at n <= 16 (K3 and K5 in the decode, D split over a cluster
-//    of 8) and backproject at n > 16. A block of kThreads = 256 threads
-//    owns 32 output columns and ROWS rows; a thread owns one column and
-//    accumulates all ROWS rows, and the 8 warps split each slab of the
-//    contraction between them. Here: the broadcast row loads and the
-//    fixed-order reduction of the warps' and the cluster's partial sums.
-//    At n <= 16 this layout is bound by Phi's bytes and spends most of a
-//    block's life on fixed costs; at n > 16 by FMA issue, at 18% of the
-//    f32 rate. The register-blocked (cs_project, n > 16) and streamed
-//    (backproject, n <= 16) bodies replace it on the main path.
+// 1. The column layout of the first port, which now serves only
+//    backproject at n > 16 (off the main path). A block of kThreads = 256
+//    threads owns 32 output columns and ROWS rows; a thread owns one
+//    column and accumulates all ROWS rows, and the 8 warps split each slab
+//    of the contraction between them. Here: the broadcast row loads (also
+//    used by backproject's streamed body) and the fixed-order reduction of
+//    the warps' and the cluster's partial sums.
 // 2. What the newer bodies are built from: 16-byte cp.async copies into a
 //    shared-memory ring (zero-filled past the edges of the arrays), dynamic
 //    shared memory above the 48 KB default, and the cluster launch (K2's
-//    split of D over 6 blocks). Clusters of 4 to 8 blocks reach at most
-//    120 of the H100's 132 SMs (tools/cluster_occupancy.py), which sizes
-//    both new grids.
+//    split of D over 6 blocks at n > 16). Clusters of 4 to 8 blocks reach
+//    at most 120 of the H100's 132 SMs (tools/cluster_occupancy.py), which
+//    sizes the grids: the streamed bodies at n <= 16 use no cluster.
 //
 // Every reduction here sums in a fixed order (warps, then cluster ranks,
 // in index order): a launch is deterministic, with no atomics.

@@ -20,42 +20,60 @@
 // along their contiguous D axis. Accumulation is f32 FMA on the CUDA cores:
 // TF32 tensor cores would flip signs near zero. Every mode at a given n
 // runs the same accumulation, so pack equals sign and K5's signs are K3's
-// bit for bit. Two bodies, chosen by n:
+// bit for bit. Every sum meets in a fixed order, with no float atomics, so
+// a second launch or a CUDA graph replay gives the same bits. Both bodies
+// read 16-byte pieces of rows: they need D % 4 == 0 and 16-byte aligned
+// rows of X and Phi (the wrapper raises otherwise). Two bodies, chosen by n:
+//
+// n <= 16, the streamed body (K3 and K5 in the decode, and K2 at the
+// decode's size: n = 13, S = 1024, D = 4096, 0.11 GFLOP on the 16.8 MB
+// Phi, bound by bytes, 5 us at the HBM rate). A block of 256 threads owns
+// 32 S rows of Phi (one packed word of every output row) and one of
+// `split` equal ranges of D, so the grid is S/32 tiles x split, sized to
+// the SMs: 32 x 4 = 128 blocks, one wave, no cluster (clusters of 4 do
+// not reach every SM). Phi's 32 rows and X's 16 rows of a 128-deep stage
+// of D stream through a 4-stage ring (24 KB a stage) filled by 16-byte
+// cp.async copies, a warp copying one whole 512-byte row segment at a
+// time, so Phi is read once and X once per S tile (6.8 MB from L2 at the
+// decode's shape). Lane l of warp w holds D columns 4l..4l+3 of every
+// stage for S rows 4w..4w+3 and all 16 X rows: per stage 4 + 16 float4
+// shared loads (consecutive lanes, consecutive 16 bytes) feed 256 FMAs.
+// The 32 lanes' partial sums meet in a fixed butterfly of shuffles (62 a
+// lane), which leaves each lane two finished sums. The D ranges meet at a
+// fixed finisher, the tile's range-0 block: the others store each sum as
+// a 64-bit word with a ready mark in its high half (g_parts, one buffer
+// on the device), the finisher polls those words, adds the ranges in
+// index order, clears the marks and runs the epilogue (a warp per output
+// row, lane = S column, so the pack ballot is one __ballot_sync a word).
+// A ticket counter cost a fence and an atomic round trip after the last
+// block's sums; the marked words cost one load. Launches that share a
+// device must not overlap (they share g_parts); the decode's run one
+// after another on one stream.
 //
 // n > 16, the register-blocked body (K2 at the compression shape n = 130,
 // S = 1024, D = 4096: 1.09 GFLOP on ~19 MB, 16 us of f32 work against 6 us
-// of traffic, so bound by operations). It replaces the column layout of
-// column_tile.cuh, which ran at 18% of the f32 rate: 32-row tiles padded
-// 130 rows to 160, a thread read 9 shared loads per 32 FMAs, the
-// transposed staging stores had 4-way bank conflicts, and the pipeline was
-// one register step deep. Here a block of 512 threads owns 144 rows x 64
-// columns (130 rows pad to 144, 10%) as two k-groups of 256 threads, each
-// taking half of every 64-deep stage of D. A thread owns 9 rows x 4
-// columns (rows tr + 16i, columns tc + 16j) and per 4-deep step reads
-// 9 + 4 float4 from shared memory for 144 FMAs, the next step's fragments
-// loaded while this step's are multiplied; a warp's loads hit 8 distinct
-// 16-byte bank groups (row stride 68 floats). X and Phi stay D-contiguous
-// in shared memory, filled by 16-byte cp.async copies into a 3-stage ring,
-// one barrier a stage. D is split over a cluster of 6 blocks: 16 column
-// tiles x 6 = 96 blocks, one wave. (Clusters of 4 to 8 blocks reach at
-// most 120 of the 132 SMs on the H100, so 16 clusters of 8 ran in two
-// waves: tools/cluster_occupancy.py.)
+// of traffic, so bound by operations). A block of 512 threads owns 144
+// rows x 64 columns (130 rows pad to 144, 10%) as two k-groups of 256
+// threads, each taking half of every 64-deep stage of D. A thread owns 9
+// rows x 4 columns (rows tr + 16i, columns tc + 16j) and per 4-deep step
+// reads 9 + 4 float4 from shared memory for 144 FMAs, the next step's
+// fragments loaded while this step's are multiplied; a warp's loads hit 8
+// distinct 16-byte bank groups (row stride 68 floats). X and Phi stay
+// D-contiguous in shared memory, filled by 16-byte cp.async copies into a
+// 3-stage ring, one barrier a stage. D is split over a cluster of 6
+// blocks: 16 column tiles x 6 = 96 blocks, one wave. (Clusters of 4 to 8
+// blocks reach at most 120 of the 132 SMs on the H100, so 16 clusters of
+// 8 ran in two waves: tools/cluster_occupancy.py.)
 // k-group 1 hands its partial tile to k-group 0 through shared memory;
 // then rank q sums rows [24q, 24q + 24) of the 6 ranks' tiles through
 // distributed shared memory in rank order (deterministic) and runs the
-// epilogue on them. Needs D % 4 == 0 and 16-byte aligned rows. What still
-// bounds it is FMA issue: about half the f32 rate of its 96 SMs, with or
-// without the global copies and with a quarter of the shared loads alike.
-//
-// n <= 16, the column layout of column_tile.cuh (K3 and K5 in the decode,
-// n = 13: 0.11 GFLOP on the 16.8 MB Phi, bound by bytes, 5 us). A block
-// owns 32 S columns and 16 rows, a thread one column and all 16 rows; the
-// 8 warps split each 128-deep slab of D, staged in registers one step
-// ahead, and D is split over a cluster of 8. Lane i of a warp holds S
-// column 32j + i, so the pack epilogue is one __ballot_sync per word.
+// epilogue on them. What still bounds it is FMA issue: about half the f32
+// rate of its 96 SMs, with or without the global copies and with a
+// quarter of the shared loads alike.
 //
 // Neither body writes the dense projection in the sign, pack and residual
 // modes.
+#include <algorithm>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -63,63 +81,31 @@
 
 namespace {
 
-using column_tile::kPad;
-using column_tile::kThreads;
-
 enum Mode { kNone = 0, kSign = 1, kPack = 2, kSignResidual = 3,
             kResidual = 4, kPackSignResidual = 5 };
 
-// One BK-deep slab of X (ROWS rows) and Phi (32 rows), staged in
-// registers: lane l of warp w loads element k0 + 32q + l of rows w + 8i.
-template <int ROWS, int BK>
-struct Slab {
-  static constexpr int KQ = BK / 32;
-  float xr[(ROWS / 8) * KQ], pr[4 * KQ];
+// What the epilogue of output (r, c) reads of y, as bits: the f32 y[r][c]
+// for the residual modes, the packed word of (r, c) for the packed one
+// (its 32 lanes load the same word), nothing for the others.
+template <int MODE>
+__device__ __forceinline__ uint32_t load_y(const void* __restrict__ y, int r,
+                                           int c, int n, int s) {
+  if (r >= n || c >= s) return 0u;
+  if (MODE == kPackSignResidual)
+    return static_cast<const uint32_t*>(y)[static_cast<size_t>(r) * (s / 32) +
+                                           c / 32];
+  if (MODE == kSignResidual || MODE == kResidual)
+    return __float_as_uint(
+        static_cast<const float*>(y)[static_cast<size_t>(r) * s + c]);
+  return 0u;
+}
 
-  __device__ __forceinline__ void load(const float* __restrict__ x,
-                                       const float* __restrict__ phi, int n,
-                                       int s, int d, int row0, int col0,
-                                       int k0, int lane, int warp) {
-#pragma unroll
-    for (int q = 0; q < KQ; ++q) {
-      const int gk = k0 + 32 * q + lane;
-      const bool kin = gk < d;
-#pragma unroll
-      for (int i = 0; i < ROWS / 8; ++i) {
-        const int gr = row0 + warp + 8 * i;
-        xr[q * (ROWS / 8) + i] =
-            (kin && gr < n) ? x[static_cast<size_t>(gr) * d + gk] : 0.f;
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int gc = col0 + warp + 8 * i;
-        pr[q * 4 + i] =
-            (kin && gc < s) ? phi[static_cast<size_t>(gc) * d + gk] : 0.f;
-      }
-    }
-  }
-
-  __device__ __forceinline__ void store(float (*xs)[ROWS + kPad],
-                                        float (*ps)[33], int lane,
-                                        int warp) const {
-#pragma unroll
-    for (int q = 0; q < KQ; ++q) {
-#pragma unroll
-      for (int i = 0; i < ROWS / 8; ++i)
-        xs[32 * q + lane][warp + 8 * i] = xr[q * (ROWS / 8) + i];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        ps[32 * q + lane][warp + 8 * i] = pr[q * 4 + i];
-    }
-  }
-};
-
-// y is f32 (n, S) for the residual modes and uint32 words (n, S/32) for
-// the packed residual; out is f32, uint32 words, or the two word planes.
+// Output (r, c) from its sum v and load_y's yv; out is f32, uint32 words,
+// or the two word planes.
 template <int MODE>
 __device__ __forceinline__ void epilogue(float v, int r, int c, int n, int s,
-                                         const void* __restrict__ y,
-                                         void* __restrict__ out, int lane) {
+                                         uint32_t yv, void* __restrict__ out,
+                                         int lane) {
   if (MODE == kPack || MODE == kPackSignResidual) {
     // all 32 lanes vote; S % 32 == 0, so a word is all in or all out
     const uint32_t bits = __ballot_sync(0xffffffffu, v >= 0.f);
@@ -129,88 +115,251 @@ __device__ __forceinline__ void epilogue(float v, int r, int c, int n, int s,
     if (MODE == kPack) {
       words[w] = bits;
     } else {
-      const uint32_t yw = static_cast<const uint32_t*>(y)[w];
-      words[w] = yw & ~bits;                                  // plus
-      words[static_cast<size_t>(n) * (s / 32) + w] = bits & ~yw;  // minus
+      words[w] = yv & ~bits;                                  // plus
+      words[static_cast<size_t>(n) * (s / 32) + w] = bits & ~yv;  // minus
     }
     return;
   }
   if (r >= n || c >= s) return;
-  const size_t idx = static_cast<size_t>(r) * s + c;
-  const float* yf = static_cast<const float*>(y);
+  const float yf = __uint_as_float(yv);
   const float sgn = v >= 0.f ? 1.f : -1.f;
   float o;
   if (MODE == kNone) o = v;
   else if (MODE == kSign) o = sgn;
-  else if (MODE == kSignResidual) o = yf[idx] - sgn;
-  else o = yf[idx] - v;
-  static_cast<float*>(out)[idx] = o;
+  else if (MODE == kSignResidual) o = yf - sgn;
+  else o = yf - v;
+  static_cast<float*>(out)[static_cast<size_t>(r) * s + c] = o;
 }
 
-// Block (x, y, z) owns S columns [32x, 32x + 32), rows [ROWS y, ROWS y +
-// ROWS) and the z-th BK-aligned segment of D; clusters of SPLIT blocks
-// along z.
-template <int ROWS, int BK, int SPLIT, int MODE>
-__global__ void __launch_bounds__(kThreads)
-cs_project_kernel(const float* __restrict__ x, const float* __restrict__ phi,
-                  const void* __restrict__ y, void* __restrict__ out, int n,
-                  int s, int d) {
-  constexpr int KW = BK / 8;     // slab depth per warp
-  constexpr int RPT = ROWS / 8;  // rows a thread finishes
-  constexpr int XS = BK * (ROWS + kPad), PS = BK * 33, RED = 8 * ROWS * 33;
-  // the slab buffers and the warp partials are never live together
-  __shared__ __align__(16) float smem[XS + PS > RED ? XS + PS : RED];
-  auto xs = reinterpret_cast<float (*)[ROWS + kPad]>(smem);
-  auto ps = reinterpret_cast<float (*)[33]>(smem + XS);
-  auto red = reinterpret_cast<float (*)[ROWS][33]>(smem);
+// ---- n <= 16: the streamed body (see the note at the top) ---------------
+namespace streamed {
+
+constexpr int kRows = 16;             // X rows held, n <= 16
+constexpr int kBS = 32;               // S rows of a block: one packed word
+constexpr int kBK = 128;              // D depth of a stage: 32 lanes x float4
+constexpr int kStages = 4;
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kSW = kBS / kWarps;     // S rows of a warp: 4
+constexpr int kAcc = kSW * kRows;     // sums a lane holds: 64
+constexpr int kFin = kAcc / 32;       // finished sums a lane holds: 2
+constexpr int kOuts = kRows / kWarps; // output rows a warp finishes: 2
+constexpr int kStage = (kBS + kRows) * kBK;  // floats of a stage, 24 KB
+constexpr int kSmemBytes = 4 * kStages * kStage;
+constexpr int kMaxSplit = 8;          // D ranges of an S tile
+constexpr int kMaxBlocks = 256;       // blocks of a launch that split D
+constexpr long kSpinLimit = 1L << 25; // polls before a missing tile traps
+static_assert(kAcc % 32 == 0 && kRows % kFin == 0 && kRows % kWarps == 0,
+              "tile shape");
+
+// Partial sums of the blocks that split D, one 64-bit word each: the f32
+// sum in the low half, 1 in the high half once written, 0 once the
+// tile's finisher has read it. Zero-initialised with the module, and
+// every launch leaves it at 0 again.
+__device__ unsigned long long g_parts[kMaxBlocks * kRows * kBS];
+
+// Stage <- D columns [k0, k0 + kBK) of Phi rows col0.. (smem rows 0..kBS)
+// and of X rows 0..kRows (smem rows kBS..); zeros past s, n and d
+// (d % 4 == 0, so a 16-byte chunk is all in or all out).
+__device__ __forceinline__ void load_stage(float* stage,
+                                           const float* __restrict__ x,
+                                           const float* __restrict__ phi,
+                                           int n, int s, int d, int col0,
+                                           int k0) {
+  constexpr int kChunks = (kBS + kRows) * (kBK / 4);
+  static_assert(kChunks % kThreads == 0, "whole copies a thread");
+#pragma unroll
+  for (int c = 0; c < kChunks / kThreads; ++c) {
+    const int id = threadIdx.x + c * kThreads;
+    const int row = id / (kBK / 4), q = id % (kBK / 4);
+    const int gk = k0 + 4 * q;
+    const bool phi_row = row < kBS;
+    const int g = phi_row ? col0 + row : row - kBS;
+    const bool in = gk < d && g < (phi_row ? s : n);
+    const float* src = (phi_row ? phi : x) + static_cast<size_t>(g) * d + gk;
+    column_tile::cp_async16(stage + row * kBK + 4 * q, in ? src : phi,
+                            in ? 16 : 0);
+  }
+}
+
+// Sums v over the 32 lanes of the warp by recursive halving: at each step
+// a lane keeps half of its M values, sends the other half to lane ^ H and
+// adds what it receives. The order is fixed; lane l ends holding the full
+// sums of v[kFin l + j] in v[j], j < kFin.
+template <int H, int M = kAcc>
+__device__ __forceinline__ void halve(float (&v)[kAcc], int lane) {
+  const bool up = lane & H;
+#pragma unroll
+  for (int j = 0; j < M / 2; ++j) {
+    const float send = up ? v[j] : v[j + M / 2];
+    const float keep = up ? v[j + M / 2] : v[j];
+    v[j] = keep + __shfl_xor_sync(0xffffffffu, send, H);
+  }
+  if constexpr (H > 1) halve<H / 2, M / 2>(v, lane);
+}
+
+__device__ __forceinline__ unsigned long long load_part(
+    const unsigned long long* p) {
+  unsigned long long w;
+  asm volatile("ld.relaxed.gpu.global.b64 %0, [%1];" : "=l"(w) : "l"(p)
+               : "memory");
+  return w;
+}
+
+__device__ __forceinline__ void store_part(unsigned long long* p,
+                                           unsigned long long w) {
+  asm volatile("st.relaxed.gpu.global.b64 [%0], %1;" ::"l"(p), "l"(w)
+               : "memory");
+}
+
+// Block (x, y) owns S rows [32x, 32x + 32) and D stages [y seg, y seg +
+// seg); block (x, 0) finishes the tile.
+template <int MODE>
+__global__ void __launch_bounds__(kThreads, 1)
+cs_project_stream_kernel(const float* __restrict__ x,
+                         const float* __restrict__ phi,
+                         const void* __restrict__ y, void* __restrict__ out,
+                         int n, int s, int d, int seg) {
+  extern __shared__ __align__(16) float smem[];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int row0 = blockIdx.y * ROWS, col0 = blockIdx.x * 32;
-  const int seg = ((d + BK - 1) / BK + SPLIT - 1) / SPLIT * BK;
-  const int k_begin = blockIdx.z * seg;
-  const int k_end = min(d, k_begin + seg);
+  const int col0 = blockIdx.x * kBS, cc = col0 + lane;
+  const int split = gridDim.y, q0 = blockIdx.y;
+  const int kt0 = q0 * seg;
+  const int nkt = max(0, min((d + kBK - 1) / kBK - kt0, seg));
 
-  float acc[ROWS];
+  // the finisher's y, loaded before the ring fills: loaded after the sums
+  // it would be one more round trip on the kernel's tail. Warp w finishes
+  // X rows w + kWarps o, lane = S column.
+  uint32_t yv[kOuts];
 #pragma unroll
-  for (int r = 0; r < ROWS; ++r) acc[r] = 0.f;
+  for (int o = 0; o < kOuts; ++o)
+    yv[o] = q0 == 0 ? load_y<MODE>(y, warp + kWarps * o, cc, n, s) : 0u;
 
-  Slab<ROWS, BK> slab;
-  if (k_begin < k_end)
-    slab.load(x, phi, n, s, d, row0, col0, k_begin, lane, warp);
-  for (int k0 = k_begin; k0 < k_end; k0 += BK) {
-    slab.store(xs, ps, lane, warp);
+  float acc[kAcc];  // acc[j kRows + i]: S row kSW warp + j, X row i
+#pragma unroll
+  for (int i = 0; i < kAcc; ++i) acc[i] = 0.f;
+
+#pragma unroll
+  for (int t = 0; t < kStages - 1; ++t) {
+    if (t < nkt)
+      load_stage(smem + t * kStage, x, phi, n, s, d, col0, (kt0 + t) * kBK);
+    column_tile::cp_async_commit();
+  }
+  for (int kt = 0; kt < nkt; ++kt) {
+    column_tile::cp_async_wait<kStages - 2>();
+    // stage kt has landed for every thread, and stage kt - 1, which the
+    // next copies overwrite, is no longer read
     __syncthreads();
-    // the next slab's loads fly while this one is multiplied
-    if (k0 + BK < k_end)
-      slab.load(x, phi, n, s, d, row0, col0, k0 + BK, lane, warp);
-#pragma unroll 4
-    for (int t = 0; t < KW; ++t) {
-      const int kk = warp * KW + t;
-      float a[ROWS];
-      column_tile::load_rows<ROWS>(&xs[kk][0], a);
-      const float b = ps[kk][lane];
+    const int nt = kt + kStages - 1;
+    if (nt < nkt)
+      load_stage(smem + (nt % kStages) * kStage, x, phi, n, s, d, col0,
+                 (kt0 + nt) * kBK);
+    column_tile::cp_async_commit();
+
+    const float* ps = smem + (kt % kStages) * kStage + 4 * lane;
+    const float* xs = ps + kBS * kBK;
+    float4 b[kSW];
 #pragma unroll
-      for (int r = 0; r < ROWS; ++r) acc[r] = fmaf(a[r], b, acc[r]);
+    for (int j = 0; j < kSW; ++j)
+      b[j] = *reinterpret_cast<const float4*>(ps + (kSW * warp + j) * kBK);
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+      const float4 a = *reinterpret_cast<const float4*>(xs + i * kBK);
+#pragma unroll
+      for (int j = 0; j < kSW; ++j) {
+        float v = acc[j * kRows + i];
+        v = fmaf(a.x, b[j].x, v);
+        v = fmaf(a.y, b[j].y, v);
+        v = fmaf(a.z, b[j].z, v);
+        acc[j * kRows + i] = fmaf(a.w, b[j].w, v);
+      }
     }
-    __syncthreads();
+  }
+  column_tile::cp_async_wait<0>();
+
+  // the lanes' sums: lane l holds S row kSW warp + kFin l / kRows of the
+  // tile for X rows kFin l % kRows + j, j < kFin
+  halve<16>(acc, lane);
+  const int c = kSW * warp + kFin * lane / kRows;
+  unsigned long long* parts =
+      g_parts + static_cast<size_t>(blockIdx.x) * split * kRows * kBS;
+  if (q0 != 0) {
+    // each word carries its own ready mark, so no fence or counter is
+    // needed: the finisher polls the words themselves
+#pragma unroll
+    for (int j = 0; j < kFin; ++j) {
+      const int i = kFin * lane % kRows + j;
+      store_part(parts + (static_cast<size_t>(q0) * kRows + i) * kBS + c,
+                 (1ull << 32) | __float_as_uint(acc[j]));
+    }
+    return;
   }
 
-  float v[RPT];
-  if (!column_tile::reduce_partials<ROWS, SPLIT>(acc, red, v, warp, lane))
-    return;
+  // The finisher: its own sums through shared memory, the other ranges'
+  // words polled together, all added in range order.
+  __syncthreads();   // the ring is free
+  float* own = smem;  // [kRows][kBS]
 #pragma unroll
-  for (int i = 0; i < RPT; ++i)
-    epilogue<MODE>(v[i], row0 + RPT * warp + i, col0 + lane, n, s, y, out,
-                   lane);
+  for (int j = 0; j < kFin; ++j)
+    own[(kFin * lane % kRows + j) * kBS + c] = acc[j];
+  __syncthreads();
+  unsigned long long w[kOuts][kMaxSplit];
+#pragma unroll
+  for (int o = 0; o < kOuts; ++o)
+#pragma unroll
+    for (int q = 1; q < kMaxSplit; ++q)
+      if (q < split)
+        w[o][q] = load_part(
+            parts + (static_cast<size_t>(q) * kRows + warp + kWarps * o) *
+                        kBS + lane);
+#pragma unroll
+  for (int o = 0; o < kOuts; ++o) {
+    const int i = warp + kWarps * o;
+    float v = own[i * kBS + lane];
+#pragma unroll
+    for (int q = 1; q < kMaxSplit; ++q) {
+      if (q >= split) break;
+      unsigned long long* p =
+          parts + (static_cast<size_t>(q) * kRows + i) * kBS + lane;
+      // all ranges run in this one wave, so a word is at most a block's
+      // run away; a word that never comes is a fault, not a wait
+      for (long spins = 0; (w[o][q] >> 32) != 1ull; w[o][q] = load_part(p))
+        if (++spins > kSpinLimit) __trap();
+      v += __uint_as_float(static_cast<uint32_t>(w[o][q]));
+      store_part(p, 0ull);  // read: ready for the next launch
+    }
+    epilogue<MODE>(v, i, cc, n, s, yv[o], out, lane);
+  }
 }
 
-template <int ROWS, int BK, int SPLIT, int MODE>
-cudaError_t launch_mode(const float* x, const float* phi, const void* y,
-                        void* out, int n, int s, int d, cudaStream_t st) {
-  return column_tile::launch_clusters(
-      cs_project_kernel<ROWS, BK, SPLIT, MODE>,
-      dim3((s + 31) / 32, (n + ROWS - 1) / ROWS, SPLIT), kThreads, SPLIT, 0,
-      st, x, phi, y, out, n, s, d);
+template <int MODE>
+cudaError_t launch(const float* x, const float* phi, const void* y,
+                   void* out, int n, int s, int d, cudaStream_t st) {
+  static std::atomic<uint64_t> smem_set{0};
+  if (d % 4 || n > kRows) return cudaErrorInvalidValue;
+  const int tiles = (s + kBS - 1) / kBS;
+  if (tiles == 0) return cudaSuccess;
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return e;
+  // one wave: as many D ranges as leave every block an SM of its own,
+  // which also lets the finishers wait for their tiles' other ranges
+  const int nkt = std::max(1, (d + kBK - 1) / kBK);
+  int want = std::min({kMaxSplit, std::max(1, sms / tiles), nkt});
+  if (tiles * want > kMaxBlocks) want = 1;
+  const int seg = (nkt + want - 1) / want;
+  const int split = (nkt + seg - 1) / seg;  // no empty range
+  e = column_tile::allow_smem(cs_project_stream_kernel<MODE>, kSmemBytes,
+                              smem_set);
+  if (e != cudaSuccess) return e;
+  cs_project_stream_kernel<MODE><<<dim3(tiles, split), kThreads, kSmemBytes,
+                                   st>>>(x, phi, y, out, n, s, d, seg);
+  return cudaGetLastError();
 }
+
+}  // namespace streamed
 
 // ---- n > 16: the register-blocked body (see the note at the top) --------
 namespace wide {
@@ -372,7 +521,8 @@ cs_project_wide_kernel(const float* __restrict__ x,
     float v = parts[0][lr * kRedLD + lc];
 #pragma unroll
     for (int p = 1; p < kSplit; ++p) v += parts[p][lr * kRedLD + lc];
-    epilogue<MODE>(v, row0 + lr, col0 + lc, n, s, y, out, lane);
+    epilogue<MODE>(v, row0 + lr, col0 + lc, n, s,
+                   load_y<MODE>(y, row0 + lr, col0 + lc, n, s), out, lane);
   }
   cluster.sync();  // no rank leaves while another reads its tile
 }
@@ -396,8 +546,8 @@ cudaError_t launch(const float* x, const float* phi, const void* y,
 template <int MODE>
 cudaError_t launch_rows(const float* x, const float* phi, const void* y,
                         void* out, int n, int s, int d, cudaStream_t st) {
-  return n <= 16
-      ? launch_mode<16, 128, 8, MODE>(x, phi, y, out, n, s, d, st)
+  return n <= streamed::kRows
+      ? streamed::launch<MODE>(x, phi, y, out, n, s, d, st)
       : wide::launch<MODE>(x, phi, y, out, n, s, d, st);
 }
 

@@ -38,9 +38,13 @@ SHAPES = [(13, 256, 1024, 32), (7, 96, 1000, 9), (130, 128, 512, 16),
           # shape, and row counts on both sides of its 144-row tile
           (130, 1024, 4096, 80), (17, 96, 1000, 20), (129, 96, 1000, 20),
           (131, 96, 1000, 20), (145, 96, 1000, 20),
-          # backproject's streamed body (n <= 16): the decode shape, one
-          # row, and 16 rows with S shorter than one stage of its ring
-          (13, 1024, 4096, 320), (1, 96, 1000, 40), (16, 64, 1000, 40)]
+          # the streamed bodies of backproject and cs_project (n <= 16):
+          # the decode shape, one row, and 16 rows with S shorter than one
+          # stage of backproject's ring
+          (13, 1024, 4096, 320), (1, 96, 1000, 40), (16, 64, 1000, 40),
+          # cs_project's streamed body: S of one and of 32 tiles at 1, 13
+          # and 16 rows, D = 1000 not a multiple of its 128-deep stage
+          (16, 1024, 1000, 40), (1, 1024, 4096, 40), (13, 96, 1000, 40)]
 
 
 @pytest.fixture
@@ -160,18 +164,52 @@ def test_backproject_packed(cuda, n, s, d, k):
 @pytest.mark.cuda
 def test_redesigned_kernels_repeat_bitwise(cuda):
     """Two launches on the same inputs give the same bits: the split sums
-    meet in a fixed order, with no atomics."""
+    meet in a fixed order, with no float atomics."""
     phi, x, _ = _inputs(130, 1024, 4096, 80, cuda)
     for mode in ("none", "sign"):
         assert torch.equal(project(phi, x, mode=mode),
                            project(phi, x, mode=mode))
     phi, x, y = _inputs(13, 1024, 4096, 320, cuda)
+    for mode in ("none", "sign_residual", "residual"):
+        assert torch.equal(project(phi, x, mode=mode, y=y),
+                           project(phi, x, mode=mode, y=y))
+    yp = pack_signs(y)
+    for got, want in zip(ops.cs_pack_sign_residual(phi, x, yp),
+                         ops.cs_pack_sign_residual(phi, x, yp)):
+        assert torch.equal(got, want)
     plus, minus = ref.cs_pack_sign_residual_ref(phi, x, pack_signs(y))
     r = packed_residual(plus, minus)
     assert torch.equal(ops.backproject(x, r, phi, 1.0 / 1024),
                        ops.backproject(x, r, phi, 1.0 / 1024))
     assert torch.equal(ops.backproject_packed(x, plus, minus, phi, 1.0),
                        ops.backproject_packed(x, plus, minus, phi, 1.0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["sign_residual", "residual",
+                                  "pack_sign_residual"])
+def test_stream_projection_graph_replay_bitwise(cuda, mode):
+    """K3 and K5 at the decode shape replayed from a CUDA graph give the
+    eager launch's bits on every replay, and so does an eager launch after
+    the replays: each launch of the n <= 16 body leaves its arrival
+    tickets at 0."""
+    phi, x, y = _inputs(13, 1024, 4096, 320, cuda)
+    if mode == "pack_sign_residual":
+        y = pack_signs(y)
+
+    def run():
+        out = project(phi, x, mode=mode, y=y)
+        return torch.cat(out) if isinstance(out, tuple) else out
+
+    want = run()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = run()
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+    assert torch.equal(run(), want)
 
 
 def _misaligned(t):
@@ -183,9 +221,15 @@ def _misaligned(t):
 
 @pytest.mark.cuda
 def test_vec4_bodies_refuse_other_rows(cuda):
-    """K2 at n > 16 and K4/K6 at n <= 16 take D % 4 == 0 and aligned rows;
-    the wrappers raise on anything else instead of taking another body."""
+    """cs_project (K2/K3/K5) at every n and K4/K6 at n <= 16 take
+    D % 4 == 0 and aligned rows; the wrappers raise on anything else
+    instead of taking another body."""
     runs = [(20, lambda phi, x, y: ops.cs_project_sign(phi, x)),
+            (13, lambda phi, x, y: ops.cs_project_sign(phi, x)),
+            (13, lambda phi, x, y: project(phi, x, mode="sign_residual",
+                                           y=y)),
+            (1, lambda phi, x, y: ops.cs_pack_sign_residual(
+                phi, x, pack_signs(y))),
             (13, lambda phi, x, y: ops.backproject(x, y, phi, 1.0)),
             (13, lambda phi, x, y: ops.backproject_packed(
                 x, pack_signs(y), pack_signs(-y), phi, 1.0))]
