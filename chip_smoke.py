@@ -9,7 +9,8 @@ result line):
 2. build    compile the port's CUDA kernels from src/repro_torch/kernels/csrc
 3. kernels  every kernel against its plain PyTorch version on the card, at
             the main path's shapes and at ragged ones, with times (warm
-            L2 from CUDA graph replay, and cold after a 256 MB read)
+            L2 from CUDA graph replay, and cold after a 256 MB read), and
+            an empty kernel timed the same way: the launch floor
 4. slice    the paper's §V federated round (784-64-10 MLP, D = 50,890,
             13 chunks of 4096, S = 1024, κ = 80, BIHT 30 iterations, U = 10)
             through ``FederatedTrainer`` with ``use_kernels=True``; the
@@ -231,6 +232,21 @@ def sparse_rows(n, d, k, gen, dev, scale=1e-2):
     return ref.topk_select_ref(x, k)[0].contiguous()
 
 
+def adversarial_rows(d, k, gen, dev):
+    """Gaussian, heavy ties, fewer than k nonzeros, zeros, -0.0, mixed
+    signed zeros, a +inf entry, some subnormal entries, all subnormal."""
+    x = torch.randn(9, d, generator=gen, device=dev)
+    x[1] = torch.round(x[1] * 3)
+    x[2, k // 2:] = 0.0
+    x[3] = 0.0
+    x[4] = -0.0
+    x[5, ::2] = -0.0
+    x[6, d // 3] = float("inf")
+    x[7, ::3] *= 1e-40
+    x[8] *= 1e-39
+    return x
+
+
 def close(got, want, rtol=1e-5, atol=1e-5) -> float:
     err = (got - want).abs()
     if not bool((err <= atol + rtol * want.abs()).all()):
@@ -287,13 +303,28 @@ def check_kernels(dev) -> dict:
              (torch.randn(13, CHUNK, generator=gen, device=dev), DECODE_K),
              (torch.randn(7, 1000, generator=gen, device=dev), 33),
              (tail, KAPPA)]
+    # adversarial rows (ties, few nonzeros, zeros and -0.0, +inf,
+    # subnormals) at k = 0, 1, κ, D, D + 3; D = 1000 and 16384 (the
+    # largest); rows off a 16-byte boundary (the scalar body); no rows
+    for d, k in [(CHUNK, DECODE_K), (1000, 33), (16384, KAPPA)]:
+        adv = adversarial_rows(d, k, gen, dev)
+        cases += [(adv, kk) for kk in (0, 1, k, d, d + 3)]
+    off = torch.empty(13 * CHUNK + 1, device=dev)[1:].view(13, CHUNK)
+    cases += [(off.copy_(cases[1][0]), DECODE_K),
+              (torch.empty(0, CHUNK, device=dev), KAPPA)]
     for x, k in cases:
         v, m = ops.topk_select(x, k)
         pv, pm = ref.topk_select_ref(x, k)
-        if not (torch.equal(m, pm) and torch.equal(v, pv)):
+        if not (torch.equal(m, pm) and torch.equal(v.view(torch.int32),
+                                                   pv.view(torch.int32))):
             fail(f"topk_select {tuple(x.shape)} k={k}: mask or values "
                  f"differ from the plain version")
-    # timed at the decode shape, 31 of its 32 launches a round
+    for x, k in cases[:2]:
+        if not repeats_bitwise(lambda: ops.topk_select(x, k)):
+            fail(f"topk_select {tuple(x.shape)}: a repeat launch or a graph "
+                 "replay gave other bits")
+    # timed at the decode shape, 31 of its 32 launches a round, and at the
+    # compression shape (1 a round)
     x, k = cases[1]
     n, d = x.shape
     xc, kc = cases[0]
@@ -305,9 +336,11 @@ def check_kernels(dev) -> dict:
         plain_ms=time_ms(lambda: ref.topk_select_ref(x, k)),
         library_ms=time_ms(lambda: torch.topk(x.abs(), k, dim=-1)),
         bound=bound(9 * n * d, n * d * (2 * 33 + 2)),
-        ms_compress=time_ms(lambda: ops.topk_select(xc, kc)))
-    log(f"K1 topk_select ok: masks and values exact on "
-        f"{[tuple(c[0].shape) for c in cases]}")
+        ms_compress=time_ms(lambda: ops.topk_select(xc, kc)),
+        cold_ms_compress=cold_ms(lambda: ops.topk_select(xc, kc)))
+    log(f"K1 topk_select ok: masks and values exact on {len(cases)} cases "
+        f"({sorted({tuple(c[0].shape) for c in cases})}); repeat launches "
+        "and graph replays bit-identical at n=130 and n=13")
 
     # K2 cs_project none/sign/pack at the compression shape and a ragged
     # one past its 144-row tile (the n > 16 body), and at n <= 16 (the
@@ -433,13 +466,21 @@ def check_kernels(dev) -> dict:
     check_packed_kernels(dev, gen, phi_of, results)
     check_prefix_kernel(dev, gen, results)
     torch.cuda.synchronize()
+    # the floor under the latency-bound kernels: an empty kernel of one
+    # block, timed by the same graph replay
+    floor = time_ms(lambda: build.empty_launch(dev))
+    for r in results.values():
+        r["launch_floor_ms"] = floor
+    log(f"launch floor (empty kernel, CUDA graph replay): {floor:.4f} ms")
     log(f"topk_select at the compression shape n=130 k={KAPPA}: kernel "
-        f"{results['topk_select']['ms_compress']:.4f} ms")
+        f"{results['topk_select']['ms_compress']:.4f} ms (cold L2 "
+        f"{results['topk_select']['cold_ms_compress']:.4f} ms)")
     for name, r in results.items():
         lib = ("n/a" if r["library_ms"] is None
                else f"{r['library_ms']:.4f} ms")
-        extra = (f" (cumsum only {r['cumsum_only_ms']:.4f} ms)"
-                 if "cumsum_only_ms" in r else "")
+        extra = (f" (cumsum only {r['cumsum_only_ms']:.4f} ms; at the "
+                 f"greedy round's B=1 U={U_WORKERS} {r['ms_greedy']:.4f} ms)"
+                 if name == "prefix_eval" else "")
         log(f"{name}: {r['shape']}: kernel {r['ms']:.4f} ms (cold L2 "
             f"{r['cold_ms']:.4f} ms, back to back "
             f"{r['call_ms']:.4f} ms a call), plain "
@@ -549,15 +590,19 @@ def fleet_problem(h, dev):
 
 
 def check_prefix_kernel(dev, gen, results) -> None:
-    """K7 prefix_eval at the fleet shape, the FL round's (1, U) and a
-    ragged one, K_i = 3000: every prefix sum is exact in f32, so R equals
-    the plain version exactly. No one PyTorch call computes the function:
+    """K7 prefix_eval at the fleet shape, the FL round's (1, U) and ragged
+    ones (U past a 16-byte multiple, shorter than a block's segment, and
+    a segment of more than two tiles), K_i = 3000: every prefix sum is
+    exact in f32, so R equals the plain version exactly; on real K_i at
+    the first two, repeat launches and graph replays give the same bits.
+    No one PyTorch call computes the function:
     ``library_ms`` is null, and ``torch.cumsum`` over the same (B, U) is
     timed beside it as "cumsum only"."""
     from repro_torch.kernels import ops, ref
     from repro_torch.sched import pack_coefs
 
-    for b, u in [(FLEET_B, FLEET_U), (1, U_WORKERS), (5, 1000)]:
+    for b, u in [(FLEET_B, FLEET_U), (1, U_WORKERS), (5, 1000), (2, 8193),
+                 (FLEET_B, 100), (1, 3), (300, 3000)]:
         h = torch.randn(b, u, generator=gen, device=dev).abs() + 1e-3
         bp = fleet_problem(h, dev)
         caps = bp.caps()
@@ -568,7 +613,21 @@ def check_prefix_kernel(dev, gen, results) -> None:
         got = ops.prefix_eval(caps_s, k_s, coefs)
         if not torch.equal(got, ref.prefix_eval_ref(caps_s, k_s, coefs)):
             fail(f"prefix_eval ({b}, {u}): R differs from the plain version")
-        log(f"K7 prefix_eval ok at B={b} U={u}: R exact")
+        repeat = ""
+        if (b, u) in ((FLEET_B, FLEET_U), (1, U_WORKERS)):
+            # real K_i: the sums' order matters, and is fixed
+            k_real = 1000.0 + 4000.0 * torch.rand(b, u, generator=gen,
+                                                  device=dev)
+            if not repeats_bitwise(lambda: ops.prefix_eval(caps_s, k_real,
+                                                           coefs)):
+                fail(f"prefix_eval ({b}, {u}): a repeat launch or a graph "
+                     "replay gave other bits")
+            repeat = "; on real K_i repeat launches and graph replays " \
+                "bit-identical"
+        if (b, u) == (1, U_WORKERS):   # the greedy round's launch
+            results["prefix_eval"]["ms_greedy"] = time_ms(
+                lambda: ops.prefix_eval(caps_s, k_s, coefs))
+        log(f"K7 prefix_eval ok at B={b} U={u}: R exact{repeat}")
         if (b, u) == (FLEET_B, FLEET_U):
             results["prefix_eval"] = dict(
                 shape=f"B={b} U={u} K=3000", max_abs_err=0.0,
@@ -1012,10 +1071,13 @@ def main() -> None:
             "result": "ok", "shape": r["shape"], "call_ms": r["call_ms"],
             "launches_by_path": {p: c[name] for p, c in paths.items()
                                  if c[name]},
-            **({"ms_compress_n130": r["ms_compress"]}
+            "launch_floor_ms": r["launch_floor_ms"],
+            **({"ms_compress_n130": r["ms_compress"],
+                "cold_ms_compress_n130": r["cold_ms_compress"]}
                if "ms_compress" in r else {}),
-            **({"cumsum_only_ms": r["cumsum_only_ms"]}
-               if "cumsum_only_ms" in r else {})})
+            **({"cumsum_only_ms": r["cumsum_only_ms"],
+                "ms_greedy_b1_u10": r["ms_greedy"]}
+               if name == "prefix_eval" else {})})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

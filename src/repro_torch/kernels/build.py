@@ -41,6 +41,7 @@ SIGNATURES = {
     "cs_project_pack_resid_f32": [_P, _P, _P, _P, _I, _I, _I, _P],
     "backproject_packed_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
     "prefix_eval_f32": [_P, _P, _P, _P, _I, _I, _P],
+    "repro_empty_launch": [_P],
 }
 
 #: Kernel name -> launches since the last reset.
@@ -150,6 +151,14 @@ def check(rc: int, name: str) -> None:
     if rc:
         msg = lib().repro_cuda_error_string(rc).decode()
         raise RuntimeError(f"{name}: CUDA error {rc} ({msg})")
+
+
+def empty_launch(device: torch.device) -> None:
+    """Launch the empty kernel on ``device``'s current stream: the launch
+    floor that every kernel pays (timed by chip_smoke.py; counted
+    nowhere)."""
+    check(lib().repro_empty_launch(
+        torch.cuda.current_stream(device).cuda_stream), "empty_launch")
 
 
 def stream_ptr(t: torch.Tensor) -> int:

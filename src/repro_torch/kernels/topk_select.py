@@ -4,9 +4,12 @@ Port of ``repro/kernels/topk_select.py``: 32 rounds of bisection on the
 per-row magnitude threshold, then select with ``hi`` and fall back to
 ``lo`` when ``hi`` keeps fewer than κ. Exact for rows with distinct
 magnitudes; ties may admit more than κ entries; a row with fewer than κ
-nonzeros selects the whole row (the ``lo`` fallback). The CUDA kernel is
-``csrc/topk_select.cu``; ``topk_select_plain`` is the same f32 op
-sequence in PyTorch, which the CPU runs and the card checks against.
+nonzeros selects the whole row (the ``lo`` fallback).
+``topk_select_plain`` is that f32 op sequence in PyTorch, which the CPU
+runs and the card checks against. The CUDA kernel,
+``csrc/topk_select.cu``, reaches the same threshold bit for bit from the
+(κ+1)-th and κ-th largest magnitudes (a radix select), which decide
+every step of the bisection, and replays the 32 steps on scalars.
 """
 from __future__ import annotations
 

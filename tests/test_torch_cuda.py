@@ -9,7 +9,8 @@ The timings are ``chip_smoke.py``'s; these use the full-width shapes of
 the compression (n = 130) and the decode (n = 13) and ragged ones around
 each kernel body's tiles.
 
-Tolerances: topk_select exact; signs may differ only where
+Tolerances: topk_select exact, on adversarial rows too (ties, zeros and
+-0.0, +inf, subnormals; k = 0, 1, kappa, D, D + 3); signs may differ only where
 |x·Φ_s| ≤ 2·D·2⁻²⁴·‖x‖·‖Φ_s‖ (two f32 sums of D products in different
 orders, see tests/test_torch_kernels.py); float outputs rtol = atol = 1e-5.
 Exact, kernel against kernel: the packed residual planes (K5) against K3's
@@ -81,6 +82,29 @@ def _close(got, want):
                                rtol=1e-5, atol=1e-5)
 
 
+def _adversarial_rows(d, k, dev, seed):
+    """Gaussian, heavy ties, fewer than k nonzeros, zeros, -0.0, mixed
+    signed zeros, a +inf entry, some subnormal entries, all subnormal."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(9, d, generator=gen, device=dev)
+    x[1] = torch.round(x[1] * 3)
+    x[2, k // 2:] = 0.0
+    x[3] = 0.0
+    x[4] = -0.0
+    x[5, ::2] = -0.0
+    x[6, d // 3] = float("inf")
+    x[7, ::3] *= 1e-40
+    x[8] *= 1e-39
+    return x
+
+
+def _topk_equal(x, k):
+    gv, gm = ops.topk_select(x, k)
+    wv, wm = ref.topk_select_ref(x, k)
+    return (torch.equal(gm, wm) and torch.equal(gv, wv)
+            and torch.equal(gv.view(torch.int32), wv.view(torch.int32)))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,s,d,k", SHAPES)
 def test_topk_select_exact(cuda, n, s, d, k):
@@ -90,6 +114,50 @@ def test_topk_select_exact(cuda, n, s, d, k):
     wv, wm = ref.topk_select_ref(x, k)
     assert torch.equal(gm, wm) and torch.equal(gv, wv)
     assert int(gm[0].sum()) == d
+    adv = _adversarial_rows(d, k, cuda, n + d)
+    for kk in (0, 1, k, d, d + 3):
+        assert _topk_equal(adv, kk), kk
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d,k", [(13, 1000, 320), (3, 16384, 1000),
+                                   (2, 16384, 16384), (0, 4096, 80),
+                                   (10, 1738, 80), (1, 1, 0), (4, 3, 1)])
+def test_topk_select_row_lengths(cuda, n, d, k):
+    """Ragged D, the largest D, no rows, and rows that do not start on a
+    16-byte boundary (the scalar body), adversarial rows included."""
+    x = torch.randn(n, d, device=cuda) * 1e-2
+    assert _topk_equal(x, k)
+    if n:
+        adv = _adversarial_rows(d, min(k, d), cuda, d)
+        for kk in (0, 1, k, d, d + 3):
+            assert _topk_equal(adv, kk), kk
+        off = torch.empty(n * d + 1, device=cuda)[1:].view(n, d)
+        assert _topk_equal(off.copy_(x), k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,k", [(13, 320), (130, 80)])
+def test_topk_select_graph_replay_bitwise(cuda, n, k):
+    """K1 at the decode and compression shapes: repeat launches, CUDA
+    graph replays and a later eager launch give the same bits."""
+    x = torch.randn(n, 4096, device=cuda) * 1e-2
+
+    def run():
+        v, m = ops.topk_select(x, k)
+        return torch.cat([v.view(torch.int32).view(-1),
+                          m.to(torch.int32).view(-1)])
+
+    want = run()
+    assert torch.equal(run(), want)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = run()
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+    assert torch.equal(run(), want)
 
 
 @pytest.mark.cuda
@@ -258,7 +326,8 @@ def _sorted_prefix_inputs(b, u, dev, whole_k=True):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,u", [(1, 10), (5, 1000), (3, 2049)])
+@pytest.mark.parametrize("b,u", [(1, 10), (5, 1000), (3, 2049), (64, 8192),
+                                 (2, 8193), (64, 100), (1, 3), (300, 3000)])
 def test_prefix_eval(cuda, b, u):
     (caps_s, k_s, coefs), bp = _sorted_prefix_inputs(b, u, cuda)
     assert torch.equal(ops.prefix_eval(caps_s, k_s, coefs),
@@ -270,6 +339,26 @@ def test_prefix_eval(cuda, b, u):
     np.testing.assert_allclose(
         ops.prefix_eval(caps_s, k_s, coefs).cpu().numpy(),
         ref.prefix_eval_ref(caps_s, k_s, coefs).cpu().numpy(), rtol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,u", [(64, 8192), (1, 10)])
+def test_prefix_eval_graph_replay_bitwise(cuda, b, u):
+    """K7 on real K_i (its sums then depend on their order): repeat
+    launches, CUDA graph replays and a later eager launch give the same
+    bits, since every block sums its carry and its tiles in a fixed
+    order."""
+    (caps_s, k_s, coefs), _ = _sorted_prefix_inputs(b, u, cuda, False)
+    want = ops.prefix_eval(caps_s, k_s, coefs)
+    assert torch.equal(ops.prefix_eval(caps_s, k_s, coefs), want)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = ops.prefix_eval(caps_s, k_s, coefs)
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+    assert torch.equal(ops.prefix_eval(caps_s, k_s, coefs), want)
 
 
 @pytest.mark.cuda

@@ -5,7 +5,12 @@ CPU, i.e. through each kernel's plain PyTorch version.
 
 Tolerances:
 - topk_select masks and values: exact. Both run the same 32-round f32
-  bisection, op for op.
+  bisection, op for op. The CUDA kernel finds the same threshold from two
+  order statistics and a replay of the 32 steps on scalars; a model of
+  that (below) is held bit for bit to the plain version and to the
+  Pallas kernel in interpret mode. XLA on the CPU flushes subnormal
+  floats to zero, so the row whose threshold falls among subnormals is
+  held to the plain version only.
 - signs (sign / pack / sign_residual): a lane may differ only where
   |x·Φ_s| ≤ 2·D·2⁻²⁴·‖x‖·‖Φ_s‖ — each f32 sum of D products is within
   D·2⁻²⁴·‖x‖‖Φ_s‖ of the exact value, and the two packages sum in
@@ -25,8 +30,10 @@ import torch
 
 from repro.kernels import cs_project as jcs
 from repro.kernels import ops as jops
+from repro.kernels import topk_select as jtopk
 from repro_torch.kernels import build, ops
 from repro_torch.kernels.cs_project import project
+from repro_torch.kernels.topk_select import N_BISECT, topk_select_plain
 
 
 def _t(a):
@@ -83,6 +90,83 @@ def test_topk_select_tail_chunk():
     wv, wm = jops.topk_select(jnp.asarray(x), 32)
     np.testing.assert_array_equal(gm.numpy(), np.asarray(wm))
     np.testing.assert_array_equal(gv.numpy(), np.asarray(wv))
+
+
+def _threshold_by_order_stats(row: torch.Tensor, k: int) -> torch.Tensor:
+    """The CUDA kernel's threshold, modelled with a sort: v(j), the j-th
+    largest |x| (+inf for j <= 0, -inf for j > D), decides every step of
+    the bisection, since cnt(t) = #{|x| >= t} > k exactly when
+    t <= v(k+1), and cnt(t) >= k exactly when t <= v(k). The 32 steps are
+    then replayed on f32 scalars in the Pallas kernel's op order."""
+    a = row.abs()
+    desc = torch.sort(a, descending=True).values
+    inf = torch.tensor(float("inf"))
+
+    def v(j):
+        return inf if j <= 0 else -inf if j > a.numel() else desc[j - 1]
+
+    amax, vk1, vk = desc[0], v(k + 1), v(k)
+    lo, hi = torch.tensor(0.0), amax
+    for _ in range(N_BISECT):
+        mid = 0.5 * (lo + hi)
+        if mid <= vk1:
+            lo = mid
+        else:
+            hi = mid
+    sel_hi = torch.minimum(hi, amax)
+    return sel_hi if sel_hi <= vk else lo
+
+
+def _adversarial_rows(d: int, kappa: int, seed: int) -> dict:
+    rng = np.random.default_rng(seed)
+    rows = {"gaussian": rng.standard_normal(d) * 1e-2,
+            "ties": np.round(rng.standard_normal(d) * 3),
+            "few_nonzeros": np.where(np.arange(d) < kappa // 2,
+                                     rng.standard_normal(d), 0.0),
+            "zeros": np.zeros(d), "negative_zeros": -np.zeros(d)}
+    r = rng.standard_normal(d)
+    r[::2] = -0.0
+    rows["mixed_zeros"] = r
+    r = rng.standard_normal(d)
+    r[d // 3] = np.inf
+    rows["inf"] = r
+    r = rng.standard_normal(d)
+    r[::3] *= 1e-40            # subnormal entries below a normal threshold
+    rows["some_subnormals"] = r
+    rows["subnormals"] = rng.standard_normal(d) * 1e-39
+    return {name: r.astype(np.float32) for name, r in rows.items()}
+
+
+def _bits(t):
+    return np.asarray(t).view(np.int32)
+
+
+@pytest.mark.parametrize("d,kappa", [(64, 16), (1000, 33)])
+@pytest.mark.parametrize("which", ["0", "1", "kappa", "D", "D+3"])
+def test_topk_order_statistics_replay(d, kappa, which):
+    """The order-statistic threshold gives the plain version's masks and
+    values bit for bit, and the Pallas kernel's (interpret mode) masks and
+    values (the JAX package writes +0.0 where an unselected entry is
+    negative), except where XLA on the CPU flushes the threshold's
+    subnormals to zero."""
+    k = {"0": 0, "1": 1, "kappa": kappa, "D": d, "D+3": d + 3}[which]
+    rows = _adversarial_rows(d, kappa, d + k)
+    x = np.stack(list(rows.values()))
+    pv, pm = topk_select_plain(_t(x), k)
+    jv, jm = jtopk.topk_select(jnp.asarray(x), k, interpret=True)
+    for i, (name, row) in enumerate(rows.items()):
+        r = _t(row)
+        mask = r.abs() >= _threshold_by_order_stats(r, k)
+        val = r * mask.to(r.dtype)
+        np.testing.assert_array_equal(mask.to(torch.int8).numpy(),
+                                      pm[i].numpy(), err_msg=name)
+        np.testing.assert_array_equal(_bits(val), _bits(pv[i]), err_msg=name)
+        if name != "subnormals":
+            np.testing.assert_array_equal(mask.to(torch.int8).numpy(),
+                                          np.asarray(jm)[i], err_msg=name)
+            # values equal; the sign of an unselected zero may differ
+            np.testing.assert_array_equal(val.numpy(), np.asarray(jv)[i],
+                                          err_msg=name)
 
 
 @pytest.mark.parametrize("n,s,d", [(8, 128, 512), (28, 256, 1024),
