@@ -22,6 +22,13 @@ result line):
             ``greedy_batched`` scheduler through the prefix_eval kernel
 5c. fleet   ``schedule`` on 64 instances of 8192 workers (the fleet
             shape of benchmarks/sched_bench.py), kernel against plain
+6.  sweep   ``EngineRun.run_sweep`` over 3 arms (fig5's σ² = 1e-6, 1e-4,
+            1e-2) x 20 rounds, BIHT 25, with ``mode="scan"`` (each arm's
+            round replayed from a CUDA graph) and ``mode="host"``: equal
+            bit for bit, loss falling and rt_bound finite in every arm, the
+            same launches per round; for ``all`` and for
+            ``greedy_batched`` + the packed codec. Times both modes in
+            turns, the capture, the device-busy share and the decode stage
 
 Each path's launch counters are set to 0 just before it and read just
 after; a kernel of the path that was not launched fails the run.
@@ -698,6 +705,34 @@ def median(xs):
     return float(np.median(np.asarray(xs)))
 
 
+def device_busy(fn):
+    """torch.profiler around one ``fn()`` (after a first profiled call
+    that sets CUPTI up). Returns (wall ms, device-busy ms, device events,
+    every event's self device time in ms): the busy time sums the events
+    that ran on the card (kernels, copies, fills). The last number counts
+    a kernel twice when an aten op launched it (``aten::bmm`` carries its
+    GEMMs' time); it is printed to compare with records that used it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts):
+        fn()
+        torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA
+              and e.self_device_time_total > 0]
+    busy_us = sum(e.self_device_time_total for e in events)
+    every_us = sum(getattr(e, "self_device_time_total", 0)
+                   for e in prof.key_averages())
+    return wall_us / 1e3, busy_us / 1e3, events, every_us / 1e3
+
+
 def where_the_time_goes(tr, agg: str) -> float:
     """After the counted run: ten more rounds timed one by one (host
     clock, synchronised), the stages of one round timed apart (median of
@@ -716,8 +751,9 @@ def where_the_time_goes(tr, agg: str) -> float:
         f", min {min(per_round):.3f}, max {max(per_round):.3f}")
 
     if tr.cfg.scheduler == "greedy_batched":
-        h, _ = tr.fns.fade_step(tr.state.fade)
-        sched = host_ms(lambda: tr.fns.schedule(h, tr.k_weights), 5)
+        h, _ = tr.fns.fade_step(tr.state.fade, tr.generator)
+        sched = host_ms(lambda: tr.fns.schedule(
+            h, tr.k_weights, tr.arm.noise_var, tr.arm.p_max), 5)
         log(f"{agg}: schedule stage {median(sched):.3f} ms (median of 5)")
 
     if agg == "obcsaa":
@@ -754,29 +790,13 @@ def where_the_time_goes(tr, agg: str) -> float:
         log("obcsaa: stage ms (median of 5, synchronised): " + ", ".join(
             f"{k} {median(v):.3f}" for k, v in stages.items()))
 
-    from torch.profiler import ProfilerActivity, profile
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    with profile(activities=acts):      # the first session sets CUPTI up
-        tr.run_round(t_next + 10)
-        torch.cuda.synchronize()
-    with profile(activities=acts) as prof:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for t in range(t_next + 11, t_next + 14):
-            tr.run_round(t)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    events = [e for e in prof.key_averages()
-              if getattr(e, "self_device_time_total", 0) > 0]
-    busy_us = sum(e.self_device_time_total for e in events)
-    log(f"{agg}: profiler, 3 rounds: wall {wall_us / 1e3:.3f} ms, device "
-        f"busy {busy_us / 1e3:.3f} ms ({100 * busy_us / wall_us:.1f}%)")
+    wall, busy, events, every = device_busy(
+        lambda: [tr.run_round(t) for t in range(t_next + 10, t_next + 13)])
+    log(f"{agg}: profiler, 3 rounds: wall {wall:.3f} ms, device busy "
+        f"{busy:.3f} ms ({100 * busy / wall:.1f}%; every event's self "
+        f"device time {every:.3f} ms)")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
         log(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:5d}x  "
-            f"{e.key[:70]}")
-    host = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
-    for e in host[:8]:
-        log(f"  host {e.self_cpu_time_total / 1e3:9.3f} ms  {e.count:5d}x  "
             f"{e.key[:70]}")
     return median(per_round)
 
@@ -806,15 +826,17 @@ class Task:
 
     def obcsaa(self, **kw):
         from repro_torch.core.obcsaa import OBCSAAConfig
-        return OBCSAAConfig(chunk=CHUNK, measure=MEASURE, topk=KAPPA,
-                            biht_iters=BIHT_ITERS, noise_var=1e-4,
-                            p_max=10.0, use_kernels=True, **kw)
+        return OBCSAAConfig(**{**dict(
+            chunk=CHUNK, measure=MEASURE, topk=KAPPA, biht_iters=BIHT_ITERS,
+            noise_var=1e-4, p_max=10.0, use_kernels=True), **kw})
 
     def trainer(self, dev, **cfg_kw):
+        """Phases 4-5 drive the eager per-round loop (``mode="host"``);
+        phase 6 drives the graph."""
         from repro_torch.engine import FLConfig
         from repro_torch.fl import FederatedTrainer
         cfg = FLConfig(learning_rate=0.1, rounds=ROUNDS,
-                       eval_every=EVAL_EVERY, seed=0, **cfg_kw)
+                       eval_every=EVAL_EVERY, seed=0, mode="host", **cfg_kw)
         return FederatedTrainer(cfg, self.loss_fn, self.params0, self.data,
                                 np.full(U_WORKERS, float(SAMPLES)),
                                 eval_fn=self.eval_fn, device=dev)
@@ -1014,6 +1036,144 @@ def run_fleet(dev) -> dict:
     return counts
 
 
+# -- phase 6 ------------------------------------------------------------------
+
+# benchmarks/common.py:80 decodes with 25 BIHT iterations; fig5's σ² axis
+SWEEP_ROUNDS, SWEEP_EVAL, SWEEP_ITERS = 20, 10, 25
+SWEEP_NV, SWEEP_SEEDS = [1e-6, 1e-4, 1e-2], [0, 1, 2]
+SWEEP_PER_ROUND = {"topk_select": 2 + SWEEP_ITERS, "cs_project": 1,
+                   "cs_project_resid": SWEEP_ITERS,
+                   "backproject": 1 + SWEEP_ITERS}
+
+
+def run_sweep_phase(dev, task: Task, label: str, sched_kw: dict,
+                    ob_kw: dict) -> dict:
+    """Phase 6: ``EngineRun.run_sweep`` over 3 arms (σ² = 1e-6, 1e-4,
+    1e-2; seeds 0, 1, 2) × 20 rounds, eval every 10, BIHT 25, once with
+    ``mode="scan"`` (each arm's round captured as a CUDA graph and
+    replayed) and once with ``mode="host"`` (the eager loop). The two must
+    agree bit for bit; the graph's launches per round must equal the eager
+    round's. Then the steady ms per arm-round of both, in turns, the
+    profiler's device-busy share of 3 rounds of each, and the decode stage
+    alone under replay. Returns the launch counts of the scan run."""
+    from repro_torch.core.obcsaa import compress_chunks, reconstruct_chunks
+    from repro_torch.engine import (EngineRun, FLConfig, RoundGraph,
+                                    make_arms, stacked_grads)
+    from repro_torch.engine.state import arm_at
+    from repro_torch.kernels import build
+    from repro_torch.theory import ErrorBudget
+
+    ob = task.obcsaa(biht_iters=SWEEP_ITERS, **ob_kw)
+    A, R, W = len(SWEEP_NV), SWEEP_ROUNDS, RoundGraph.WARMUP
+    runs, outs, counts, secs = {}, {}, {}, {}
+    for mode in ("scan", "host"):
+        cfg = FLConfig(aggregator="obcsaa", learning_rate=0.1, rounds=R,
+                       eval_every=SWEEP_EVAL, seed=0, mode=mode, obcsaa=ob,
+                       **sched_kw)
+        runs[mode] = EngineRun(cfg, task.loss_fn, task.params0, task.data,
+                               np.full(U_WORKERS, float(SAMPLES)),
+                               eval_fn=task.eval_fn, device=dev)
+        arms = make_arms(cfg, seeds=SWEEP_SEEDS, noise_var=SWEEP_NV)
+        torch.cuda.synchronize()
+        build.reset_launch_counts()
+        t0 = time.perf_counter()
+        outs[mode] = runs[mode].run_sweep(arms)
+        torch.cuda.synchronize()
+        secs[mode] = time.perf_counter() - t0
+        counts[mode] = build.launch_counts()
+    sc, ho = outs["scan"], outs["host"]
+    diffs = [k for k in ("n_scheduled", "b_t", "rt_bound", "eval_rounds",
+                         "loss", "accuracy")
+             if not np.array_equal(sc[k], ho[k])]
+    diffs += [f"budget.{f}" for f, a, b in zip(ErrorBudget._fields,
+                                               sc["budget"], ho["budget"])
+              if not np.array_equal(a, b)]
+    diffs += [f"params.{k}" for k in sc["params"]
+              if not torch.equal(sc["params"][k], ho["params"][k])]
+    if diffs:
+        fail(f"{label}: scan (CUDA graph) differs from host in {diffs}")
+    if not np.isfinite(sc["rt_bound"]).all():
+        fail(f"{label}: rt_bound not finite")
+    if not (sc["loss"][:, -1] < task.loss0).all():
+        fail(f"{label}: loss did not fall in every arm ({task.loss0} -> "
+             f"{sc['loss'][:, -1].tolist()})")
+    per_round = dict(SWEEP_PER_ROUND, **(
+        {"prefix_eval": 1} if sched_kw.get("scheduler") == "greedy_batched"
+        else {}))
+    want = {k: per_round.get(k, 0) for k in counts["scan"]}
+    for entry in runs["scan"].capture_log:
+        if entry["captured"] != want:
+            fail(f"{label}: a replay launches {entry['captured']}, an eager"
+                 f" round {want}")
+    expect_counts(f"{label} host", counts["host"], per_round, A * R)
+    expect_counts(f"{label} scan (warm-up + replays)", counts["scan"],
+                  per_round, A * (W + R))
+    caps = runs["scan"].capture_log
+    log(f"{label}: scan (CUDA graph) equals host bit for bit over {A} arms "
+        f"x {R} rounds (params, n_scheduled, b_t, budget, rt_bound, loss, "
+        f"accuracy); capture per arm: warm-up "
+        + ", ".join(f"{c['warmup_s'] * 1e3:.1f}" for c in caps)
+        + " ms, capture " + ", ".join(f"{c['capture_s'] * 1e3:.1f}"
+                                      for c in caps) + " ms")
+    for a, nv in enumerate(SWEEP_NV):
+        log(f"  arm σ²={nv:g}: loss {task.loss0:.4f} -> "
+            + " -> ".join(f"{x:.4f}" for x in sc["loss"][a])
+            + f", accuracy {sc['accuracy'][a, -1]:.4f}, rt_bound "
+            f"{sc['rt_bound'][a].min():.4g}..{sc['rt_bound'][a].max():.4g}"
+            f", n_scheduled {sc['n_scheduled'][a].tolist()}")
+    log(f"{label}: whole sweep (captures included) {secs['scan'] * 1e3:.1f}"
+        f" ms scan, {secs['host'] * 1e3:.1f} ms host = "
+        f"{secs['scan'] * 1e3 / (A * R):.3f} / "
+        f"{secs['host'] * 1e3 / (A * R):.3f} ms per arm-round")
+
+    steady = {}
+    for mode, run in runs.items():
+        state, arm = run.init(arm_at(make_arms(run.cfg, seeds=SWEEP_SEEDS,
+                                               noise_var=SWEEP_NV), 0))
+        state, _ = run.run_chunk(state, arm, 0, 1)    # scan: the capture
+        steady[mode] = [run, state, arm]
+
+    def chunk(mode, n):
+        run, state, arm = steady[mode]
+        steady[mode][1], _ = run.run_chunk(state, arm, 0, n)
+
+    times = {"scan": [], "host": []}
+    for _ in range(3):      # in turns: scan, host, host, scan
+        for mode in ("scan", "host", "host", "scan"):
+            times[mode] += [t / 10 for t in host_ms(lambda: chunk(mode, 10),
+                                                    1)]
+    log(f"{label}: steady ms per arm-round (chunks of 10, host clock, "
+        f"median of {len(times['scan'])}): scan {median(times['scan']):.3f}"
+        f", host {median(times['host']):.3f}")
+    for mode in ("scan", "host"):
+        wall, busy, events, every = device_busy(lambda: chunk(mode, 3))
+        log(f"{label}: profiler, 3 {mode} rounds: wall {wall:.3f} ms, "
+            f"device busy {busy:.3f} ms ({100 * busy / wall:.1f}%; every "
+            f"event's self device time {every:.3f} ms)")
+        for e in sorted(events, key=lambda e: -e.self_device_time_total)[:6]:
+            log(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:5d}x"
+                f"  {e.key[:70]}")
+
+    phi = ob.phi(dev)
+    data = {k: v.to(dev) for k, v in task.data.items()}
+    g = stacked_grads(task.loss_fn, task.params0, data)
+    gpad = torch.nn.functional.pad(g, (0, N_CHUNKS * CHUNK - D_MLP))
+    signs, mags = compress_chunks(ob, gpad.reshape(U_WORKERS, N_CHUNKS,
+                                                   CHUNK), phi)
+    if ob.packed:
+        from repro_torch.kernels.sign import unpack_signs
+        signs = unpack_signs(signs)
+    y, mbar = signs.mean(0), mags.mean(0)
+    dec_graph = time_ms(lambda: reconstruct_chunks(ob, y, mbar, phi),
+                        calls=5, reps=10)
+    dec_eager = median(host_ms(lambda: reconstruct_chunks(ob, y, mbar, phi),
+                               10))
+    log(f"{label}: decode stage (BIHT {SWEEP_ITERS}, 13 chunks): "
+        f"{dec_graph:.3f} ms under graph replay (device), {dec_eager:.3f} "
+        "ms eager (host clock)")
+    return counts["scan"]
+
+
 SOURCES = {
     "topk_select": ("src/repro_torch/kernels/csrc/topk_select.cu",
                     "src/repro/kernels/topk_select.py:23"),
@@ -1057,6 +1217,12 @@ def main() -> None:
     paths["packed_decode"] = run_packed_decode(dev, task)
     paths["greedy_round"] = run_greedy_slice(dev, task, slice_steady)
     paths["fleet"] = run_fleet(dev)
+    from repro_torch.sched import SchedConfig
+    paths["sweep_all"] = run_sweep_phase(dev, task, "sweep all", {}, {})
+    paths["sweep_greedy_packed"] = run_sweep_phase(
+        dev, task, "sweep greedy_batched + packed",
+        {"scheduler": "greedy_batched",
+         "sched_cfg": SchedConfig(use_kernel=True)}, {"packed": True})
     kernels = []
     for name, r in results.items():
         source, replaces = SOURCES[name]

@@ -67,8 +67,12 @@ def draw_fades(generator: Optional[torch.Generator] = None, shape=None, *,
 def draw_noise(generator: Optional[torch.Generator], shape,
                noise_var: float, device=None) -> torch.Tensor:
     """AWGN z_t ~ N(0, σ²I) added at the PS receiver (eq. 12), on
-    ``device``, else the generator's device, else CUDA."""
+    ``device``, else the generator's device, else CUDA. ``noise_var`` may
+    be a 0-d f32 tensor on that device (an arm's σ²): it is not read back
+    to the host, so the draw can be captured in a CUDA graph."""
     z = torch.randn(shape, generator=generator,
                     device=_draw_device(generator, device))
-    return z * torch.sqrt(torch.tensor(float(noise_var), dtype=torch.float32,
-                                       device=z.device))
+    if not isinstance(noise_var, torch.Tensor):
+        noise_var = torch.tensor(float(noise_var), dtype=torch.float32,
+                                 device=z.device)
+    return z * torch.sqrt(noise_var)

@@ -36,6 +36,34 @@ def project_chunked(phi: torch.Tensor, g_chunks: torch.Tensor
     return g_chunks @ phi.T
 
 
+def rip_constant_estimate(phi: torch.Tensor, sparsity: int,
+                          n_trials: int = 64, seed: int = 1, *,
+                          supports: Optional[torch.Tensor] = None,
+                          values: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
+    """Monte-Carlo estimate of the RIP constant δ for κ-sparse vectors
+    (eq. 41): the largest |‖Φx‖²/‖x‖² − 1| over ``n_trials`` random
+    κ-sparse x. ``supports`` (n_trials, κ) indices without repeats and
+    ``values`` (n_trials, κ) replace the draws; otherwise both come from a
+    ``torch.Generator`` seeded with ``seed`` on phi's device (not JAX's
+    bits, so parity tests inject the reference's draws)."""
+    d_dim = phi.shape[1]
+    dev = phi.device
+    if supports is None or values is None:
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        if supports is None:
+            supports = torch.argsort(
+                torch.rand((n_trials, d_dim), generator=gen, device=dev),
+                dim=-1)[:, :sparsity]
+        if values is None:
+            values = torch.randn((n_trials, sparsity), generator=gen,
+                                 device=dev)
+    x = torch.zeros((supports.shape[0], d_dim), dtype=phi.dtype, device=dev)
+    x.scatter_(1, supports.to(dev, torch.int64), values.to(dev, phi.dtype))
+    r = torch.sum((x @ phi.T) ** 2, dim=-1) / torch.sum(x ** 2, dim=-1)
+    return torch.max(torch.abs(r - 1.0))
+
+
 def reconstruction_constant(delta: float) -> float:
     """Paper eq. (46): C = 2ϖ/(1−ϱ), ϖ = 2√(1+δ)/√(1−δ), ϱ = √2·δ/(1−δ).
 

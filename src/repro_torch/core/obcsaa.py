@@ -145,7 +145,8 @@ def simulate_round(cfg: OBCSAAConfig, grads_flat: torch.Tensor,
     perfect channel inversion: y = Σ_i K_i b_t β_i C(g_i) + z (eq. 12).
 
     ``noise`` is the AWGN z (n_chunks, S_c); when it is not given it is
-    drawn from ``generator`` at ``noise_var`` (default ``cfg.noise_var``).
+    drawn from ``generator`` at ``noise_var`` (default ``cfg.noise_var``;
+    a 0-d tensor stays on the device).
     ``h`` is carried for the signature's sake: channel inversion cancels
     it, as in the reference."""
     del h

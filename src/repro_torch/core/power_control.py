@@ -21,8 +21,11 @@ def tx_power(beta, k_weights, b_t, h) -> torch.Tensor:
 
 
 def max_bt(beta, k_weights, h, p_max) -> torch.Tensor:
-    """Largest b_t satisfying (11) for all scheduled workers."""
-    per_worker = h * math.sqrt(float(p_max)) / k_weights
+    """Largest b_t satisfying (11) for all scheduled workers. ``p_max``
+    may be a tensor on h's device (an arm's P^Max), which stays there."""
+    root = (torch.sqrt(p_max) if isinstance(p_max, torch.Tensor)
+            else math.sqrt(float(p_max)))
+    per_worker = h * root / k_weights
     caps = torch.where(beta > 0, per_worker,
                        torch.full_like(per_worker, float("inf")))
     return caps.min()

@@ -38,6 +38,25 @@ def topk_sparsify_bisect(g: torch.Tensor, k: int, iters: int = 40):
     return g * mask.to(g.dtype), mask
 
 
+def topk_sparsify_chunked(g: torch.Tensor, k_per_chunk: int, chunk: int):
+    """Per-chunk top-k: g (n_chunks·chunk,) or (n_chunks, chunk) ->
+    (sparse, mask) of g's shape."""
+    shp = g.shape
+    if g.ndim == 1:
+        if g.numel() % chunk:
+            raise ValueError(f"topk_sparsify_chunked: {g.numel()} entries "
+                             f"are not a whole number of chunks of {chunk}")
+        g = g.reshape(-1, chunk)
+    sg, mask = topk_sparsify(g, k_per_chunk)
+    return sg.reshape(shp), mask.reshape(shp)
+
+
+def sparsification_error_bound(D: int, kappa: int, G: float,
+                               delta: float) -> float:
+    """Paper eq. (40): E‖e^s‖² ≤ (1+δ)(D−κ)/D·G²."""
+    return (1.0 + delta) * (D - kappa) / D * G ** 2
+
+
 def pad_to_chunks(flat: torch.Tensor, chunk: int):
     """Zero-pad a flat vector to a multiple of ``chunk``; (padded, D)."""
     d = flat.shape[-1]

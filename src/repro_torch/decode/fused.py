@@ -1,8 +1,14 @@
-"""The packed 1-bit BIHT decode loop; port of ``fused_biht_packed`` from
-``repro/decode/fused.py``. (The reference's ``fused_iht`` is the port's
-``kernels.ops.iht``.)
+"""The decode loops composed from the port's kernels; port of
+``repro/decode/fused.py``.
 
-Each iteration is three kernel launches:
+``fused_iht``: fixed-step IHT on the real post-processed aggregate, each
+iteration three launches:
+
+  1. ``cs_project(mode="residual")`` (K3): r = ŷ − x Φᵀ
+  2. ``backproject`` (K4): x' = x + τ r Φ
+  3. ``topk_select`` (K1): x = η_κ(x'), the bisection threshold
+
+``fused_biht_packed``: BIHT on packed ±1 measurements, each iteration
 
   1. ``cs_project(mode="pack_sign_residual")`` (K5): the fresh signs of
      x Φᵀ meet the packed y in-kernel and leave as two int32 bit-planes
@@ -11,15 +17,32 @@ Each iteration is three kernel launches:
   3. ``topk_select`` (K1): x = η_κ(x')
 
 K5 accumulates as K3 does and K6 as K4 does, on the same {−2, 0, +2}
-residual values, so the loop equals ``kernels.ops.biht`` on the unpacked
-measurements bit for bit, on the card as on the CPU.
+residual values, so the packed loop equals ``kernels.ops.biht`` on the
+unpacked measurements bit for bit, on the card as on the CPU. On a CPU
+tensor every wrapper runs its kernel's plain version.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels.cs_project import project
 from repro_torch.kernels.sign import unpack_signs
+
+
+def fused_iht(y: torch.Tensor, phi: torch.Tensor, k: int, iters: int = 10,
+              tau: float = 1.0, x0=None) -> torch.Tensor:
+    """IHT through K3 (residual epilogue), K4 and K1: y (n, S), phi (S, D)
+    -> (n, D), the semantics of ``decode.iht.iht`` with the bisection hard
+    threshold. ``x0`` warm-starts the iterate (zeros by default)."""
+    x = (torch.zeros((y.shape[0], phi.shape[1]), dtype=y.dtype,
+                     device=y.device)
+         if x0 is None else x0.to(y.dtype).contiguous())
+    for _ in range(iters):
+        resid = project(phi, x, mode="residual", y=y)
+        x = kops.backproject(x, resid, phi, tau)
+        x, _ = kops.topk_select(x, k)
+    return x
 
 
 def fused_biht_packed(y_packed: torch.Tensor, phi: torch.Tensor, k: int,

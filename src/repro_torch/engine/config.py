@@ -1,9 +1,9 @@
 """FL experiment configuration; port of ``repro/engine/config.py`` for the
-slice the port runs: aggregators ``obcsaa`` and ``perfect`` under the
-``all`` and ``greedy_batched`` schedulers. The other schedulers, error
-feedback, warm start, the theory budget, sweeps and checkpoints are not
-ported yet; asking for them raises ``NotImplementedError`` instead of
-running something else."""
+slice the port runs: aggregators ``obcsaa``, ``topk_aa`` and ``perfect``
+under the ``all`` and ``greedy_batched`` schedulers, in ``scan`` or
+``host`` mode. Error feedback, warm start, checkpoints, dual warm starts
+and the other schedulers are not ported yet; asking for them raises
+``NotImplementedError`` instead of running something else."""
 from __future__ import annotations
 
 from dataclasses import dataclass, field
@@ -13,13 +13,17 @@ from repro_torch.core.obcsaa import OBCSAAConfig
 from repro_torch.sched.config import SchedConfig
 from repro_torch.theory.bounds import AnalysisConstants
 
-AGGREGATORS = ("obcsaa", "perfect")
+AGGREGATORS = ("obcsaa", "topk_aa", "perfect")
 SCHEDULERS = ("all", "greedy_batched")
+# Schedulers whose decision runs inside the round on the device, so the
+# round can be captured whole: every scheduler ported so far
+ENGINE_SCHEDULERS = SCHEDULERS
+MODES = ("auto", "scan", "host")
 
 
 @dataclass
 class FLConfig:
-    aggregator: str = "obcsaa"       # perfect | obcsaa
+    aggregator: str = "obcsaa"       # perfect | topk_aa | obcsaa
     scheduler: str = "all"
     learning_rate: float = 0.1       # paper §V
     rounds: int = 300
@@ -27,11 +31,24 @@ class FLConfig:
     seed: int = 0                    # seeds the fade and AWGN generator
     obcsaa: OBCSAAConfig = field(default_factory=OBCSAAConfig)
     const: AnalysisConstants = field(default_factory=AnalysisConstants)
+    # topk_aa baseline: the κ budget over the FULL vector
+    topk_dense: int = 1000
+    error_feedback: bool = False
     # Fading temporal correlation ρ of the Gauss-Markov recursion
     # (core/channel.py); 0 is the paper's i.i.d. block fading
     channel_rho: float = 0.0
+    # "scan": the rounds of a chunk replayed from a CUDA graph on the card
+    # (eagerly on the CPU); "host": the per-round eager loop; "auto": scan
+    # when the scheduler runs inside the round
+    mode: str = "auto"
     # Solver knobs of the batched P2 schedulers (None -> defaults)
     sched_cfg: Optional[SchedConfig] = None
+    ckpt_dir: Optional[str] = None
+    ckpt_resume: bool = False
+    sched_warm_duals: bool = False
+    # emit the measured ‖ĝ−ḡ‖² every round next to the predicted budget;
+    # off, the round is exactly the probe-free one
+    probe_agg_error: bool = False
 
     def __post_init__(self):
         if self.aggregator not in AGGREGATORS:
@@ -42,6 +59,29 @@ class FLConfig:
             raise NotImplementedError(
                 f"scheduler {self.scheduler!r} is not ported yet; one of "
                 f"{SCHEDULERS}")
-        if self.obcsaa.warm_start:
-            raise NotImplementedError("warm-start decoding across rounds "
-                                      "is not ported yet")
+        if self.mode not in MODES:
+            raise ValueError(f"mode {self.mode!r}; one of {MODES}")
+        for name, on in (("warm-start decoding across rounds",
+                          self.obcsaa.warm_start),
+                         ("error feedback", self.error_feedback),
+                         ("checkpoints (ckpt_dir / ckpt_resume)",
+                          self.ckpt_dir is not None or self.ckpt_resume),
+                         ("dual warm starts (sched_warm_duals)",
+                          self.sched_warm_duals)):
+            if on:
+                raise NotImplementedError(f"{name} is not ported yet")
+
+    def engine_capable(self) -> bool:
+        """Does every per-round decision run inside the round itself?"""
+        return (self.aggregator == "perfect"
+                or self.scheduler in ENGINE_SCHEDULERS)
+
+    def resolved_mode(self) -> str:
+        if self.mode == "auto":
+            return "scan" if self.engine_capable() else "host"
+        if self.mode == "scan" and not self.engine_capable():
+            raise ValueError(
+                f"mode='scan' but scheduler {self.scheduler!r} does not run "
+                f"inside the round (engine schedulers: {ENGINE_SCHEDULERS});"
+                " use mode='host'")
+        return self.mode

@@ -9,38 +9,52 @@ over the round functions, as the reference does:
                            min_i h_i √P^Max / K_i) or ``greedy_batched``
                            (the prefix sweep, sched/greedy.py)
 - ``round_given_schedule`` local gradients (eq. 3), compress + MAC +
-                           decode (eq. 6-13) or the perfect mean, and the
-                           SGD update (eq. 14)
+                           decode (eq. 6-13), the top-κ analog baseline or
+                           the perfect mean, the SGD update (eq. 14), and
+                           the Theorem-1 budget of the round (eq. 19)
 - ``full_round``           fade draw + schedule + the round
 
-PyTorch runs eagerly, so there is no scan: ``fl/rounds.py`` calls
-``full_round`` once per round. Random draws come from one
-``torch.Generator``, in order: the initial fade, then per round the fade
-innovation and the receiver AWGN. Both draws can be passed in instead
-(``fade_w=``, ``noise=``), which is how tests replay the reference's.
+σ², P^Max and the learning rate come from the arm (``engine/state.Arms``)
+as 0-d tensors on the device, and nothing in the round reads a tensor
+back to the host, so ``engine/graph.py`` can capture ``full_round`` whole.
+Random draws come from the carry's ``torch.Generator``, in order: the
+initial fade, then per round the fade innovation and the AWGN. Both can
+be passed in instead (``fade_w=``, ``noise=``), which is how tests replay
+the reference's ``fold_in(key, t)`` draws.
 """
 from __future__ import annotations
 
+from dataclasses import replace
 from typing import Callable, NamedTuple, Optional
 
 import torch
 
 from repro_torch.core import channel as chan
-from repro_torch.core.obcsaa import simulate_round
-from repro_torch.core.sparsify import flatten_pytree
+from repro_torch.core.obcsaa import OBCSAAConfig, simulate_round
+from repro_torch.core.sparsify import flatten_pytree, topk_sparsify
+from repro_torch.decode.registry import resolve_validate
 from repro_torch.engine.config import FLConfig
-from repro_torch.engine.state import EngineState, RoundStats
+from repro_torch.engine.state import Arms, EngineState, RoundStats
 from repro_torch.sched.greedy import greedy_solve_batched
 from repro_torch.sched.problem import BatchedProblem
+from repro_torch.theory.bounds import error_budget
+
+
+def budget_geometry(ob: OBCSAAConfig, D: int):
+    """(n_chunks, S_eff, κ_eff) of the block-diagonal Φ at dimension D:
+    the chunked operator measures n_chunks·S_c symbols of an (up to)
+    n_chunks·κ_c-sparse vector. The Theorem-1 budget's geometry."""
+    n_chunks = -(-D // ob.chunk)
+    return n_chunks, n_chunks * ob.measure, min(n_chunks * ob.topk, D)
 
 
 class EngineFns(NamedTuple):
     """The built round functions + static geometry."""
-    init_state: Callable            # params -> EngineState
-    fade_step: Callable             # (fade, w=None) -> (h, fade')
-    schedule: Callable              # (h, k_weights) -> (β, b_t)
+    init_state: Callable            # (params, arm, fade0_w=None) -> state
+    fade_step: Callable             # (fade, generator, w=None) -> (h, fade')
+    schedule: Callable              # (h, k_weights, σ², P^Max) -> (β, b_t)
     round_given_schedule: Callable
-    full_round: Callable            # (state, worker_data, k_weights, ...)
+    full_round: Callable            # (state, arm, worker_data, k_weights)
     D: int
     U: int
 
@@ -76,28 +90,58 @@ def perfect_aggregate(grads_flat, k_weights, beta) -> torch.Tensor:
         torch.sum(k_weights * beta), min=1e-12)
 
 
-def build_engine(cfg: FLConfig, loss_fn: Callable, opt, D: int, U: int,
-                 unflatten: Callable, *, phi: torch.Tensor,
-                 generator: torch.Generator) -> EngineFns:
-    """``phi`` is the (S_c, D_c) measurement matrix shared by the workers
-    and the PS; ``generator`` draws the fades and the AWGN."""
-    ob = cfg.obcsaa
-    device = phi.device
-    p_max = torch.tensor(ob.p_max, dtype=torch.float32, device=device)
-    noise_var = torch.tensor(ob.noise_var, dtype=torch.float32,
-                             device=device)
+def topk_aa_aggregate(grads_flat, k_weights, beta, b_t, kappa, noise_var, *,
+                      generator: Optional[torch.Generator] = None,
+                      noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Sparsified analog aggregation (no CS, no 1-bit): the workers send
+    their top-κ gradients over the full vector; AWGN at the PS. ``noise``
+    (D,) replaces the draw from ``generator``. Plain PyTorch top-κ, as the
+    reference's ``lax.top_k`` (no kernel)."""
+    sp, _ = topk_sparsify(grads_flat, kappa)
+    w = (k_weights * beta * b_t)[:, None]
+    y = torch.sum(sp * w, dim=0)
+    if noise is None:
+        noise = chan.draw_noise(generator, y.shape, noise_var,
+                                device=y.device)
+    y = y + noise
+    return y / torch.clamp(torch.sum(k_weights * beta) * b_t, min=1e-12)
 
-    def init_state(params) -> EngineState:
-        _, fade0 = chan.draw_fades(generator, (U,), device=device)
+
+def _resolve_decoder(ob: OBCSAAConfig, phi: torch.Tensor) -> OBCSAAConfig:
+    """Make ``decode_validate``'s decision once per build (λ̂ depends only
+    on Φ and the decode sparsity): the round then holds one decoder."""
+    if ob.decode_validate == "off":
+        return ob
+    dc = resolve_validate(ob.decode_cfg(), phi, ob.decode_k)
+    return replace(ob, decoder=dc.algorithm, decode_validate="off")
+
+
+def build_engine(cfg: FLConfig, loss_fn: Callable, opt, D: int, U: int,
+                 unflatten: Callable, *, phi: torch.Tensor) -> EngineFns:
+    """``phi`` is the (S_c, D_c) measurement matrix shared by the workers
+    and the PS; the round runs on its device."""
+    ob = _resolve_decoder(cfg.obcsaa, phi)
+    device = phi.device
+    _, s_eff, kappa_eff = budget_geometry(ob, D)
+    track_bound = cfg.aggregator == "obcsaa"    # eq. 19 models obcsaa
+    probe = cfg.probe_agg_error
+    all_in = torch.ones((U,), device=device)    # β of the perfect mean
+    unit = torch.ones((), device=device)        # its b_t
+
+    def init_state(params, arm: Arms,
+                   fade0_w: Optional[torch.Tensor] = None) -> EngineState:
+        gen = torch.Generator(device=device).manual_seed(int(arm.seed))
+        _, fade0 = chan.draw_fades(gen, (U,), w=fade0_w, device=device)
         return EngineState(params=params, opt_state=opt.init(params),
                            fade=fade0,
-                           prev_beta=-torch.ones((U,), device=device))
+                           prev_beta=-torch.ones((U,), device=device),
+                           generator=gen)
 
-    def fade_step(fade, w: Optional[torch.Tensor] = None):
+    def fade_step(fade, generator, w: Optional[torch.Tensor] = None):
         return chan.draw_fades(generator, rho=cfg.channel_rho, prev=fade,
                                w=w)
 
-    def schedule(h, k_weights):
+    def schedule(h, k_weights, noise_var, p_max):
         """P2 for one round's channels (B = 1) -> (β (U,), b_t)."""
         bp = BatchedProblem.from_arrays(
             h[None], k_weights[None], p_max, noise_var, D=D, S=ob.measure,
@@ -109,37 +153,52 @@ def build_engine(cfg: FLConfig, loss_fn: Callable, opt, D: int, U: int,
             beta, b_t, _ = greedy_solve_batched(bp, cfg.sched_cfg)
         return beta[0], b_t[0]
 
-    def round_given_schedule(state: EngineState, worker_data, k_weights,
-                             h, fade, beta, b_t,
+    def round_given_schedule(state: EngineState, arm: Arms, worker_data,
+                             k_weights, h, fade, beta, b_t,
                              noise: Optional[torch.Tensor] = None):
         """Eq. 3 → 6-7 → 10 → 13 → 43 → 14 with the schedule decided."""
         grads = stacked_grads(loss_fn, state.params, worker_data)
         if cfg.aggregator == "perfect":
             ghat = perfect_aggregate(grads, k_weights, beta)
+        elif cfg.aggregator == "topk_aa":
+            ghat = topk_aa_aggregate(grads, k_weights, beta, b_t,
+                                     cfg.topk_dense, arm.noise_var,
+                                     generator=state.generator, noise=noise)
         else:
             ghat, _ = simulate_round(ob, grads, k_weights, beta, b_t, h,
-                                     phi=phi, generator=generator,
-                                     noise=noise)
+                                     phi=phi, generator=state.generator,
+                                     noise=noise, noise_var=arm.noise_var)
         params, opt_state = opt.update(unflatten(ghat[:D]), state.opt_state,
-                                       state.params, cfg.learning_rate)
+                                       state.params, arm.lr)
         new_state = EngineState(params=params, opt_state=opt_state,
-                                fade=fade, prev_beta=beta)
+                                fade=fade, prev_beta=beta,
+                                generator=state.generator)
+        budget = None
+        if track_bound:
+            budget = error_budget(cfg.const, D=D, S=s_eff, kappa=kappa_eff,
+                                  beta=beta, k_weights=k_weights, b_t=b_t,
+                                  noise_var=arm.noise_var)
+        agg_err = None
+        if probe:
+            ideal = perfect_aggregate(grads, k_weights, beta)
+            agg_err = torch.sum((ghat[:D] - ideal) ** 2)
         stats = RoundStats(n_scheduled=torch.sum(beta).to(torch.int32),
-                           b_t=torch.as_tensor(b_t, dtype=torch.float32))
+                           b_t=torch.as_tensor(b_t, dtype=torch.float32),
+                           budget=budget, agg_err=agg_err)
         return new_state, stats
 
-    def full_round(state: EngineState, worker_data, k_weights, *,
+    def full_round(state: EngineState, arm: Arms, worker_data, k_weights, *,
                    fade_w: Optional[torch.Tensor] = None,
                    noise: Optional[torch.Tensor] = None):
-        """Fade draw + P2 + the round update."""
-        h, fade = fade_step(state.fade, fade_w)
+        """Fade draw + P2 + the round update. Returns (state', stats,
+        {"h", "beta", "b_t"})."""
+        h, fade = fade_step(state.fade, state.generator, fade_w)
         if cfg.aggregator == "perfect":
-            beta = torch.ones((U,), device=device)
-            b_t = torch.tensor(1.0, device=device)
+            beta, b_t = all_in, unit
         else:
-            beta, b_t = schedule(h, k_weights)
+            beta, b_t = schedule(h, k_weights, arm.noise_var, arm.p_max)
         new_state, stats = round_given_schedule(
-            state, worker_data, k_weights, h, fade, beta, b_t, noise)
+            state, arm, worker_data, k_weights, h, fade, beta, b_t, noise)
         return new_state, stats, {"h": h, "beta": beta, "b_t": b_t}
 
     return EngineFns(init_state=init_state, fade_step=fade_step,

@@ -1,0 +1,257 @@
+"""Rounds in chunks cut at the eval cadence, and sweeps over arms; port of
+``repro/engine/runner.py``.
+
+The reference advances a chunk of rounds as one jitted ``lax.scan`` and
+vmaps it over an ``Arms`` grid. Here a chunk is, on the card, the arm's
+round replayed from a CUDA graph (``engine/graph.py``), one replay a
+round, with the stats read back only at the chunk's end; on the CPU, and
+in ``mode="host"``, it is the eager loop over ``EngineFns.full_round``.
+Arms run one after another, each with its own generator.
+
+``run_sweep`` returns the reference's keys: the per-round
+``n_scheduled``/``b_t`` (A, rounds), the Theorem-1 ``budget`` and its
+``rt_bound`` for ``obcsaa``, ``agg_err`` with the probe, the eval streams
+``eval_rounds``/``loss``/``accuracy`` (A, n_evals) with an ``eval_fn``,
+the final ``params`` stacked (A, ...), ``state`` (one ``EngineState`` per
+arm), ``arms`` and ``t_start`` (0: checkpoints are not ported).
+"""
+from __future__ import annotations
+
+from typing import Callable, Dict, List, NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core.sparsify import flatten_pytree
+from repro_torch.device import resolve_device
+from repro_torch.engine.core import EngineFns, build_engine
+from repro_torch.engine.graph import RoundGraph
+from repro_torch.engine.state import (Arms, EngineState, RoundStats, arm_at,
+                                      make_arms, n_arms, single_arm)
+from repro_torch.optim.optimizers import sgd
+from repro_torch.theory.bounds import ErrorBudget
+
+
+def eval_points(rounds: int, eval_every: int) -> List[int]:
+    """Rounds after which the host evaluates: t % eval_every == 0 plus
+    the final round."""
+    return sorted({t for t in range(rounds) if t % eval_every == 0}
+                  | {rounds - 1})
+
+
+def chunk_spans(rounds: int, eval_every: Optional[int]) -> List[tuple]:
+    """(t0, n) chunks whose ends land on the eval points; one chunk of
+    every round when nothing is evaluated."""
+    if not eval_every:
+        return [(0, rounds)]
+    spans, t0 = [], 0
+    for t in eval_points(rounds, eval_every):
+        spans.append((t0, t - t0 + 1))
+        t0 = t + 1
+    return spans
+
+
+class Draws(NamedTuple):
+    """Random draws that replace the arms' generators, for ``mode="host"``
+    (how tests replay the reference's ``fold_in`` draws): per arm the
+    initial fade draw (A, U) complex; per round the fade innovation
+    (A, rounds, U) complex and the AWGN (A, rounds, ...), (n_chunks, S_c)
+    for ``obcsaa`` and (D,) for ``topk_aa`` (``None`` for ``perfect``)."""
+    fade0: torch.Tensor
+    fade_w: torch.Tensor
+    noise: Optional[torch.Tensor] = None
+
+
+def _join(stats: List[RoundStats], join=torch.stack) -> RoundStats:
+    """RoundStats joined field by field: rounds' 0-d stats with
+    ``torch.stack``, chunks' (n,) stats with ``torch.cat``."""
+    first = stats[0]
+    budget = agg_err = None
+    if first.budget is not None:
+        budget = ErrorBudget(*(join(f) for f in
+                               zip(*(s.budget for s in stats))))
+    if first.agg_err is not None:
+        agg_err = join([s.agg_err for s in stats])
+    return RoundStats(n_scheduled=join([s.n_scheduled for s in stats]),
+                      b_t=join([s.b_t for s in stats]),
+                      budget=budget, agg_err=agg_err)
+
+
+class EngineRun:
+    """One built engine and its chunk runners.
+
+    ``device=None`` means CUDA and raises without a card; pass
+    ``device="cpu"`` to run the plain versions of the kernels. ``phi``
+    injects the (S_c, D_c) measurement matrix, else it is drawn from
+    ``cfg.obcsaa.phi_seed``. ``capture_log`` lists, per CUDA graph this
+    run captured, its warm-up and capture seconds and launch counts."""
+
+    def __init__(self, cfg, loss_fn: Callable, params, worker_data,
+                 k_weights, eval_fn: Optional[Callable] = None,
+                 optimizer=None, *, phi: Optional[torch.Tensor] = None,
+                 device=None):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.loss_fn = loss_fn
+        self.eval_fn = eval_fn
+        self.worker_data = {k: v.to(self.device)
+                            for k, v in worker_data.items()}
+        self.k_weights = torch.as_tensor(k_weights, dtype=torch.float32,
+                                         device=self.device)
+        self.opt = optimizer or sgd()
+        self._params0 = {k: v.to(self.device) for k, v in params.items()}
+        flat, unflatten = flatten_pytree(self._params0)
+        self.D = int(flat.shape[0])
+        ob = cfg.obcsaa
+        self.phi = (ob.phi(self.device) if phi is None
+                    else phi.to(self.device, torch.float32).contiguous())
+        self.fns: EngineFns = build_engine(
+            cfg, loss_fn, self.opt, self.D, int(self.k_weights.shape[0]),
+            unflatten, phi=self.phi)
+        self.mode = cfg.resolved_mode()
+        self._graphs: Dict[tuple, RoundGraph] = {}
+        self.capture_log: List[dict] = []
+
+    def _on_device(self, arm: Arms) -> Arms:
+        f32 = torch.float32
+        return Arms(seed=arm.seed,
+                    noise_var=arm.noise_var.to(self.device, f32),
+                    p_max=arm.p_max.to(self.device, f32),
+                    lr=arm.lr.to(self.device, f32))
+
+    # -- one arm -----------------------------------------------------------
+
+    def init(self, arm: Optional[Arms] = None, *,
+             fade0_w: Optional[torch.Tensor] = None):
+        """(state, arm on the device) for ``arm`` (default: the config's
+        single arm); ``fade0_w`` replaces the initial fade draw."""
+        arm = self._on_device(single_arm(self.cfg) if arm is None else arm)
+        return self.fns.init_state(self._params0, arm, fade0_w), arm
+
+    def run_chunk(self, state: EngineState, arm: Arms, t0: int, n: int):
+        """Advance ``n`` rounds from round ``t0``. In scan mode on the card,
+        by replaying the arm's CUDA graph (captured at its first chunk):
+        the returned state's tensors are then the graph's static buffers,
+        overwritten by the next chunk. In host mode, and on the CPU,
+        eagerly, round by round. Returns (state', RoundStats of (n,)
+        fields). The draws follow the generator's order, so ``t0`` only
+        labels the chunk."""
+        if self.device.type != "cuda" or self.mode == "host":
+            return self._eager_chunk(state, arm, t0, n)
+        key = (id(state.generator), id(arm))
+        graph = self._graphs.get(key)
+        if graph is None:
+            graph = RoundGraph(self.fns.full_round, state, arm,
+                               self.worker_data, self.k_weights)
+            self._graphs[key] = graph
+            self.capture_log.append({
+                "warmup_s": graph.warmup_s, "capture_s": graph.capture_s,
+                "warmup_launches": graph.warmup_launches,
+                "captured": graph.captured})
+        else:
+            graph.load(state)
+        return graph.state(), graph.run(n)
+
+    def release(self, state: EngineState, arm: Arms) -> None:
+        """Drop the CUDA graph of this arm, if one was captured."""
+        self._graphs.pop((id(state.generator), id(arm)), None)
+
+    def _eager_chunk(self, state, arm, t0: int, n: int,
+                     draws: Optional[Draws] = None, a: int = 0):
+        stats = []
+        for t in range(t0, t0 + n):
+            fade_w = noise = None
+            if draws is not None:
+                fade_w = draws.fade_w[a, t]
+                if draws.noise is not None:
+                    noise = draws.noise[a, t]
+            state, st, _ = self.fns.full_round(
+                state, arm, self.worker_data, self.k_weights,
+                fade_w=fade_w, noise=noise)
+            stats.append(st)
+        return state, _join(stats)
+
+    # -- arms sweep --------------------------------------------------------
+
+    def run_sweep(self, arms: Arms, rounds: Optional[int] = None,
+                  eval_every: Optional[int] = None, *,
+                  ckpt_dir: Optional[str] = None,
+                  resume: Optional[bool] = None,
+                  draws: Optional[Draws] = None) -> Dict:
+        """Run every arm for ``rounds`` rounds in chunks cut at the eval
+        cadence (``run_chunk``: graph replays in scan mode on the card, the
+        eager loop otherwise). ``draws`` replaces the generators' draws,
+        in ``mode="host"``."""
+        cfg = self.cfg
+        if ckpt_dir is not None or resume:
+            raise NotImplementedError("run_sweep checkpoints (ckpt_dir / "
+                                      "resume) are not ported yet")
+        rounds = rounds or cfg.rounds
+        eval_every = eval_every if eval_every is not None \
+            else (cfg.eval_every if self.eval_fn else None)
+        if draws is not None and self.mode != "host":
+            raise ValueError("run_sweep: injected draws replace the "
+                             "generators in mode='host' only")
+        A = n_arms(arms)
+        spans = chunk_spans(rounds, eval_every)
+        states, stats, losses, accs = [], [], [], []
+        for a in range(A):
+            arm_a = arm_at(arms, a) if arms.noise_var.ndim else arms
+            state, arm = self.init(
+                arm_a, fade0_w=None if draws is None else draws.fade0[a])
+            chunks, loss_a, acc_a = [], [], []
+            for t0, n in spans:
+                if draws is None:
+                    state, st = self.run_chunk(state, arm, t0, n)
+                else:
+                    state, st = self._eager_chunk(state, arm, t0, n,
+                                                  draws, a)
+                chunks.append(st)
+                if self.eval_fn:
+                    loss, acc = self.eval_fn(state.params)
+                    loss_a.append(torch.as_tensor(loss).detach().cpu())
+                    acc_a.append(torch.as_tensor(acc).detach().cpu())
+            self.release(state, arm)
+            states.append(state)
+            stats.append(_join(chunks, torch.cat))
+            losses.append(loss_a)
+            accs.append(acc_a)
+
+        def host(get):
+            return np.stack([get(s).detach().cpu().numpy() for s in stats])
+
+        out = {"n_scheduled": host(lambda s: s.n_scheduled),
+               "b_t": host(lambda s: s.b_t), "state": states,
+               "params": {k: torch.stack([st.params[k] for st in states])
+                          for k in states[0].params},
+               "arms": arms, "t_start": 0}
+        if stats[0].budget is not None:
+            out["budget"] = ErrorBudget(*(host(lambda s, i=i: s.budget[i])
+                                          for i in range(6)))
+            out["rt_bound"] = np.asarray(out["budget"].rt())
+        if stats[0].agg_err is not None:
+            out["agg_err"] = host(lambda s: s.agg_err)
+        if self.eval_fn and spans:
+            out["eval_rounds"] = np.asarray([t0 + n - 1 for t0, n in spans])
+            out["loss"] = np.stack([torch.stack(l).numpy() for l in losses])
+            out["accuracy"] = np.stack([torch.stack(a).numpy()
+                                        for a in accs])
+        return out
+
+
+def run_sweep(cfg, loss_fn, params, worker_data, k_weights, *,
+              arms: Optional[Arms] = None, eval_fn=None, optimizer=None,
+              rounds: Optional[int] = None,
+              eval_every: Optional[int] = None,
+              ckpt_dir: Optional[str] = None,
+              resume: Optional[bool] = None, phi=None, device=None,
+              draws: Optional[Draws] = None, **arm_axes) -> Dict:
+    """One-call sweep: build the engine, broadcast ``arm_axes`` (seeds /
+    noise_var / p_max / lr) into ``Arms`` and run them. See
+    ``EngineRun.run_sweep`` for the result."""
+    run = EngineRun(cfg, loss_fn, params, worker_data, k_weights,
+                    eval_fn=eval_fn, optimizer=optimizer, phi=phi,
+                    device=device)
+    arms = arms if arms is not None else make_arms(cfg, **arm_axes)
+    return run.run_sweep(arms, rounds=rounds, eval_every=eval_every,
+                         ckpt_dir=ckpt_dir, resume=resume, draws=draws)

@@ -1,25 +1,33 @@
-"""FL round orchestration; port of ``repro/fl/rounds.py``.
+"""FL round orchestration, a thin host wrapper over ``repro_torch.engine``;
+port of ``repro/fl/rounds.py``.
 
 Each round t: the PS draws this round's block-fading channels, schedules
-(β = 1 and the closed-form b_t under ``all``), the workers compute their
-full-batch gradients (eq. 3), compress (eq. 6-7) and transmit; the MAC
-superposes, the PS adds AWGN, post-processes (eq. 13), decodes (eq. 43)
-and everyone applies the update (eq. 14). Metrics are evaluated after
-round t when ``t % eval_every == 0`` and after the last round, the
-reference trainer's cadence.
+(β and b_t), the workers compute their full-batch gradients (eq. 3),
+compress (eq. 6-7) and transmit; the MAC superposes, the PS adds AWGN,
+post-processes (eq. 13), decodes (eq. 43) and everyone applies the update
+(eq. 14).
+
+Two modes over one round body (``engine/core.py``):
+
+- ``scan``: the rounds run in chunks cut at the eval cadence
+  (``EngineRun.run_chunk``); on the card each round is a replay of the
+  arm's CUDA graph, and the stats come back at the chunk's end.
+- ``host``: the per-round eager loop, with the stats read every round.
+
+Metrics are evaluated after round t when ``t % eval_every == 0`` and after
+the last round, the reference trainer's cadence.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional
 
+import numpy as np
 import torch
 
-from repro_torch.core.sparsify import flatten_pytree
-from repro_torch.device import resolve_device
 from repro_torch.engine.config import FLConfig
-from repro_torch.engine.core import build_engine
-from repro_torch.optim.optimizers import Optimizer, sgd
+from repro_torch.engine.runner import EngineRun, chunk_spans
+from repro_torch.optim.optimizers import Optimizer
 
 
 @dataclass
@@ -34,51 +42,41 @@ class RoundLog:
 
 @dataclass
 class SchedLog:
-    """Per-round scheduling stats (the Theorem-1 ``rt_bound`` waits for
-    the ``theory`` port)."""
+    """Per-round scheduling and theory stats. ``rt_bound`` is the
+    predicted Theorem-1 R_t at the round's operating point (NaN unless the
+    aggregator is ``obcsaa``); ``agg_err`` the measured ‖ĝ−ḡ‖² (NaN
+    unless ``FLConfig.probe_agg_error``)."""
     round: int
     n_scheduled: int
     b_t: float
-
-
-def _to(tree, device):
-    return {k: v.to(device) for k, v in tree.items()}
+    rt_bound: float = float("nan")
+    agg_err: float = float("nan")
 
 
 class FederatedTrainer:
     """Drives FL rounds for any (loss_fn, params) pair + stacked worker
-    data (dict leaves (U, ...)) on one device.
+    data (dict leaves (U, ...)) on one device, through ``EngineRun``.
 
     ``device=None`` means CUDA and raises without a card; pass
     ``device="cpu"`` to run the plain versions of the kernels. ``phi``
     injects the (S_c, D_c) measurement matrix, else it is drawn from
-    ``cfg.obcsaa.phi_seed``."""
+    ``cfg.obcsaa.phi_seed``. In scan mode on the card, ``state`` holds the
+    CUDA graph's static buffers, which the next chunk overwrites."""
 
     def __init__(self, cfg: FLConfig, loss_fn: Callable, params,
                  worker_data, k_weights, eval_fn: Optional[Callable] = None,
                  optimizer: Optional[Optimizer] = None, *,
                  phi: Optional[torch.Tensor] = None, device=None):
         self.cfg = cfg
-        self.device = resolve_device(device)
-        self.loss_fn = loss_fn
-        self.eval_fn = eval_fn
-        self.worker_data = _to(worker_data, self.device)
-        self.k_weights = torch.as_tensor(k_weights, dtype=torch.float32,
-                                         device=self.device)
-        self.opt = optimizer or sgd()
-        params = _to(params, self.device)
-        flat, unflatten = flatten_pytree(params)
-        self.D = int(flat.shape[0])
-        U = int(self.k_weights.shape[0])
-        ob = cfg.obcsaa
-        self.phi = (ob.phi(self.device) if phi is None
-                    else phi.to(self.device, torch.float32).contiguous())
-        self.generator = torch.Generator(device=self.device).manual_seed(
-            cfg.seed)
-        self.fns = build_engine(cfg, loss_fn, self.opt, self.D, U,
-                                unflatten, phi=self.phi,
-                                generator=self.generator)
-        self.state = self.fns.init_state(params)
+        self.engine = EngineRun(cfg, loss_fn, params, worker_data,
+                                k_weights, optimizer=optimizer, phi=phi,
+                                device=device)
+        e = self.engine
+        self.device, self.loss_fn, self.eval_fn = e.device, loss_fn, eval_fn
+        self.worker_data, self.k_weights = e.worker_data, e.k_weights
+        self.opt, self.D, self.phi, self.fns = e.opt, e.D, e.phi, e.fns
+        self.state, self.arm = e.init()
+        self.generator = self.state.generator
         self.logs: List[RoundLog] = []
         self.sched_logs: List[SchedLog] = []
 
@@ -86,30 +84,64 @@ class FederatedTrainer:
     def params(self):
         return self.state.params
 
+    @property
+    def sched_trajectory(self) -> Dict[str, np.ndarray]:
+        """Dense (rounds,) scheduling and theory trajectories."""
+        return {name: np.asarray([getattr(s, name) for s in self.sched_logs])
+                for name in ("round", "n_scheduled", "b_t", "rt_bound",
+                             "agg_err")}
+
     def run_round(self, t: int, *, fade_w: Optional[torch.Tensor] = None,
                   noise: Optional[torch.Tensor] = None) -> Dict:
-        """One round. ``fade_w`` (U,) complex and ``noise`` (n_chunks, S_c)
-        replace this round's draws."""
+        """One eager round (the host path). ``fade_w`` (U,) complex and
+        ``noise`` (n_chunks, S_c) replace this round's draws."""
         self.state, stats, info = self.fns.full_round(
-            self.state, self.worker_data, self.k_weights, fade_w=fade_w,
-            noise=noise)
-        self.sched_logs.append(SchedLog(t, int(stats.n_scheduled),
-                                        float(stats.b_t)))
+            self.state, self.arm, self.worker_data, self.k_weights,
+            fade_w=fade_w, noise=noise)
+        self.sched_logs.append(SchedLog(
+            t, int(stats.n_scheduled), float(stats.b_t),
+            float(stats.budget.rt()) if stats.budget is not None
+            else float("nan"),
+            float(stats.agg_err) if stats.agg_err is not None
+            else float("nan")))
         return info
+
+    def _run_scan(self, rounds: int, verbose: bool) -> None:
+        ee = self.cfg.eval_every if self.eval_fn else None
+        for t0, n in chunk_spans(rounds, ee):
+            self.state, stats = self.engine.run_chunk(self.state, self.arm,
+                                                      t0, n)
+            ns = stats.n_scheduled.cpu().numpy()
+            bt = stats.b_t.cpu().numpy()
+            nan = np.full(n, np.nan)
+            rt = (stats.budget.rt().cpu().numpy()
+                  if stats.budget is not None else nan)
+            err = (stats.agg_err.cpu().numpy()
+                   if stats.agg_err is not None else nan)
+            self.sched_logs.extend(
+                SchedLog(t0 + i, int(ns[i]), float(bt[i]), float(rt[i]),
+                         float(err[i])) for i in range(n))
+            if self.eval_fn:
+                self._eval(t0 + n - 1, int(ns[-1]), float(bt[-1]), verbose)
+
+    def _eval(self, t: int, n_sched: int, b_t: float, verbose: bool):
+        loss, acc = self.eval_fn(self.params)
+        self.logs.append(RoundLog(t, float(loss), float(acc), n_sched, b_t))
+        if verbose:
+            print(f"round {t:4d} loss={float(loss):.4f} "
+                  f"acc={float(acc):.4f} "
+                  f"sched={n_sched}/{len(self.k_weights)}")
 
     def run(self, rounds: Optional[int] = None, verbose: bool = False
             ) -> List[RoundLog]:
         rounds = rounds or self.cfg.rounds
+        if self.engine.mode == "scan":
+            self._run_scan(rounds, verbose)
+            return self.logs
         for t in range(rounds):
             info = self.run_round(t)
             if self.eval_fn and (t % self.cfg.eval_every == 0
                                  or t == rounds - 1):
-                loss, acc = self.eval_fn(self.params)
-                n_sched = int(info["beta"].sum())
-                self.logs.append(RoundLog(t, float(loss), float(acc),
-                                          n_sched, float(info["b_t"])))
-                if verbose:
-                    print(f"round {t:4d} loss={float(loss):.4f} "
-                          f"acc={float(acc):.4f} "
-                          f"sched={n_sched}/{len(info['h'])}")
+                self._eval(t, int(info["beta"].sum()), float(info["b_t"]),
+                           verbose)
         return self.logs

@@ -11,7 +11,9 @@ against 0 and the BIHT update is held to a few ulp.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch; the
 wrappers raise on anything but 0. Each wrapper also counts its launches
-here (``count``), so a run can show which kernels its path went through.
+here (``count``), so a run can show which kernels its path went through;
+a CUDA graph's replays add the launches its capture recorded
+(``add_launches``, ``engine/graph.py``).
 """
 from __future__ import annotations
 
@@ -62,6 +64,19 @@ def reset_launch_counts() -> None:
 
 def launch_counts() -> Dict[str, int]:
     return dict(LAUNCHES)
+
+
+def set_launch_counts(counts: Dict[str, int]) -> None:
+    """Put the counts back to ``counts``: a CUDA graph capture calls the
+    wrappers, which records their kernels and launches none."""
+    LAUNCHES.update(counts)
+
+
+def add_launches(counts: Dict[str, int], times: int = 1) -> None:
+    """``times`` replays of a CUDA graph whose capture recorded
+    ``counts``: each replay launches every recorded kernel again."""
+    for name, n in counts.items():
+        LAUNCHES[name] += n * times
 
 
 class BuildInfo(NamedTuple):

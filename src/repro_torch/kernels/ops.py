@@ -1,5 +1,5 @@
-"""Public wrappers for the port's kernels, and the decode loops composed
-from them.
+"""Public wrappers for the port's kernels, and the BIHT loop composed from
+them (the IHT and packed loops are ``decode/fused.py``).
 
 Port of ``repro/kernels/ops.py``. Every wrapper dispatches on the device of
 its input: a CPU tensor runs the kernel's plain PyTorch version, a CUDA
@@ -18,7 +18,7 @@ from repro_torch.kernels.topk_select import topk_select
 
 __all__ = ["backproject", "backproject_packed", "biht",
            "cs_pack_sign_residual", "cs_project", "cs_project_pack",
-           "cs_project_sign", "iht", "prefix_eval", "ref", "topk_select"]
+           "cs_project_sign", "prefix_eval", "ref", "topk_select"]
 
 
 def cs_project_sign(phi: torch.Tensor, chunks: torch.Tensor) -> torch.Tensor:
@@ -63,17 +63,3 @@ def biht(y: torch.Tensor, phi: torch.Tensor, k: int, iters: int,
     norm = torch.linalg.vector_norm(x, dim=-1, keepdim=True)
     return x / torch.clamp(norm, min=1e-12)
 
-
-def iht(y: torch.Tensor, phi: torch.Tensor, k: int, iters: int = 10,
-        tau: float = 1.0, x0=None) -> torch.Tensor:
-    """Fixed-step IHT on real measurements through K3 (residual epilogue),
-    K4 and K1 — the semantics of ``repro.decode.fused.fused_iht``: the
-    ``repro.decode.iht.iht`` loop with the bisection hard threshold."""
-    x = (torch.zeros((y.shape[0], phi.shape[1]), dtype=y.dtype,
-                     device=y.device)
-         if x0 is None else x0.to(y.dtype).contiguous())
-    for _ in range(iters):
-        resid = project(phi, x, mode="residual", y=y)
-        x = backproject(x, resid, phi, tau)
-        x, _ = topk_select(x, k)
-    return x

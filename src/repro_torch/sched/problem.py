@@ -15,7 +15,7 @@ from dataclasses import dataclass
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.kernels.prefix_eval import prefix_rt as rt_from_stats
+from repro_torch.kernels.prefix_eval import prefix_rt
 from repro_torch.theory.bounds import AnalysisConstants
 
 __all__ = ["BatchedProblem", "caps", "optimal_bt", "rt_from_stats"]
@@ -117,3 +117,10 @@ class BatchedProblem:
         E = (1.0 + c.delta) * (self.D - self.kappa) / self.D * c.G ** 2
         # a Python scalar enters an f32 product as f32, as in JAX
         return ktot, c.rho1, A, E, self.noise_var * C2
+
+
+def rt_from_stats(s1, s2, b, *, ktot, rho1, A, E, N):
+    """R_t from the sufficient statistics: the formula the prefix_eval
+    kernel (K7) evaluates, in its op order, so the two agree bit for bit
+    where every prefix sum is exact."""
+    return prefix_rt(s1, s2, b, ktot=ktot, rho1=rho1, A=A, E=E, N=N)

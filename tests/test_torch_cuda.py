@@ -19,6 +19,10 @@ packed BIHT decode against the f32 one (one accumulation order each).
 prefix_eval (K7) is exact against its plain version where every prefix
 sum is a whole number exact in f32 (K_i = 3000), and within rtol 1e-6 on
 real K_i (the sums run in another order).
+
+The round replayed from a CUDA graph (``engine/graph.py``) equals the
+eager round bit for bit: the same kernels on the same inputs, the same
+Philox draws.
 """
 import numpy as np
 import pytest
@@ -376,3 +380,116 @@ def test_packed_decode_equals_f32_decode(cuda):
     want = decode(unpack_signs(y_packed), phi, k,
                   DecodeConfig(iters=5, use_kernels=True))
     assert torch.equal(got, want)
+
+
+# --- the round as a CUDA graph ------------------------------------------------
+
+def _sweep_task(dev, hidden=16, u=4, samples=200):
+    from repro_torch.data.mnist import partition_workers
+    from repro_torch.data.synthetic import synthetic_mnist
+    from repro_torch.models import mlp_mnist as mm
+    xtr, ytr, _, _ = synthetic_mnist(n_train=2000, n_test=10, seed=0)
+    wx, wy = partition_workers(xtr, ytr, u, samples, seed=0)
+    return dict(loss_fn=lambda p, d: mm.mlp_mnist_loss(p, d["x"], d["y"]),
+                params=mm.init_mlp_mnist(seed=0, d_hidden=hidden, device=dev),
+                data={"x": torch.from_numpy(wx), "y": torch.from_numpy(wy)},
+                k_weights=np.full(u, float(samples)))
+
+
+def _sweep_cfg(mode, scheduler="all", packed=False):
+    from repro_torch.core.obcsaa import OBCSAAConfig
+    from repro_torch.engine import FLConfig
+    sched = ({"sched_cfg": SchedConfig(use_kernel=True)}
+             if scheduler == "greedy_batched" else {})
+    return FLConfig(mode=mode, scheduler=scheduler, rounds=5, eval_every=2,
+                    probe_agg_error=True, const=AnalysisConstants(
+                        rho1=200.0, G=1.0),
+                    obcsaa=OBCSAAConfig(chunk=1024, measure=256, topk=32,
+                                        biht_iters=5, use_kernels=True,
+                                        packed=packed), **sched)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scheduler,packed", [("all", False),
+                                              ("greedy_batched", True)])
+def test_graph_round_equals_eager_bitwise(cuda, scheduler, packed):
+    """5 rounds of 2 arms replayed from their CUDA graphs against the eager
+    loop: parameters, fade state, every stat, bit for bit; and each replay
+    counts the launches its capture recorded, as many as an eager round
+    makes."""
+    from repro_torch.engine import EngineRun, make_arms
+    t = _sweep_task(cuda)
+    outs, counts, runs = {}, {}, {}
+    for mode in ("scan", "host"):
+        cfg = _sweep_cfg(mode, scheduler, packed)
+        runs[mode] = EngineRun(cfg, t["loss_fn"], t["params"], t["data"],
+                               t["k_weights"], device=cuda)
+        build.reset_launch_counts()
+        outs[mode] = runs[mode].run_sweep(
+            make_arms(cfg, seeds=[0, 1], noise_var=[1e-4, 1e-2]))
+        torch.cuda.synchronize()
+        counts[mode] = build.launch_counts()
+    s, h = outs["scan"], outs["host"]
+    for key in ("n_scheduled", "b_t", "rt_bound", "agg_err"):
+        np.testing.assert_array_equal(s[key], h[key])
+    for a, b in zip(s["budget"], h["budget"]):
+        np.testing.assert_array_equal(a, b)
+    for k in s["params"]:
+        assert torch.equal(s["params"][k], h["params"][k])
+    for a in range(2):
+        assert torch.equal(s["state"][a].fade, h["state"][a].fade)
+    log = runs["scan"].capture_log
+    assert len(log) == 2
+    per_round = log[0]["captured"]
+    assert per_round["topk_select"] == 7 and per_round["backproject"] == 6
+    assert per_round["prefix_eval"] == (scheduler == "greedy_batched")
+    for entry in log:
+        assert entry["captured"] == per_round
+        assert entry["warmup_launches"] == {
+            k: 2 * v for k, v in per_round.items()}
+    assert counts["host"] == {k: 2 * 5 * v for k, v in per_round.items()}
+    assert counts["scan"] == {k: 2 * (2 + 5) * v
+                              for k, v in per_round.items()}
+
+
+@pytest.mark.cuda
+def test_graph_capture_restores_generator_and_carry(cuda):
+    """Warm-up and capture consume no draw and move no parameter: the
+    generator state after the capture is the one before the warm-up."""
+    from repro_torch.engine import EngineRun, RoundGraph
+    t = _sweep_task(cuda)
+    run = EngineRun(_sweep_cfg("scan"), t["loss_fn"], t["params"],
+                    t["data"], t["k_weights"], device=cuda)
+    state, arm = run.init()
+    before = state.generator.get_state()
+    graph = RoundGraph(run.fns.full_round, state, arm, run.worker_data,
+                       run.k_weights)
+    assert torch.equal(state.generator.get_state(), before)
+    for k, v in state.params.items():
+        assert torch.equal(graph.params[k], v)
+    assert torch.equal(graph.fade, state.fade)
+    graph.run(1)
+    assert not torch.equal(state.generator.get_state(), before)
+
+
+@pytest.mark.cuda
+def test_graph_capture_failure_raises(cuda):
+    """A round that reads a value back to the host cannot be captured: the
+    scan run raises, and nothing runs the round eagerly in its place."""
+    from repro_torch.fl import FederatedTrainer
+    t = _sweep_task(cuda)
+
+    def syncing_loss(p, d):
+        loss = t["loss_fn"](p, d)
+        if float(loss.sum()) < 0:       # a host read inside the round
+            raise AssertionError
+        return loss
+
+    tr = FederatedTrainer(_sweep_cfg("scan"), syncing_loss, t["params"],
+                          t["data"], t["k_weights"], device=cuda)
+    params0 = {k: v.clone() for k, v in tr.params.items()}
+    with pytest.raises(RuntimeError):
+        tr.run(3)
+    assert tr.sched_logs == []
+    for k, v in params0.items():
+        assert torch.equal(tr.params[k], v)

@@ -237,11 +237,16 @@ def test_measurement():
 
 
 def test_decoders_registered():
+    from repro.decode import list_decoders as jlist
     from repro_torch.decode import DecodeConfig, decode, list_decoders
-    assert list_decoders() == ["biht", "iht", "iht_warm"]
-    with pytest.raises(NotImplementedError):
-        decode(torch.zeros(1, 32), torch.zeros(32, 64), 4,
-               DecodeConfig(validate="raise"))
+    assert list_decoders() == jlist() == ["biht", "iht", "iht_fused",
+                                          "iht_warm", "niht"]
+    # validate guards the fixed-step family only: biht decodes as unguarded
+    rng = np.random.default_rng(2)
+    y = _t(np.sign(rng.standard_normal((2, 32))).astype(np.float32))
+    phi = _t(rng.standard_normal((32, 64)).astype(np.float32))
+    assert torch.equal(decode(y, phi, 4, DecodeConfig(validate="raise")),
+                       decode(y, phi, 4, DecodeConfig()))
 
 
 @pytest.mark.parametrize("use_kernels", [False, True])
