@@ -29,6 +29,16 @@ result line):
             same launches per round; for ``all`` and for
             ``greedy_batched`` + the packed codec. Times both modes in
             turns, the capture, the device-busy share and the decode stage
+7a. admm    ``run_sweep`` with ``admm_batched`` (Algorithm 2 in the round)
+            at Fig. 3's U = 10 x K = 1000, 3 arms (seeds 0-2) x 20 rounds,
+            scan (the round as graphs cut at ADMM's loop and polish tests)
+            against host, cold and with ``sched_warm_duals``: all bit for
+            bit equal; ADMM's iterations and chunks per round, the times
+7b. host    ``FederatedTrainer(mode="host")`` with the NumPy oracles
+            ``enum`` (U = 6) and ``admm`` (U = 10), 5 rounds: each round's
+            β equal to ``schedule_round``'s, loss falling
+7c. fleet   Algorithm 2 on B = 1024 instances of U = 64: the compacted
+            and in-round forms equal per lane, 12 against float64
 
 Each path's launch counters are set to 0 just before it and read just
 after; a kernel of the path that was not launched fails the run.
@@ -171,7 +181,9 @@ def banner() -> str:
     card = smi.stdout.strip().splitlines()[0]
     log(f"card: {card}")
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
-        f"python {sys.version.split()[0]}")
+        f"python {sys.version.split()[0]}; CUDA-graph conditional nodes "
+        f"(CUDAGraph.begin_capture_to_if_node): "
+        f"{hasattr(torch.cuda.CUDAGraph, 'begin_capture_to_if_node')}")
     from repro_torch.kernels import build
     nv = subprocess.run([build._nvcc(), "--version"], capture_output=True,
                         text=True, timeout=60)
@@ -804,13 +816,15 @@ def where_the_time_goes(tr, agg: str) -> float:
 class Task:
     """The §V task on the card: data, MLP at seed 0, loss and eval."""
 
-    def __init__(self, dev):
+    def __init__(self, dev, workers: int = U_WORKERS,
+                 samples: int = SAMPLES):
         from repro_torch.data import load_mnist, partition_workers
         from repro_torch.models import mlp_mnist as mm
 
         t0 = time.perf_counter()
+        self.workers, self.samples = workers, samples
         xtr, ytr, xte, yte = load_mnist()
-        wx, wy = partition_workers(xtr, ytr, U_WORKERS, SAMPLES, seed=0)
+        wx, wy = partition_workers(xtr, ytr, workers, samples, seed=0)
         self.data = {"x": torch.from_numpy(wx), "y": torch.from_numpy(wy)}
         xe, ye = torch.from_numpy(xte).to(dev), torch.from_numpy(yte).to(dev)
         log(f"data: {len(xtr)} train / {len(xte)} test samples, "
@@ -835,11 +849,15 @@ class Task:
         phase 6 drives the graph."""
         from repro_torch.engine import FLConfig
         from repro_torch.fl import FederatedTrainer
-        cfg = FLConfig(learning_rate=0.1, rounds=ROUNDS,
-                       eval_every=EVAL_EVERY, seed=0, mode="host", **cfg_kw)
+        cfg = FLConfig(**{**dict(learning_rate=0.1, rounds=ROUNDS,
+                                 eval_every=EVAL_EVERY, seed=0, mode="host"),
+                          **cfg_kw})
         return FederatedTrainer(cfg, self.loss_fn, self.params0, self.data,
-                                np.full(U_WORKERS, float(SAMPLES)),
-                                eval_fn=self.eval_fn, device=dev)
+                                self.k_weights(), eval_fn=self.eval_fn,
+                                device=dev)
+
+    def k_weights(self):
+        return np.full(self.workers, float(self.samples))
 
     def run(self, tr, label: str):
         """The counted 30-round run: counters set to 0 just before it and
@@ -1173,6 +1191,311 @@ def run_sweep_phase(dev, task: Task, label: str, sched_kw: dict,
         "ms eager (host clock)")
     return counts["scan"]
 
+# -- phase 7 ------------------------------------------------------------------
+
+# benchmarks/fig3_scheduling.py:54-66: U = 10 (and 6) workers of K = 1000
+# samples, BIHT 25, seeds 0-2 as arms; benchmarks/sched_bench.py:36 the
+# fleet shape of Algorithm 2 and its instance recipe
+FIG3_U, FIG3_U_ENUM, FIG3_K, FIG3_SEEDS = 10, 6, 1000, [0, 1, 2]
+HOST_ROUNDS = 5
+ADMM_B, ADMM_U, ADMM_PARITY = 1024, 64, 12
+
+
+def dist(xs) -> str:
+    xs = np.asarray(xs)
+    if xs.size == 0:
+        return "none"
+    return (f"min {xs.min()}, median {float(np.median(xs)):g}, max "
+            f"{xs.max()}")
+
+
+def admm_iterations(run, arms) -> list:
+    """Outer iterations of every round's solve (eager, arm by arm): each
+    round's h from ``full_round``, solved again with ``return_duals``."""
+    from repro_torch.engine.state import arm_at
+    from repro_torch.sched import BatchedProblem, admm_solve_batched_jit
+    cfg, iters = run.cfg, []
+    for a in range(len(FIG3_SEEDS)):
+        state, arm = run.init(arm_at(arms, a))
+        for _ in range(cfg.rounds):
+            state, _, info = run.fns.full_round(state, arm, run.worker_data,
+                                                run.k_weights)
+            bp = BatchedProblem.from_arrays(
+                info["h"][None], run.k_weights[None], arm.p_max,
+                arm.noise_var, D=run.D, S=cfg.obcsaa.measure,
+                kappa=cfg.obcsaa.topk, const=cfg.const)
+            *_, solve = admm_solve_batched_jit(bp, cfg.sched_cfg,
+                                               return_duals=True)
+            iters.append(int(solve.iters[0]))
+    return iters
+
+
+def admm_stage_ms(run, dev) -> tuple:
+    """The schedule stage alone (one ``admm_batched`` solve at B = 1, U =
+    10), eager and as its captured program replayed (host clock, each
+    ended by a synchronise; median of 20)."""
+    from repro_torch import control
+    state, arm = run.init()
+    h, _ = run.fns.fade_step(state.fade, state.generator)
+
+    def solve():
+        return run.fns.schedule(h, run.k_weights, arm.noise_var, arm.p_max)
+
+    eager = median(host_ms(solve, 20))
+    stream = torch.cuda.Stream(dev)
+    stream.wait_stream(torch.cuda.current_stream(dev))
+    torch.cuda.synchronize()
+    with control.SegmentedCapture(stream) as cap:
+        solve()
+    torch.cuda.synchronize()
+    replayed = median(host_ms(lambda: control.replay(cap.program), 20))
+    return eager, replayed, len(cap.program)
+
+
+def run_admm_sweep_phase(dev, task: Task) -> dict:
+    """Phase 7a: ``EngineRun.run_sweep`` with ``admm_batched`` (Algorithm
+    2 in the round) over 3 arms (seeds 0-2) × 20 rounds, eval every 10,
+    BIHT 25, at Fig. 3's worker set, in scan mode (the round captured as a
+    program of CUDA graphs cut at ADMM's loop and polish tests) and host
+    mode (the eager round, ADMM's while loop reading the host); then again
+    with ``sched_warm_duals``. Scan must equal host bit for bit, and the
+    warm run the cold one. Returns the launch counts of the cold scan
+    run."""
+    from repro_torch.engine import EngineRun, FLConfig, RoundGraph, make_arms
+    from repro_torch.engine.state import arm_at
+    from repro_torch.kernels import build
+    from repro_torch.theory import ErrorBudget
+
+    ob = task.obcsaa(biht_iters=SWEEP_ITERS)
+    A, R, W = len(FIG3_SEEDS), SWEEP_ROUNDS, RoundGraph.WARMUP
+    outs, runs, counts, secs = {}, {}, {}, {}
+    for warm in (False, True):
+        for mode in ("scan", "host"):
+            cfg = FLConfig(aggregator="obcsaa", scheduler="admm_batched",
+                           learning_rate=0.1, rounds=R, eval_every=SWEEP_EVAL,
+                           seed=0, mode=mode, obcsaa=ob,
+                           sched_warm_duals=warm)
+            run = EngineRun(cfg, task.loss_fn, task.params0, task.data,
+                            task.k_weights(), eval_fn=task.eval_fn,
+                            device=dev)
+            arms = make_arms(cfg, seeds=FIG3_SEEDS)
+            torch.cuda.synchronize()
+            build.reset_launch_counts()
+            t0 = time.perf_counter()
+            outs[warm, mode] = run.run_sweep(arms)
+            torch.cuda.synchronize()
+            secs[warm, mode] = time.perf_counter() - t0
+            counts[warm, mode] = build.launch_counts()
+            runs[warm, mode] = run
+
+    def diffs(x, y, duals=False):
+        bad = [k for k in ("n_scheduled", "b_t", "rt_bound", "eval_rounds",
+                           "loss", "accuracy")
+               if not np.array_equal(x[k], y[k])]
+        bad += [f"budget.{f}" for f, a, b in zip(
+            ErrorBudget._fields, x["budget"], y["budget"])
+            if not np.array_equal(a, b)]
+        bad += [f"params.{k}" for k in x["params"]
+                if not torch.equal(x["params"][k], y["params"][k])]
+        bad += [f"beta of arm {a}'s last round" for a in range(A)
+                if not torch.equal(x["state"][a].prev_beta,
+                                   y["state"][a].prev_beta)]
+        if duals:
+            bad += [f"duals of arm {a}" for a in range(A)
+                    if not all(torch.equal(p.view(torch.int32),
+                                           q.view(torch.int32))
+                               for p, q in zip(x["state"][a].sched_duals,
+                                               y["state"][a].sched_duals))]
+        return bad
+
+    for warm in (False, True):
+        bad = diffs(outs[warm, "scan"], outs[warm, "host"], duals=warm)
+        if bad:
+            fail(f"admm sweep (warm duals {warm}): scan differs from host "
+                 f"in {bad}")
+    bad = diffs(outs[True, "scan"], outs[False, "scan"])
+    if bad:
+        fail(f"admm sweep: the warm-dual run differs from the cold run in "
+             f"{bad}")
+    sc = outs[False, "scan"]
+    if not np.isfinite(sc["rt_bound"]).all():
+        fail("admm sweep: rt_bound not finite")
+    if not (sc["loss"][:, -1] < task.loss0).all():
+        fail(f"admm sweep: loss did not fall in every arm ({task.loss0} -> "
+             f"{sc['loss'][:, -1].tolist()})")
+    want = {k: SWEEP_PER_ROUND.get(k, 0) for k in counts[False, "scan"]}
+    for entry in runs[False, "scan"].capture_log:
+        if entry["captured"] != want:
+            fail(f"admm sweep: a replay launches {entry['captured']}, an "
+                 f"eager round {want}")
+    expect_counts("admm sweep host", counts[False, "host"], SWEEP_PER_ROUND,
+                  A * R)
+    expect_counts("admm sweep scan (warm-up + replays)",
+                  counts[False, "scan"], SWEEP_PER_ROUND, A * (W + R))
+    log(f"admm sweep: launches per replayed round "
+        f"{ {k: v for k, v in want.items() if v} }, as an eager round's")
+    log(f"admm sweep: U={task.workers} x K={task.samples}, {A} arms x {R} "
+        f"rounds: scan equals host bit for bit (params, β of the last "
+        f"round, n_scheduled, b_t, budget, rt_bound, loss, accuracy), and "
+        f"with sched_warm_duals (duals too); the warm run equals the cold "
+        f"run bit for bit")
+    for warm in (False, True):
+        caps = runs[warm, "scan"].capture_log
+        trips = [t for c in caps for t in c["trips"]]
+        n_graphs = caps[0]["graphs"] if caps else 0
+        log(f"admm sweep (warm duals {warm}): {n_graphs} graphs a "
+            f"round; chunks of 8 iterations per replayed round: "
+            f"{dist([1 + t for t in trips])} ({sum(1 + t for t in trips)} "
+            f"over {len(trips)} rounds); capture per arm: warm-up "
+            + ", ".join(f"{c['warmup_s'] * 1e3:.1f}" for c in caps)
+            + " ms, capture " + ", ".join(f"{c['capture_s'] * 1e3:.1f}"
+                                          for c in caps) + " ms")
+        log(f"admm sweep (warm duals {warm}): whole sweep (captures "
+            f"included) {secs[warm, 'scan'] * 1e3:.1f} ms scan, "
+            f"{secs[warm, 'host'] * 1e3:.1f} ms host = "
+            f"{secs[warm, 'scan'] * 1e3 / (A * R):.3f} / "
+            f"{secs[warm, 'host'] * 1e3 / (A * R):.3f} ms per arm-round")
+    for a in range(A):
+        log(f"  arm seed {FIG3_SEEDS[a]}: loss {task.loss0:.4f} -> "
+            + " -> ".join(f"{x:.4f}" for x in sc["loss"][a])
+            + f", accuracy {sc['accuracy'][a, -1]:.4f}, n_scheduled "
+            f"{sc['n_scheduled'][a].tolist()}")
+    arms = make_arms(runs[False, "host"].cfg, seeds=FIG3_SEEDS)
+    iters = admm_iterations(runs[False, "host"], arms)
+    log(f"admm sweep: outer iterations per round ({len(iters)} solves): "
+        f"{dist(iters)}")
+
+    steady = {}
+    for mode in ("scan", "host"):
+        run = runs[False, mode]
+        state, arm = run.init(arm_at(arms, 0))
+        state, _ = run.run_chunk(state, arm, 0, 1)    # scan: the capture
+        steady[mode] = [run, state, arm]
+
+    def chunk(mode, n):
+        run, state, arm = steady[mode]
+        steady[mode][1], _ = run.run_chunk(state, arm, 0, n)
+
+    times = {"scan": [], "host": []}
+    for _ in range(3):      # in turns: scan, host, host, scan
+        for mode in ("scan", "host", "host", "scan"):
+            times[mode] += [t / 10 for t in host_ms(lambda: chunk(mode, 10),
+                                                    1)]
+    log(f"admm sweep: steady ms per arm-round (chunks of 10, host clock, "
+        f"median of {len(times['scan'])}): scan {median(times['scan']):.3f}"
+        f", host {median(times['host']):.3f}")
+    for mode in ("scan", "host"):
+        wall, busy, events, every = device_busy(lambda: chunk(mode, 3))
+        log(f"admm sweep: profiler, 3 {mode} rounds: wall {wall:.3f} ms, "
+            f"device busy {busy:.3f} ms ({100 * busy / wall:.1f}%; every "
+            f"event's self device time {every:.3f} ms)")
+        for e in sorted(events, key=lambda e: -e.self_device_time_total)[:6]:
+            log(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:5d}x"
+                f"  {e.key[:70]}")
+    eager, replayed, n_graphs = admm_stage_ms(runs[False, "scan"], dev)
+    log(f"admm sweep: the schedule stage alone (B=1, U={task.workers}): "
+        f"{eager:.3f} ms eager, {replayed:.3f} ms replayed ({n_graphs} "
+        f"graphs; host clock, median of 20) against "
+        f"{median(times['scan']):.3f} ms for a replayed round")
+    return counts[False, "scan"]
+
+
+def run_host_schedulers(dev) -> None:
+    """Phase 7b: ``FederatedTrainer(mode="host")`` with the NumPy oracles
+    of Fig. 3 between the fade draw and the round: ``enum`` at U = 6 and
+    ``admm`` at U = 10, K = 1000, 5 rounds each. Every round's β must be
+    ``schedule_round``'s for that round's h, and the loss must fall."""
+    from repro_torch.fl import schedule_round
+    for sched, workers in (("enum", FIG3_U_ENUM), ("admm", FIG3_U)):
+        task = Task(dev, workers=workers, samples=FIG3_K)
+        tr = task.trainer(dev, aggregator="obcsaa", scheduler=sched,
+                          rounds=HOST_ROUNDS, eval_every=HOST_ROUNDS - 1,
+                          obcsaa=task.obcsaa(biht_iters=SWEEP_ITERS))
+        solver_ms, round_ms, sched_n = [], [], []
+        for t in range(HOST_ROUNDS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            info = tr.run_round(t)
+            torch.cuda.synchronize()
+            round_ms.append((time.perf_counter() - t0) * 1e3)
+            h = info["h"].cpu().numpy().astype(np.float64)
+            t0 = time.perf_counter()
+            beta, bt = schedule_round(sched, h, task.k_weights(),
+                                      tr.cfg.obcsaa, tr.cfg.const, tr.D)
+            solver_ms.append((time.perf_counter() - t0) * 1e3)
+            if not (np.array_equal(info["beta"].cpu().numpy(), beta)
+                    and float(info["b_t"]) == np.float32(bt)):
+                fail(f"host path {sched}: round {t}'s β or b_t differs from "
+                     "schedule_round's for its h")
+            sched_n.append(int(beta.sum()))
+        loss, acc = (float(v) for v in task.eval_fn(tr.params))
+        if not (np.isfinite(loss) and loss < task.loss0):
+            fail(f"host path {sched}: loss did not fall ({task.loss0} -> "
+                 f"{loss})")
+        log(f"host path {sched}: U={workers} x K={FIG3_K}, {HOST_ROUNDS} "
+            f"rounds: β equals schedule_round's every round; n_scheduled "
+            f"{sched_n}; loss {task.loss0:.4f} -> {loss:.4f}, accuracy "
+            f"{acc:.4f}; ms per round {median(round_ms):.3f} (median; first "
+            f"{round_ms[0]:.3f}), the float64 solver alone "
+            f"{median(solver_ms):.3f} ms (host clock)")
+
+
+def run_admm_fleet(dev) -> None:
+    """Phase 7c: benchmarks/sched_bench.py's Algorithm-2 fleet, B = 1024
+    instances of U = 64 (instance i from numpy's default_rng(10000 + i),
+    K_i = 3000, P^Max = 10, σ² = 1e-4, ρ1 = 200, G = 1): the compacted
+    form against the in-round form per lane, bit for bit; 12 instances
+    against the float64 ``admm_solve`` (at most one β differs, R_t and b_t
+    within rtol 1e-4); instances per second of each form."""
+    from repro_torch.sched import (BatchedProblem, Problem, admm_solve,
+                                   admm_solve_batched,
+                                   admm_solve_batched_jit)
+    from repro_torch.theory import AnalysisConstants
+    const = AnalysisConstants(rho1=200.0, G=1.0)
+    probs = []
+    for i in range(ADMM_B):
+        rng = np.random.default_rng(10_000 + i)
+        probs.append(Problem(h=np.abs(rng.normal(size=ADMM_U)) + 1e-3,
+                             k_weights=np.full(ADMM_U, 3000.0), p_max=10.0,
+                             noise_var=1e-4, const=const, **FLEET_GEOM))
+    bp = BatchedProblem.from_problems(probs, device=dev)
+    a = admm_solve_batched(bp, return_duals=True)
+    b = admm_solve_batched_jit(bp, return_duals=True)
+    for name, x, y in (("β", a[0], b[0]), ("b_t", a[1], b[1]),
+                       ("R_t", a[2], b[2]), ("iters", a[3].iters, b[3].iters),
+                       *((f"dual {n}", p, q) for n, p, q in zip(
+                           "ν ξ ζ".split(), a[3].duals, b[3].duals))):
+        bits = (lambda t: t.view(torch.int32)
+                if t.dtype == torch.float32 else t)
+        if not torch.equal(bits(x), bits(y)):
+            fail(f"admm fleet: compacted and in-round forms differ in {name}")
+    flips, r_rel, b_rel = 0, 0.0, 0.0
+    for i in range(ADMM_PARITY):
+        beta_n, bt_n, r_n = admm_solve(probs[i])
+        flips += not np.array_equal(a[0][i].cpu().numpy(), beta_n)
+        r_rel = max(r_rel, abs(float(a[2][i]) - r_n) / r_n)
+        b_rel = max(b_rel, abs(float(a[1][i]) - bt_n) / max(bt_n, 1e-12))
+    if flips > 1 or r_rel > 1e-4 or b_rel > 1e-4:
+        fail(f"admm fleet vs float64 admm_solve on {ADMM_PARITY}: {flips} β "
+             f"differ, R_t rel {r_rel:.2e}, b_t rel {b_rel:.2e}")
+    tc, tj = [], []
+    for _ in range(3):      # in turns: compacted, jit, jit, compacted
+        tc += host_ms(lambda: admm_solve_batched(bp), 1)
+        tj += host_ms(lambda: admm_solve_batched_jit(bp), 2)
+        tc += host_ms(lambda: admm_solve_batched(bp), 1)
+    iters = b[3].iters.cpu().numpy()
+    chunks = -(-iters // 8)
+    log(f"admm fleet: B={ADMM_B} U={ADMM_U}: compacted equals in-round per "
+        f"lane bit for bit (β, b_t, R_t, iterations, duals); vs float64 "
+        f"on {ADMM_PARITY}: {flips} β differ, R_t rel {r_rel:.2e}, b_t rel "
+        f"{b_rel:.2e}; compacted {median(tc):.1f} ms a call = "
+        f"{ADMM_B / median(tc) * 1e3:.0f} instances/s, in-round "
+        f"{median(tj):.1f} ms = {ADMM_B / median(tj) * 1e3:.0f} "
+        f"instances/s (median of 6, host clock); outer iterations "
+        f"{dist(iters)}; lanes by chunks "
+        + ", ".join(f"{c}: {int((chunks == c).sum())}"
+                    for c in np.unique(chunks)))
+
 
 SOURCES = {
     "topk_select": ("src/repro_torch/kernels/csrc/topk_select.cu",
@@ -1223,6 +1546,10 @@ def main() -> None:
         dev, task, "sweep greedy_batched + packed",
         {"scheduler": "greedy_batched",
          "sched_cfg": SchedConfig(use_kernel=True)}, {"packed": True})
+    paths["sweep_admm"] = run_admm_sweep_phase(
+        dev, Task(dev, workers=FIG3_U, samples=FIG3_K))
+    run_host_schedulers(dev)
+    run_admm_fleet(dev)
     kernels = []
     for name, r in results.items():
         source, replaces = SOURCES[name]

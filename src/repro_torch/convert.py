@@ -1,8 +1,8 @@
 """Carry arrays between the JAX package and the port, as NumPy.
 
-``params_from_jax`` turns a JAX parameter dict (``np.asarray`` of each
+``params_from_reference`` turns a JAX parameter dict (``np.asarray`` of each
 leaf) into tensors in the same layout (``w1`` stays (784, 64));
-``params_to_numpy`` goes back. ``arrays_from_jax`` turns the reference's
+``params_to_numpy`` goes back. ``arrays_from_reference`` turns the reference's
 draws — Φ, fades (complex64) and AWGN — into tensors, so a test can feed
 both packages the same numbers.
 """
@@ -16,7 +16,7 @@ import torch
 from repro_torch.device import resolve_device
 
 
-def params_from_jax(np_params: Mapping, device=None
+def params_from_reference(np_params: Mapping, device=None
                     ) -> Dict[str, torch.Tensor]:
     dev = resolve_device(device)
     return {k: torch.from_numpy(np.array(v, copy=True)).to(dev)
@@ -28,7 +28,7 @@ def params_to_numpy(params: Mapping[str, torch.Tensor]
     return {k: v.detach().cpu().numpy() for k, v in params.items()}
 
 
-def arrays_from_jax(*arrays, device=None) -> Tuple[torch.Tensor, ...]:
+def arrays_from_reference(*arrays, device=None) -> Tuple[torch.Tensor, ...]:
     dev = resolve_device(device)
     return tuple(torch.from_numpy(np.array(a, copy=True)).to(dev)
                  for a in arrays)

@@ -1,8 +1,8 @@
 """FL experiment configuration; port of ``repro/engine/config.py`` for the
 slice the port runs: aggregators ``obcsaa``, ``topk_aa`` and ``perfect``
-under the ``all`` and ``greedy_batched`` schedulers, in ``scan`` or
-``host`` mode. Error feedback, warm start, checkpoints, dual warm starts
-and the other schedulers are not ported yet; asking for them raises
+under every scheduler of ``sched/registry.py``, in ``scan`` or ``host``
+mode, with or without the ADMM dual warm start. Error feedback, warm-start
+decoding and checkpoints are not ported yet; asking for them raises
 ``NotImplementedError`` instead of running something else."""
 from __future__ import annotations
 
@@ -14,10 +14,14 @@ from repro_torch.sched.config import SchedConfig
 from repro_torch.theory.bounds import AnalysisConstants
 
 AGGREGATORS = ("obcsaa", "topk_aa", "perfect")
-SCHEDULERS = ("all", "greedy_batched")
+SCHEDULERS = ("all", "enum", "admm", "greedy", "admm_batched",
+              "admm_batched_jit", "greedy_batched")
 # Schedulers whose decision runs inside the round on the device, so the
-# round can be captured whole: every scheduler ported so far
-ENGINE_SCHEDULERS = SCHEDULERS
+# round can be captured ("admm_batched" runs the in-round form
+# ``admm_solve_batched_jit`` there). The NumPy oracles (enum, admm,
+# greedy) run on the host path of ``fl.FederatedTrainer``.
+ENGINE_SCHEDULERS = ("all", "greedy_batched", "admm_batched",
+                     "admm_batched_jit")
 MODES = ("auto", "scan", "host")
 
 
@@ -45,6 +49,9 @@ class FLConfig:
     sched_cfg: Optional[SchedConfig] = None
     ckpt_dir: Optional[str] = None
     ckpt_resume: bool = False
+    # carry the ADMM multipliers of round t's schedule to seed round t+1's
+    # solve (admm_batched*); the primal re-initialises every round, so β is
+    # bit for bit the cold solve's
     sched_warm_duals: bool = False
     # emit the measured ‖ĝ−ḡ‖² every round next to the predicted budget;
     # off, the round is exactly the probe-free one
@@ -56,18 +63,15 @@ class FLConfig:
                 f"aggregator {self.aggregator!r} is not ported yet; one of "
                 f"{AGGREGATORS}")
         if self.scheduler not in SCHEDULERS:
-            raise NotImplementedError(
-                f"scheduler {self.scheduler!r} is not ported yet; one of "
-                f"{SCHEDULERS}")
+            raise ValueError(f"unknown scheduler {self.scheduler!r}; one of "
+                             f"{SCHEDULERS}")
         if self.mode not in MODES:
             raise ValueError(f"mode {self.mode!r}; one of {MODES}")
         for name, on in (("warm-start decoding across rounds",
                           self.obcsaa.warm_start),
                          ("error feedback", self.error_feedback),
                          ("checkpoints (ckpt_dir / ckpt_resume)",
-                          self.ckpt_dir is not None or self.ckpt_resume),
-                         ("dual warm starts (sched_warm_duals)",
-                          self.sched_warm_duals)):
+                          self.ckpt_dir is not None or self.ckpt_resume)):
             if on:
                 raise NotImplementedError(f"{name} is not ported yet")
 

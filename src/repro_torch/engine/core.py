@@ -6,8 +6,11 @@ over the round functions, as the reference does:
 - ``fade_step``            Gauss-Markov block-fading draw (core/channel.py)
 - ``schedule``             P2 for one round's channels as a B = 1
                            ``BatchedProblem``: ``all`` (β = 1, b_t =
-                           min_i h_i √P^Max / K_i) or ``greedy_batched``
-                           (the prefix sweep, sched/greedy.py)
+                           min_i h_i √P^Max / K_i), ``greedy_batched``
+                           (the prefix sweep, sched/greedy.py) or
+                           ``admm_batched``/``admm_batched_jit`` (Algorithm
+                           2 in its in-round form, sched/admm.py), with the
+                           dual warm start when ``sched_warm_duals``
 - ``round_given_schedule`` local gradients (eq. 3), compress + MAC +
                            decode (eq. 6-13), the top-κ analog baseline or
                            the perfect mean, the SGD update (eq. 14), and
@@ -16,7 +19,9 @@ over the round functions, as the reference does:
 
 σ², P^Max and the learning rate come from the arm (``engine/state.Arms``)
 as 0-d tensors on the device, and nothing in the round reads a tensor
-back to the host, so ``engine/graph.py`` can capture ``full_round`` whole.
+back to the host except ADMM's loop and polish tests, which go through
+``control``, so ``engine/graph.py`` can capture ``full_round``: whole, or
+cut at those two tests.
 Random draws come from the carry's ``torch.Generator``, in order: the
 initial fade, then per round the fade innovation and the AWGN. Both can
 be passed in instead (``fade_w=``, ``noise=``), which is how tests replay
@@ -33,8 +38,9 @@ from repro_torch.core import channel as chan
 from repro_torch.core.obcsaa import OBCSAAConfig, simulate_round
 from repro_torch.core.sparsify import flatten_pytree, topk_sparsify
 from repro_torch.decode.registry import resolve_validate
-from repro_torch.engine.config import FLConfig
+from repro_torch.engine.config import ENGINE_SCHEDULERS, FLConfig
 from repro_torch.engine.state import Arms, EngineState, RoundStats
+from repro_torch.sched.admm import AdmmDuals, admm_solve_batched_jit
 from repro_torch.sched.greedy import greedy_solve_batched
 from repro_torch.sched.problem import BatchedProblem
 from repro_torch.theory.bounds import error_budget
@@ -52,7 +58,9 @@ class EngineFns(NamedTuple):
     """The built round functions + static geometry."""
     init_state: Callable            # (params, arm, fade0_w=None) -> state
     fade_step: Callable             # (fade, generator, w=None) -> (h, fade')
-    schedule: Callable              # (h, k_weights, σ², P^Max) -> (β, b_t)
+    # (h, k_weights, σ², P^Max, duals=None) -> (β, b_t, duals'); duals' is
+    # the exit AdmmDuals under sched_warm_duals, else None
+    schedule: Callable
     round_given_schedule: Callable
     full_round: Callable            # (state, arm, worker_data, k_weights)
     D: int
@@ -127,6 +135,11 @@ def build_engine(cfg: FLConfig, loss_fn: Callable, opt, D: int, U: int,
     probe = cfg.probe_agg_error
     all_in = torch.ones((U,), device=device)    # β of the perfect mean
     unit = torch.ones((), device=device)        # its b_t
+    scfg = cfg.sched_cfg
+    admm = cfg.scheduler in ("admm_batched", "admm_batched_jit")
+    # the dual warm start applies where ADMM runs every round
+    warm_duals = (cfg.sched_warm_duals and cfg.aggregator != "perfect"
+                  and admm)
 
     def init_state(params, arm: Arms,
                    fade0_w: Optional[torch.Tensor] = None) -> EngineState:
@@ -135,28 +148,48 @@ def build_engine(cfg: FLConfig, loss_fn: Callable, opt, D: int, U: int,
         return EngineState(params=params, opt_state=opt.init(params),
                            fade=fade0,
                            prev_beta=-torch.ones((U,), device=device),
-                           generator=gen)
+                           generator=gen,
+                           sched_duals=AdmmDuals.zeros((U,), device=device)
+                           if warm_duals else None)
 
     def fade_step(fade, generator, w: Optional[torch.Tensor] = None):
         return chan.draw_fades(generator, rho=cfg.channel_rho, prev=fade,
                                w=w)
 
-    def schedule(h, k_weights, noise_var, p_max):
-        """P2 for one round's channels (B = 1) -> (β (U,), b_t)."""
+    def schedule(h, k_weights, noise_var, p_max, duals=None):
+        """P2 for one round's channels (B = 1) -> (β (U,), b_t, duals').
+        ``duals`` (a (U,)-leaf ``AdmmDuals``) seeds ADMM's multipliers;
+        duals' are its exit multipliers under the warm start, else None."""
         bp = BatchedProblem.from_arrays(
             h[None], k_weights[None], p_max, noise_var, D=D, S=ob.measure,
             kappa=ob.topk, const=cfg.const)
+        duals_out = None
         if cfg.scheduler == "all":
             beta = torch.ones_like(bp.h)
             b_t = bp.optimal_bt(beta)
-        else:   # greedy_batched (FLConfig admits no other)
-            beta, b_t, _ = greedy_solve_batched(bp, cfg.sched_cfg)
-        return beta[0], b_t[0]
+        elif cfg.scheduler == "greedy_batched":
+            beta, b_t, _ = greedy_solve_batched(bp, scfg)
+        elif admm:
+            if warm_duals and duals is not None:
+                d1 = AdmmDuals(*(leaf[None] for leaf in duals))
+                beta, b_t, _, info = admm_solve_batched_jit(
+                    bp, scfg, duals=d1, return_duals=True)
+                duals_out = AdmmDuals(*(leaf[0] for leaf in info.duals))
+            else:
+                beta, b_t, _ = admm_solve_batched_jit(bp, scfg)
+        else:
+            raise ValueError(
+                f"scheduler {cfg.scheduler!r} does not run inside the round "
+                f"(engine schedulers: {ENGINE_SCHEDULERS}); it runs on the "
+                "host path, FederatedTrainer in mode='host'")
+        return beta[0], b_t[0], duals_out
 
     def round_given_schedule(state: EngineState, arm: Arms, worker_data,
                              k_weights, h, fade, beta, b_t,
-                             noise: Optional[torch.Tensor] = None):
-        """Eq. 3 → 6-7 → 10 → 13 → 43 → 14 with the schedule decided."""
+                             noise: Optional[torch.Tensor] = None,
+                             sched_duals=None):
+        """Eq. 3 → 6-7 → 10 → 13 → 43 → 14 with the schedule decided;
+        ``sched_duals`` (the solve's exit multipliers) go into the carry."""
         grads = stacked_grads(loss_fn, state.params, worker_data)
         if cfg.aggregator == "perfect":
             ghat = perfect_aggregate(grads, k_weights, beta)
@@ -172,7 +205,8 @@ def build_engine(cfg: FLConfig, loss_fn: Callable, opt, D: int, U: int,
                                        state.params, arm.lr)
         new_state = EngineState(params=params, opt_state=opt_state,
                                 fade=fade, prev_beta=beta,
-                                generator=state.generator)
+                                generator=state.generator,
+                                sched_duals=sched_duals)
         budget = None
         if track_bound:
             budget = error_budget(cfg.const, D=D, S=s_eff, kappa=kappa_eff,
@@ -193,12 +227,15 @@ def build_engine(cfg: FLConfig, loss_fn: Callable, opt, D: int, U: int,
         """Fade draw + P2 + the round update. Returns (state', stats,
         {"h", "beta", "b_t"})."""
         h, fade = fade_step(state.fade, state.generator, fade_w)
+        duals = None
         if cfg.aggregator == "perfect":
             beta, b_t = all_in, unit
         else:
-            beta, b_t = schedule(h, k_weights, arm.noise_var, arm.p_max)
+            beta, b_t, duals = schedule(h, k_weights, arm.noise_var,
+                                        arm.p_max, state.sched_duals)
         new_state, stats = round_given_schedule(
-            state, arm, worker_data, k_weights, h, fade, beta, b_t, noise)
+            state, arm, worker_data, k_weights, h, fade, beta, b_t, noise,
+            duals)
         return new_state, stats, {"h": h, "beta": beta, "b_t": b_t}
 
     return EngineFns(init_state=init_state, fade_step=fade_step,

@@ -1,13 +1,25 @@
-"""One arm's round captured as a CUDA graph and replayed once per round:
+"""One arm's round captured as CUDA graphs and replayed once per round:
 the port's counterpart of the reference's ``lax.scan`` chunk
 (``repro/engine/runner.py``'s ``_chunk_fn``).
 
 ``RoundGraph`` owns the arm's carry as static tensors (parameters, fade
-state, previous β) and a stats buffer on the card. Its graph runs
-``EngineFns.full_round`` on the carry, copies the new carry over the old
-in place, and writes the round's stats into the next row of the buffer
-(a slot counter on the card, advanced in the graph). The host reads the
-buffer only at the end of a chunk.
+state, previous β, the ADMM multipliers under ``sched_warm_duals``) and a
+stats buffer on the card. Its capture runs ``EngineFns.full_round`` on
+the carry, copies the new carry over the old in place, and writes the
+round's stats into the next row of the buffer (a slot counter on the
+card, advanced in the graph). The host reads the buffer only at the end
+of a chunk.
+
+The capture is a ``control.SegmentedCapture``. Under ``all`` and
+``greedy_batched`` nothing in the round tests a tensor on the host, and
+the round is one graph, replayed once. Under ``admm_batched`` the round
+holds ADMM's convergence loop and its polish test; the capture is cut
+there, and a round replays: the fade draw, the solver's start and its
+first chunk of 8 outer iterations; one more chunk while a lane still runs
+(a one-byte read after each); the projection; the polish if a lane needs
+it (one more read); the rest of the round. Usually that is four graph
+launches and two reads. PyTorch 2.11's CUDA graphs have no conditional
+node that would keep this on the card.
 
 Capture, in order:
 
@@ -17,9 +29,9 @@ Capture, in order:
 2. the carry and the arm's generator state are put back as they were
    before the warm-up, so the warm-up consumes no draw the host path
    would not make;
-3. the generator is registered with the graph (its Philox seed and offset
-   are read on the card at each replay, and each replay advances the
-   offset by what one round draws), and one round is captured.
+3. the generator is registered with each graph (its Philox seed and
+   offset are read on the card at each replay, and each replay advances
+   the offset by what that graph draws), and one round is captured.
 
 A capture that fails raises; nothing falls back to running the round
 eagerly. The kernel wrappers count a launch when they are called, which
@@ -33,8 +45,10 @@ from typing import Dict, List
 
 import torch
 
+from repro_torch import control
 from repro_torch.engine.state import Arms, EngineState, RoundStats
 from repro_torch.kernels import build
+from repro_torch.sched.admm import AdmmDuals
 from repro_torch.theory.bounds import ErrorBudget
 
 
@@ -43,7 +57,7 @@ def _diff(after: Dict[str, int], before: Dict[str, int]) -> Dict[str, int]:
 
 
 class RoundGraph:
-    """``full_round`` of one arm as a CUDA graph over a static carry."""
+    """``full_round`` of one arm as CUDA graphs over a static carry."""
 
     WARMUP = 2      # eager rounds before the capture
     CAP = 256       # rounds the stats buffer holds between host reads
@@ -63,10 +77,13 @@ class RoundGraph:
         self.params = {k: v.detach().clone() for k, v in state.params.items()}
         self.fade = state.fade.clone()
         self.prev_beta = state.prev_beta.clone()
+        self.duals = None if state.sched_duals is None else AdmmDuals(
+            *(d.clone() for d in state.sched_duals))
         self.slot = torch.zeros((1,), dtype=torch.int64, device=self.device)
         self.buf = None         # (CAP, n_stats) f32, made in the warm-up
         self.has_budget = self.has_err = False
-        self.graph = torch.cuda.CUDAGraph()
+        self.program: List[tuple] = []      # control.replay's graphs
+        self.trips: List[int] = []  # extra ADMM chunks, per replayed round
         self.warmup_launches: Dict[str, int] = {}
         self.captured: Dict[str, int] = {}
         self.warmup_s = self.capture_s = 0.0
@@ -75,14 +92,15 @@ class RoundGraph:
     # -- the carry ---------------------------------------------------------
 
     def _carry(self) -> List[torch.Tensor]:
-        return [*self.params.values(), self.fade, self.prev_beta]
+        return [*self.params.values(), self.fade, self.prev_beta,
+                *(self.duals or ())]
 
     def state(self) -> EngineState:
         """The carry as an ``EngineState``: these tensors are the graph's
         static buffers, which every replay overwrites in place."""
         return EngineState(params=self.params, opt_state=(), fade=self.fade,
                            prev_beta=self.prev_beta,
-                           generator=self.generator)
+                           generator=self.generator, sched_duals=self.duals)
 
     def load(self, state: EngineState) -> None:
         """Copy a carry into the static buffers (no-op for our own)."""
@@ -91,20 +109,22 @@ class RoundGraph:
         if state.generator is not self.generator:
             raise ValueError("RoundGraph.load: the state belongs to another "
                              "arm's generator")
+        self._copy_in(state)
+
+    def _copy_in(self, state: EngineState) -> None:
         for k, v in state.params.items():
             self.params[k].copy_(v)
         self.fade.copy_(state.fade)
         self.prev_beta.copy_(state.prev_beta)
+        for dst, src in zip(self.duals or (), state.sched_duals or ()):
+            dst.copy_(src)
 
     # -- one round ---------------------------------------------------------
 
     def _step(self) -> None:
         new, stats, _ = self._full_round(self.state(), self.arm,
                                          self.worker_data, self.k_weights)
-        for k, v in new.params.items():
-            self.params[k].copy_(v)
-        self.fade.copy_(new.fade)
-        self.prev_beta.copy_(new.prev_beta)
+        self._copy_in(new)
         fields = [stats.n_scheduled.to(torch.float32), stats.b_t]
         if stats.budget is not None:
             fields += list(stats.budget)
@@ -139,17 +159,17 @@ class RoundGraph:
         self.buf = torch.zeros_like(self.buf)
         self.slot.zero_()
         self.generator.set_state(gen_state)
-        register = getattr(self.graph, "register_generator_state", None)
-        if register is None:
+        if not hasattr(torch.cuda.CUDAGraph, "register_generator_state"):
             raise RuntimeError(
                 "this PyTorch cannot capture draws from a torch.Generator "
                 "other than the default one (torch.cuda.CUDAGraph has no "
                 "register_generator_state); use FLConfig(mode='host')")
-        register(self.generator)
         t0 = time.perf_counter()
         before = build.launch_counts()
-        with torch.cuda.graph(self.graph, stream=stream):
+        torch.cuda.synchronize(self.device)
+        with control.SegmentedCapture(stream, [self.generator]) as cap:
             self._step()
+        self.program = cap.program
         torch.cuda.synchronize(self.device)
         self.capture_s = time.perf_counter() - t0
         self.captured = _diff(build.launch_counts(), before)
@@ -165,7 +185,7 @@ class RoundGraph:
             k = min(self.CAP, n - done)
             self.slot.zero_()
             for _ in range(k):
-                self.graph.replay()
+                self.trips.append(sum(control.replay(self.program)))
             build.add_launches(self.captured, k)
             rows.append(self.buf[:k].clone())
         return self._stats(torch.cat(rows) if rows else

@@ -83,8 +83,10 @@ class EngineRun:
     ``device=None`` means CUDA and raises without a card; pass
     ``device="cpu"`` to run the plain versions of the kernels. ``phi``
     injects the (S_c, D_c) measurement matrix, else it is drawn from
-    ``cfg.obcsaa.phi_seed``. ``capture_log`` lists, per CUDA graph this
-    run captured, its warm-up and capture seconds and launch counts."""
+    ``cfg.obcsaa.phi_seed``. ``capture_log`` lists, per arm whose round
+    this run captured, its warm-up and capture seconds, launch counts, the
+    number of graphs in the round's program, and ``trips``, the extra ADMM
+    chunks of each replayed round (filled as the replays run)."""
 
     def __init__(self, cfg, loss_fn: Callable, params, worker_data,
                  k_weights, eval_fn: Optional[Callable] = None,
@@ -147,7 +149,8 @@ class EngineRun:
             self.capture_log.append({
                 "warmup_s": graph.warmup_s, "capture_s": graph.capture_s,
                 "warmup_launches": graph.warmup_launches,
-                "captured": graph.captured})
+                "captured": graph.captured, "graphs": len(graph.program),
+                "trips": graph.trips})
         else:
             graph.load(state)
         return graph.state(), graph.run(n)

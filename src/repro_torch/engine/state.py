@@ -1,6 +1,6 @@
 """Round carry, per-round stats and sweep arms; port of
-``repro/engine/state.py`` for the ported slice (the warm-start,
-error-feedback and ADMM-dual leaves wait with their features).
+``repro/engine/state.py`` for the ported slice (the warm-start and
+error-feedback leaves wait with their features).
 
 ``Arms`` holds the per-arm sweep axes, the quantities an experiment grid
 varies without rebuilding the engine: a seed, σ², P^Max and the learning
@@ -25,6 +25,9 @@ class EngineState(NamedTuple):
     fade: torch.Tensor             # (U,) complex64 Gauss-Markov state
     prev_beta: torch.Tensor        # (U,) f32; -1 before round 0
     generator: torch.Generator     # the arm's fade and AWGN draws
+    # the ADMM multipliers of the last schedule, a (U,)-leaf AdmmDuals
+    # that seeds the next round's solve (FLConfig.sched_warm_duals) | None
+    sched_duals: Any = None
 
 
 class RoundStats(NamedTuple):

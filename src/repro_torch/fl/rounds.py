@@ -13,6 +13,10 @@ Two modes over one round body (``engine/core.py``):
   (``EngineRun.run_chunk``); on the card each round is a replay of the
   arm's CUDA graph, and the stats come back at the chunk's end.
 - ``host``: the per-round eager loop, with the stats read every round.
+  The schedulers that do not run inside the round (the NumPy oracles
+  ``enum``, ``admm`` and ``greedy``) run here only: the round's h comes to
+  the host, ``fl.server.schedule_round`` solves P2 in float64, and β and
+  b_t go back to the card as f32.
 
 Metrics are evaluated after round t when ``t % eval_every == 0`` and after
 the last round, the reference trainer's cadence.
@@ -27,6 +31,7 @@ import torch
 
 from repro_torch.engine.config import FLConfig
 from repro_torch.engine.runner import EngineRun, chunk_spans
+from repro_torch.fl.server import schedule_round
 from repro_torch.optim.optimizers import Optimizer
 
 
@@ -74,6 +79,9 @@ class FederatedTrainer:
         e = self.engine
         self.device, self.loss_fn, self.eval_fn = e.device, loss_fn, eval_fn
         self.worker_data, self.k_weights = e.worker_data, e.k_weights
+        self._k_host = np.asarray(k_weights, np.float64)
+        # P2 on the host, between the fade draw and the round body
+        self._host_sched = not cfg.engine_capable()
         self.opt, self.D, self.phi, self.fns = e.opt, e.D, e.phi, e.fns
         self.state, self.arm = e.init()
         self.generator = self.state.generator
@@ -95,9 +103,12 @@ class FederatedTrainer:
                   noise: Optional[torch.Tensor] = None) -> Dict:
         """One eager round (the host path). ``fade_w`` (U,) complex and
         ``noise`` (n_chunks, S_c) replace this round's draws."""
-        self.state, stats, info = self.fns.full_round(
-            self.state, self.arm, self.worker_data, self.k_weights,
-            fade_w=fade_w, noise=noise)
+        if self._host_sched:
+            stats, info = self._host_scheduled_round(fade_w, noise)
+        else:
+            self.state, stats, info = self.fns.full_round(
+                self.state, self.arm, self.worker_data, self.k_weights,
+                fade_w=fade_w, noise=noise)
         self.sched_logs.append(SchedLog(
             t, int(stats.n_scheduled), float(stats.b_t),
             float(stats.budget.rt()) if stats.budget is not None
@@ -105,6 +116,21 @@ class FederatedTrainer:
             float(stats.agg_err) if stats.agg_err is not None
             else float("nan")))
         return info
+
+    def _host_scheduled_round(self, fade_w, noise):
+        """Fade draw, P2 by a NumPy oracle on the host, the round body."""
+        cfg, st = self.cfg, self.state
+        h, fade = self.fns.fade_step(st.fade, st.generator, fade_w)
+        beta_np, bt = schedule_round(
+            cfg.scheduler, h.cpu().numpy().astype(np.float64), self._k_host,
+            cfg.obcsaa, cfg.const, self.D, cfg.sched_cfg, device=self.device)
+        beta = torch.as_tensor(beta_np, dtype=torch.float32,
+                               device=self.device)
+        b_t = torch.tensor(bt, dtype=torch.float32, device=self.device)
+        self.state, stats = self.fns.round_given_schedule(
+            st, self.arm, self.worker_data, self.k_weights, h, fade, beta,
+            b_t, noise)
+        return stats, {"h": h, "beta": beta, "b_t": b_t}
 
     def _run_scan(self, rounds: int, verbose: bool) -> None:
         ee = self.cfg.eval_every if self.eval_fn else None

@@ -5,17 +5,21 @@ tensors: channels, weights K_i, per-worker power budgets P_i^Max (paper
 eq. 10) and the noise variances (B,); the analysis constants (D, S, κ,
 ``AnalysisConstants``) are plain attributes. ``caps``/``optimal_bt``/``rt``
 reduce over the last axis only, so the module functions below also take
-(U,) inputs; the methods call them. ``from_problems``/``instance`` wait for
-the NumPy reference ``Problem``.
+(U,) inputs; the methods call them. ``from_problems``/``single`` stack the
+float64 NumPy ``Problem``s of ``sched/reference.py`` into f32 tensors on a
+device, ``instance`` takes one back out.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Sequence
 
+import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels.prefix_eval import prefix_rt
+from repro_torch.sched.reference import Problem
 from repro_torch.theory.bounds import AnalysisConstants
 
 __all__ = ["BatchedProblem", "caps", "optimal_bt", "rt_from_stats"]
@@ -76,11 +80,48 @@ class BatchedProblem:
         if h.ndim < 2:
             h = h.reshape(1, -1)
         B, U = h.shape
-        k = as_t(k_weights).expand(B, U)
-        p = as_t(p_max).expand(B, U)
-        nv = as_t(noise_var).expand(B)
+        # materialised, so a lane gather and the full batch reduce rows of
+        # the same layout
+        k = as_t(k_weights).expand(B, U).contiguous()
+        p = as_t(p_max).expand(B, U).contiguous()
+        nv = as_t(noise_var).expand(B).contiguous()
         return cls(h=h, k_weights=k, p_max=p, noise_var=nv, D=int(D),
                    S=int(S), kappa=int(kappa), const=const)
+
+    @classmethod
+    def from_problems(cls, problems: Sequence[Problem], dtype=torch.float32,
+                      device=None) -> "BatchedProblem":
+        """Stack NumPy reference instances (shared D/S/κ/constants) on
+        ``device`` (``None`` means CUDA)."""
+        p0 = problems[0]
+        for p in problems[1:]:
+            if (p.D, p.S, p.kappa, p.const) != (p0.D, p0.S, p0.kappa,
+                                                p0.const):
+                raise ValueError("from_problems requires shared "
+                                 "D/S/kappa/const across instances")
+        return cls.from_arrays(
+            np.stack([p.h for p in problems]),
+            np.stack([p.k_weights for p in problems]),
+            np.stack([p.p_max_vec for p in problems]),
+            np.asarray([p.noise_var for p in problems]),
+            D=p0.D, S=p0.S, kappa=p0.kappa, const=p0.const, dtype=dtype,
+            device=resolve_device(device))
+
+    @classmethod
+    def single(cls, prob: Problem, dtype=torch.float32,
+               device=None) -> "BatchedProblem":
+        """Lift one reference instance to B = 1."""
+        return cls.from_problems([prob], dtype=dtype, device=device)
+
+    def instance(self, b: int) -> Problem:
+        """Instance ``b`` back as a float64 NumPy reference ``Problem``."""
+        def f64(t):
+            return t[b].detach().cpu().numpy().astype(np.float64)
+
+        return Problem(h=f64(self.h), k_weights=f64(self.k_weights),
+                       p_max=f64(self.p_max),
+                       noise_var=float(self.noise_var[b]), D=self.D,
+                       S=self.S, kappa=self.kappa, const=self.const)
 
     # -- P2 quantities (last-axis reductions) -------------------------------
     def caps(self) -> torch.Tensor:

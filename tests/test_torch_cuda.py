@@ -22,7 +22,11 @@ real K_i (the sums run in another order).
 
 The round replayed from a CUDA graph (``engine/graph.py``) equals the
 eager round bit for bit: the same kernels on the same inputs, the same
-Philox draws.
+Philox draws. Under ``admm_batched`` the captured round is a program of
+graphs cut at ADMM's loop and polish tests (``control.py``), and it too
+equals the eager round (the reference's while loop) bit for bit, as the
+captured solve equals the eager solve and the compacted fleet solver the
+in-round one, lane by lane (multipliers compared by bit pattern).
 """
 import numpy as np
 import pytest
@@ -396,7 +400,7 @@ def _sweep_task(dev, hidden=16, u=4, samples=200):
                 k_weights=np.full(u, float(samples)))
 
 
-def _sweep_cfg(mode, scheduler="all", packed=False):
+def _sweep_cfg(mode, scheduler="all", packed=False, **kw):
     from repro_torch.core.obcsaa import OBCSAAConfig
     from repro_torch.engine import FLConfig
     sched = ({"sched_cfg": SchedConfig(use_kernel=True)}
@@ -406,7 +410,7 @@ def _sweep_cfg(mode, scheduler="all", packed=False):
                         rho1=200.0, G=1.0),
                     obcsaa=OBCSAAConfig(chunk=1024, measure=256, topk=32,
                                         biht_iters=5, use_kernels=True,
-                                        packed=packed), **sched)
+                                        packed=packed), **sched, **kw)
 
 
 @pytest.mark.cuda
@@ -493,3 +497,123 @@ def test_graph_capture_failure_raises(cuda):
     assert tr.sched_logs == []
     for k, v in params0.items():
         assert torch.equal(tr.params[k], v)
+
+
+# --- Algorithm 2 on the card ----------------------------------------------------
+
+def _bits(t):
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("warm", [False, True], ids=["cold", "warm_duals"])
+def test_admm_graph_round_equals_eager_bitwise(cuda, warm):
+    """22 ``admm_batched`` rounds of 2 arms at U = 10 replayed from their
+    captured programs against the eager loop, whose ADMM runs the
+    reference's while loop with a host read per chunk: parameters, fade,
+    multipliers and every stat bit for bit; the replays launch K1-K4 as
+    an eager round does; the program is cut at the loop and the polish."""
+    from repro_torch.engine import EngineRun, make_arms
+    t = _sweep_task(cuda, u=10)
+    outs, counts, runs = {}, {}, {}
+    for mode in ("scan", "host"):
+        cfg = _sweep_cfg(mode, "admm_batched", sched_warm_duals=warm)
+        runs[mode] = EngineRun(cfg, t["loss_fn"], t["params"], t["data"],
+                               t["k_weights"], device=cuda)
+        build.reset_launch_counts()
+        outs[mode] = runs[mode].run_sweep(
+            make_arms(cfg, seeds=[0, 1], noise_var=[1e-4, 1e-2]),
+            rounds=22, eval_every=0)
+        torch.cuda.synchronize()
+        counts[mode] = build.launch_counts()
+    s, h = outs["scan"], outs["host"]
+    for key in ("n_scheduled", "b_t", "rt_bound", "agg_err"):
+        np.testing.assert_array_equal(s[key], h[key])
+    for a, b in zip(s["budget"], h["budget"]):
+        np.testing.assert_array_equal(a, b)
+    for k in s["params"]:
+        assert torch.equal(s["params"][k], h["params"][k])
+    for a in range(2):
+        assert torch.equal(s["state"][a].fade, h["state"][a].fade)
+        if warm:
+            for x, y in zip(s["state"][a].sched_duals,
+                            h["state"][a].sched_duals):
+                assert torch.equal(_bits(x), _bits(y))
+        else:
+            assert s["state"][a].sched_duals is None
+    log = runs["scan"].capture_log
+    per_round = log[0]["captured"]
+    assert per_round["topk_select"] == 7 and per_round["backproject"] == 6
+    assert per_round["cs_project"] == 1 and per_round["prefix_eval"] == 0
+    for entry in log:
+        assert entry["graphs"] == 5 and len(entry["trips"]) == 22
+        assert entry["captured"] == per_round
+    assert counts["host"] == {k: 2 * 22 * v for k, v in per_round.items()}
+    assert counts["scan"] == {k: 2 * (2 + 22) * v
+                              for k, v in per_round.items()}
+
+
+def _three_chunk_problems(dev):
+    """U = 10, K_i = 3000, ρ1 = 200, G = 1 instances whose ADMM needs 18
+    to 21 outer iterations (3 chunks of 8) on an H100: numpy default_rng
+    seeds 36, 130, 154 and 1551, h = |N(0, 1)| + 1e-3, picked by solving
+    seeds 0-2999 on the card in one batch (the CPU's f32 arithmetic
+    differs in its last bits and picks others); the test checks that they
+    still need more than 16."""
+    from repro_torch.sched import BatchedProblem
+    h = np.concatenate([np.abs(np.random.default_rng(s).normal(size=(1, 10)))
+                        + 1e-3 for s in (36, 130, 154, 1551)])
+    return BatchedProblem.from_arrays(
+        h, 3000.0, 10.0, 1e-4, D=50890, S=1000, kappa=1000,
+        const=AnalysisConstants(rho1=200.0, G=1.0), device=dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [4, 1])
+def test_admm_captured_solve_runs_extra_chunks(cuda, lanes):
+    """A solve whose lanes need 3 chunks, captured as a program and
+    replayed, against the eager while loop: β, b_t, R_t, the iteration
+    counts and the multipliers bit for bit, with the loop body replayed
+    twice or more."""
+    from repro_torch import control
+    from repro_torch.sched import admm_solve_batched_jit, take
+    bp = _three_chunk_problems(cuda)
+    if lanes == 1:
+        bp = take(bp, [2])          # seed 154: 20 iterations
+    eager = admm_solve_batched_jit(bp, return_duals=True)
+    assert int(eager[3].iters.max()) > 16
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    torch.cuda.synchronize()
+    with control.SegmentedCapture(stream) as cap:
+        out = admm_solve_batched_jit(bp, return_duals=True)
+    assert [k for k, _, _ in cap.program] == ["run", "while", "run", "if",
+                                              "run"]
+    for _ in range(2):          # a replay rewrites the same buffers
+        trips = control.replay(cap.program)
+        torch.cuda.synchronize()
+        assert trips[0] >= 2
+        for a, b in ((out[0], eager[0]), (out[1], eager[1]),
+                     (out[2], eager[2]), (out[3].iters, eager[3].iters),
+                     *zip(out[3].duals, eager[3].duals)):
+            assert torch.equal(_bits(a), _bits(b))
+
+
+@pytest.mark.cuda
+def test_admm_compacted_equals_jit_fleet(cuda):
+    """benchmarks/sched_bench.py's ADMM shape, B = 1024 and U = 64: the
+    compacted fleet form against the in-round form, lane by lane, bit for
+    bit (buckets of 8 to 1024 rows against the whole batch)."""
+    from repro_torch.sched import (BatchedProblem, admm_solve_batched,
+                                   admm_solve_batched_jit)
+    rng = np.random.default_rng(0)
+    bp = BatchedProblem.from_arrays(
+        np.abs(rng.normal(size=(1024, 64))) + 1e-3, 3000.0, 10.0, 1e-4,
+        D=50890, S=1000, kappa=1000,
+        const=AnalysisConstants(rho1=200.0, G=1.0), device=cuda)
+    a = admm_solve_batched(bp, return_duals=True)
+    b = admm_solve_batched_jit(bp, return_duals=True)
+    for x, y in ((a[0], b[0]), (a[1], b[1]), (a[2], b[2]),
+                 (a[3].iters, b[3].iters), *zip(a[3].duals, b[3].duals)):
+        assert torch.equal(_bits(x), _bits(y))
+    assert int(b[3].iters.max()) > 8 and bool((a[1] > 0).all())

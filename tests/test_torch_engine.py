@@ -15,7 +15,12 @@ Tolerances:
   differ in its last bit, and b_t is the h of a scheduled worker); each
   final parameter within 1e-4 of how far the reference moved it (f32 sums
   in another order move it by ~1e-6 of that); eval losses rtol 1e-4.
-- within the port on the CPU: scan mode ≡ host mode bit for bit.
+- within the port on the CPU: scan mode ≡ host mode bit for bit; the
+  ADMM dual warm start (``sched_warm_duals``) leaves every output bit for
+  bit as the cold run's, in both modes.
+- the host path (``FederatedTrainer`` with a NumPy oracle, ``enum``)
+  against the reference's trainer with its draws injected: β exact, each
+  parameter within 1e-4 of its movement.
 """
 import jax
 import jax.numpy as jnp
@@ -33,6 +38,7 @@ from repro.engine import eval_points as jpoints
 from repro.engine import make_arms as jmake_arms
 from repro.engine import run_sweep as jrun_sweep
 from repro.engine.core import budget_geometry as jgeom
+from repro.fl import FederatedTrainer as JTrainer
 from repro.models import mlp_mnist as jm
 from repro.sched import SchedConfig as JSC
 from repro.theory import AnalysisConstants as JAC
@@ -44,8 +50,9 @@ from repro_torch.engine import (Draws, EngineRun, budget_geometry,
                                 chunk_spans, eval_points, make_arms, n_arms,
                                 run_sweep, single_arm)
 from repro_torch.engine import FLConfig as TFL
-from repro_torch.fl import FederatedTrainer
+from repro_torch.fl import FederatedTrainer, schedule_round
 from repro_torch.models import mlp_mnist as tm
+from repro_torch.sched import AdmmDuals
 from repro_torch.sched import SchedConfig as TSC
 from repro_torch.theory import AnalysisConstants as TAC
 
@@ -71,7 +78,7 @@ def _port_task(task):
     xe, ye = torch.from_numpy(task["xte"]), torch.from_numpy(task["yte"])
     return dict(
         loss_fn=lambda p, d: tm.mlp_mnist_loss(p, d["x"], d["y"]),
-        params=convert.params_from_jax(task["p0"], device="cpu"),
+        params=convert.params_from_reference(task["p0"], device="cpu"),
         data={"x": torch.from_numpy(task["wx"]),
               "y": torch.from_numpy(task["wy"])},
         eval_fn=lambda p: (tm.mlp_mnist_loss(p, xe, ye),
@@ -83,7 +90,8 @@ def _cfgs(aggregator, scheduler="all", packed=False, **kw):
               use_kernels=True, packed=packed)
     common = dict(aggregator=aggregator, scheduler=scheduler,
                   learning_rate=0.1, rounds=ROUNDS, eval_every=EVAL_EVERY,
-                  topk_dense=96, **kw)
+                  topk_dense=96)
+    common.update(kw)
     jsched, tsched = {}, {}
     if scheduler == "greedy_batched":
         jsched = dict(sched_cfg=JSC(use_kernel=True, interpret=True))
@@ -141,16 +149,27 @@ def test_make_arms_errors_match(axes):
 
 
 def test_config_modes_and_refusals():
+    scheds = ("all", "enum", "admm", "greedy", "admm_batched",
+              "admm_batched_jit", "greedy_batched")
     for mode in ("auto", "scan", "host"):
-        for agg, sched in (("obcsaa", "all"), ("perfect", "all"),
-                           ("topk_aa", "greedy_batched")):
-            j = JFL(aggregator=agg, scheduler=sched, mode=mode)
-            t = TFL(aggregator=agg, scheduler=sched, mode=mode)
-            assert t.engine_capable() == j.engine_capable()
-            assert t.resolved_mode() == j.resolved_mode()
+        for agg in ("obcsaa", "perfect", "topk_aa"):
+            for sched in scheds:
+                for warm in (False, True):
+                    kw = dict(aggregator=agg, scheduler=sched, mode=mode,
+                              sched_warm_duals=warm)
+                    j, t = JFL(**kw), TFL(**kw)
+                    assert t.engine_capable() == j.engine_capable()
+                    if j.engine_capable() or mode != "scan":
+                        assert t.resolved_mode() == j.resolved_mode()
+                    else:
+                        with pytest.raises(ValueError, match="scan"):
+                            j.resolved_mode()
+                        with pytest.raises(ValueError, match="scan"):
+                            t.resolved_mode()
+    with pytest.raises(ValueError, match="mode='scan'"):
+        TFL(scheduler="enum", mode="scan").resolved_mode()
     for kw in (dict(error_feedback=True), dict(ckpt_dir="x"),
-               dict(ckpt_resume=True), dict(sched_warm_duals=True),
-               dict(scheduler="admm_batched")):
+               dict(ckpt_resume=True)):
         with pytest.raises(NotImplementedError):
             TFL(**kw)
     with pytest.raises(ValueError, match="mode"):
@@ -200,6 +219,7 @@ def _reference_draws(keys, cfg, d):
     pytest.param("obcsaa", "all", False, id="obcsaa-all"),
     pytest.param("obcsaa", "greedy_batched", True,
                  id="obcsaa-greedy_batched-packed"),
+    pytest.param("obcsaa", "admm_batched", False, id="obcsaa-admm_batched"),
     pytest.param("topk_aa", "all", False, id="topk_aa"),
     pytest.param("perfect", "all", False, id="perfect")])
 def test_run_sweep_matches_reference(task, aggregator, scheduler, packed):
@@ -250,7 +270,8 @@ def test_run_sweep_matches_reference(task, aggregator, scheduler, packed):
 
 @pytest.mark.parametrize("aggregator,scheduler,packed,probe", [
     ("obcsaa", "all", False, True), ("obcsaa", "greedy_batched", True, False),
-    ("topk_aa", "all", False, True)])
+    ("topk_aa", "all", False, True), ("obcsaa", "admm_batched", False, False),
+    ("topk_aa", "admm_batched_jit", False, True)])
 def test_scan_equals_host_bitwise(task, aggregator, scheduler, packed,
                                   probe):
     """The chunked runner and the per-round loop, generator draws: every
@@ -360,3 +381,87 @@ def test_sweep_needs_cuda_by_default(monkeypatch, task):
         run_sweep(cfg, pt["loss_fn"], pt["params"], pt["data"],
                   np.full(U, float(SAMPLES)), seeds=SEEDS, device="cpu",
                   ckpt_dir="ckpt")
+
+
+# --- ADMM in the round: the dual warm start -----------------------------------
+
+def test_warm_duals_bitwise_neutral_and_scan_equals_host(task):
+    """tests/test_serve.py:278's property: carrying the multipliers from
+    round to round leaves the trajectory bit for bit; and scan ≡ host
+    holds under the carry, duals included."""
+    pt = _port_task(task)
+    outs = {}
+    for warm in (False, True):
+        for mode in ("scan", "host"):
+            _, cfg = _cfgs("obcsaa", "admm_batched", mode=mode,
+                           sched_warm_duals=warm)
+            outs[warm, mode] = run_sweep(
+                cfg, pt["loss_fn"], pt["params"], pt["data"],
+                np.full(U, float(SAMPLES)), eval_fn=pt["eval_fn"],
+                seeds=SEEDS, noise_var=NOISE_VARS, device="cpu")
+    cold = outs[False, "scan"]
+    assert cold["state"][0].sched_duals is None
+    for key in outs:
+        o = outs[key]
+        for k in cold["params"]:
+            assert torch.equal(o["params"][k], cold["params"][k]), (key, k)
+        for name in ("n_scheduled", "b_t", "rt_bound", "loss"):
+            np.testing.assert_array_equal(o[name], cold[name])
+    for a in range(2):
+        ds, dh = (outs[True, m]["state"][a].sched_duals
+                  for m in ("scan", "host"))
+        assert isinstance(ds, AdmmDuals) and ds.nu.shape == (U,)
+        for x, y in zip(ds, dh):
+            assert torch.equal(x.view(torch.int32), y.view(torch.int32))
+
+
+# --- the host path: a NumPy oracle between the fade draw and the round ---------
+
+def test_enum_scheduler_runs_on_host_path(task):
+    """The reference's tests/test_engine.py:317 case on the port, and the
+    same three rounds against the reference's trainer with its draws
+    injected: each round's β is ``schedule_round``'s for that round's h,
+    and the parameters follow the reference's."""
+    jcfg, tcfg = _cfgs("obcsaa", "enum", rounds=3, eval_every=2)
+    pt = _port_task(task)
+    tr = FederatedTrainer(tcfg, pt["loss_fn"], pt["params"], pt["data"],
+                          np.full(U, float(SAMPLES)), eval_fn=pt["eval_fn"],
+                          phi=torch.from_numpy(np.array(jcfg.obcsaa.phi())),
+                          device="cpu")
+    assert tr.engine.mode == "host"
+    logs = tr.run()
+    assert np.isfinite(logs[-1].loss) and len(tr.sched_logs) == 3
+    with pytest.raises(ValueError, match="host"):
+        run_sweep(tcfg, pt["loss_fn"], pt["params"], pt["data"],
+                  np.full(U, float(SAMPLES)), seeds=SEEDS, device="cpu")
+
+    xe, ye = jnp.asarray(task["xte"]), jnp.asarray(task["yte"])
+    jtr = JTrainer(jcfg, lambda p, d: jm.mlp_mnist_loss(p, d["x"], d["y"]),
+                   {k: jnp.asarray(v) for k, v in task["p0"].items()},
+                   {"x": jnp.asarray(task["wx"]),
+                    "y": jnp.asarray(task["wy"])},
+                   np.full(U, float(SAMPLES)),
+                   eval_fn=lambda p: (jm.mlp_mnist_loss(p, xe, ye),
+                                      jm.mlp_mnist_accuracy(p, xe, ye)))
+    key = jtr._arm.key
+    draws = _reference_draws([key, key], jcfg, D)
+    tr = FederatedTrainer(tcfg, pt["loss_fn"], pt["params"], pt["data"],
+                          np.full(U, float(SAMPLES)),
+                          phi=torch.from_numpy(np.array(jcfg.obcsaa.phi())),
+                          device="cpu")
+    tr.state, tr.arm = tr.engine.init(fade0_w=draws.fade0[0])
+    for t in range(3):
+        want = jtr.run_round(t)
+        got = tr.run_round(t, fade_w=draws.fade_w[0, t],
+                           noise=draws.noise[0, t])
+        np.testing.assert_array_equal(got["beta"].numpy(), want["beta"])
+        beta_np, bt = schedule_round(
+            "enum", got["h"].numpy().astype(np.float64),
+            np.full(U, float(SAMPLES)), tcfg.obcsaa, tcfg.const, D)
+        np.testing.assert_array_equal(got["beta"].numpy(), beta_np)
+        assert float(got["b_t"]) == np.float32(bt)
+    for k, v in task["p0"].items():
+        moved = np.linalg.norm(np.asarray(jtr.params[k]) - v)
+        assert moved > 0
+        assert np.linalg.norm(tr.params[k].numpy()
+                              - np.asarray(jtr.params[k])) <= 1e-4 * moved

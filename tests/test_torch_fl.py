@@ -92,7 +92,7 @@ def test_default_device_needs_cuda(monkeypatch, task):
     """``device=None`` means CUDA; without a card that raises, never a
     silent run on the CPU."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    params = convert.params_from_jax(task["p0"], device="cpu")
+    params = convert.params_from_reference(task["p0"], device="cpu")
     data = {"x": torch.from_numpy(task["wx"]),
             "y": torch.from_numpy(task["wy"])}
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -104,7 +104,7 @@ def test_default_device_needs_cuda(monkeypatch, task):
     with pytest.raises(RuntimeError, match="CUDA"):
         TOB().phi()
     with pytest.raises(RuntimeError, match="CUDA"):
-        convert.params_from_jax(task["p0"])
+        convert.params_from_reference(task["p0"])
     with pytest.raises(RuntimeError, match="CUDA"):
         tchan.draw_noise(None, (2, 3), 1e-4)
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -115,7 +115,7 @@ def test_default_device_needs_cuda(monkeypatch, task):
 
 
 def test_params_round_trip_exact(task):
-    params = convert.params_from_jax(task["p0"], device="cpu")
+    params = convert.params_from_reference(task["p0"], device="cpu")
     assert params["w1"].shape == (784, HIDDEN)   # JAX's x @ w1 layout
     back = convert.params_to_numpy(params)
     assert sorted(back) == sorted(task["p0"])
@@ -125,7 +125,7 @@ def test_params_round_trip_exact(task):
 
 
 def test_flatten_order_is_jax_pytree_order(task):
-    params = convert.params_from_jax(task["p0"], device="cpu")
+    params = convert.params_from_reference(task["p0"], device="cpu")
     flat, unflatten = flatten_pytree(params)
     want, _ = jsp.flatten_pytree({k: jnp.asarray(v)
                                   for k, v in task["p0"].items()})
@@ -137,7 +137,7 @@ def test_flatten_order_is_jax_pytree_order(task):
 
 
 def test_loss_and_gradients_match(task):
-    params = convert.params_from_jax(task["p0"], device="cpu")
+    params = convert.params_from_reference(task["p0"], device="cpu")
     jp = {k: jnp.asarray(v) for k, v in task["p0"].items()}
     x, y = task["wx"][0], task["wy"][0]
     np.testing.assert_allclose(
@@ -188,13 +188,13 @@ def _trainers(task, aggregator, rounds, scheduler="all", packed=False):
                   {"x": jnp.asarray(task["wx"]),
                    "y": jnp.asarray(task["wy"])},
                   np.full(U, float(SAMPLES)))
-    phi, = convert.arrays_from_jax(np.asarray(job.phi()), device="cpu")
+    phi, = convert.arrays_from_reference(np.asarray(job.phi()), device="cpu")
     if scheduler == "greedy_batched":
         sched["sched_cfg"] = TSC(use_kernel=True)
     tt = TTrainer(TFL(aggregator=aggregator, learning_rate=0.1,
                       rounds=rounds, obcsaa=TOB(**kw), **sched),
                   lambda p, d: tm.mlp_mnist_loss(p, d["x"], d["y"]),
-                  convert.params_from_jax(task["p0"], device="cpu"),
+                  convert.params_from_reference(task["p0"], device="cpu"),
                   {"x": torch.from_numpy(task["wx"]),
                    "y": torch.from_numpy(task["wy"])},
                   np.full(U, float(SAMPLES)), phi=phi, device="cpu")
@@ -223,7 +223,7 @@ def test_slice_trajectory(task, aggregator, scheduler, packed):
         z = np.asarray(jchan.draw_noise(jax.random.fold_in(k_t, 1),
                                         (n_chunks, 256), 1e-4))
         jinfo = jt.run_round(t)
-        fade_w, noise = convert.arrays_from_jax(w, z, device="cpu")
+        fade_w, noise = convert.arrays_from_reference(w, z, device="cpu")
         tinfo = tt.run_round(t, fade_w=fade_w, noise=noise)
         np.testing.assert_allclose(tinfo["h"].numpy(), jinfo["h"],
                                    rtol=1e-6)
