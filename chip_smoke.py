@@ -39,6 +39,22 @@ result line):
             β equal to ``schedule_round``'s, loss falling
 7c. fleet   Algorithm 2 on B = 1024 instances of U = 64: the compacted
             and in-round forms equal per lane, 12 against float64
+8a. ef      error feedback at §V width (benchmarks/ablations.py's
+            ablate/obcsaa_ef arm: U = 10 x K = 1000, seeds 0 and 1, 20
+            of its 80 rounds), ``all`` with SGD, ``greedy_batched`` with
+            momentum and with Adam: scan ≡ host bit for bit in every stat
+            and every carry leaf (moments, residuals, generator state);
+            the compression launches no topk_select
+8b. warm    warm-start IHT (τ = 0.25, ``decode_validate="raise"``) with
+            EF under ``admm_batched``: scan ≡ host, ``decode_x0`` too
+8c. resume  8a's Adam arms with ``ckpt_dir``, cut after the middle
+            boundary and resumed: ≡ the uninterrupted run bit for bit;
+            save ms per boundary, peak device memory
+8d. serve   ``repro_torch.serve``: the cache-parity and warm-parity gates
+            of benchmarks/serve_bench.py, then 10,000 cells under
+            ``admm_batched`` and 100,000 under ``greedy_batched`` (K7),
+            8 timed ticks each: p50/p99 tick ms, hit rate, solved/s,
+            served/s, the movement read and the solve apart
 
 Each path's launch counters are set to 0 just before it and read just
 after; a kernel of the path that was not launched fails the run.
@@ -73,6 +89,8 @@ U_WORKERS, SAMPLES = 10, 3000
 DECODE_K = min(4 * KAPPA, MEASURE // 2)
 # the fleet scheduling shape and instance recipe of benchmarks/sched_bench.py
 FLEET_B, FLEET_U = 64, 8192
+# the 100k-cell service's first bucket (benchmarks/serve_bench.py:155)
+SERVE_B, SERVE_U = 131072, 16
 FLEET_K, FLEET_PMAX, FLEET_NV = 3000.0, 10.0, 1e-4
 FLEET_GEOM = dict(D=50890, S=1000, kappa=1000)
 
@@ -621,7 +639,7 @@ def check_prefix_kernel(dev, gen, results) -> None:
     from repro_torch.sched import pack_coefs
 
     for b, u in [(FLEET_B, FLEET_U), (1, U_WORKERS), (5, 1000), (2, 8193),
-                 (FLEET_B, 100), (1, 3), (300, 3000)]:
+                 (FLEET_B, 100), (1, 3), (300, 3000), (SERVE_B, SERVE_U)]:
         h = torch.randn(b, u, generator=gen, device=dev).abs() + 1e-3
         bp = fleet_problem(h, dev)
         caps = bp.caps()
@@ -646,6 +664,14 @@ def check_prefix_kernel(dev, gen, results) -> None:
         if (b, u) == (1, U_WORKERS):   # the greedy round's launch
             results["prefix_eval"]["ms_greedy"] = time_ms(
                 lambda: ops.prefix_eval(caps_s, k_s, coefs))
+        if (b, u) == (SERVE_B, SERVE_U):   # the 100k-cell service's bucket
+            r = results["prefix_eval"]
+            r["ms_serve_b131072_u16"] = time_ms(
+                lambda: ops.prefix_eval(caps_s, k_s, coefs))
+            r["plain_ms_serve_b131072_u16"] = time_ms(
+                lambda: ref.prefix_eval_ref(caps_s, k_s, coefs))
+            r["bound_ms_serve_b131072_u16"] = bound(
+                4 * (3 * b * u + 8 * b), 11 * b * u)[0]
         log(f"K7 prefix_eval ok at B={b} U={u}: R exact{repeat}")
         if (b, u) == (FLEET_B, FLEET_U):
             results["prefix_eval"] = dict(
@@ -1497,6 +1523,365 @@ def run_admm_fleet(dev) -> None:
                     for c in np.unique(chunks)))
 
 
+# -- phase 8 ------------------------------------------------------------------
+
+# benchmarks/ablations.py:19-26, the ablate/obcsaa_ef arm: §V geometry,
+# BIHT 25, U = 10 x K = 1000, seeds 0 and 1; 80 rounds cut to 20
+EF_SEEDS = [0, 1]
+# the EF round selects its top-κ with the plain sort (the reference calls
+# no kernel there) and compresses that presparsified: no compress K1
+EF_PER_ROUND = {"topk_select": 1 + SWEEP_ITERS, "cs_project": 1,
+                "cs_project_resid": SWEEP_ITERS,
+                "backproject": 1 + SWEEP_ITERS}
+# benchmarks/engine_bench.py:249-252's decoder: fixed-step IHT at τ = 0.25,
+# warm-started, through K3 (residual epilogue), K4 and K1 each iteration
+WARM_PER_ROUND = {"topk_select": SWEEP_ITERS, "cs_project": 1,
+                  "cs_project_resid": SWEEP_ITERS,
+                  "backproject": SWEEP_ITERS}
+# benchmarks/serve_bench.py:46-52 and :148-155
+SERVE_CORR, SERVE_THRESHOLD, SERVE_FRAC = 0.999, 0.05, 0.5
+SERVE_WARMUP, SERVE_TICKS = 2, 8
+# (row, cells, scheduler, ADMM dual warm start); the cold-dual 10k row is
+# the same service with ``warm_duals=False`` (the CLI's --no-warm-duals)
+SERVE_ROWS = (("serve/slo-10k-admm", 10_000, "admm_batched", True),
+              ("serve/slo-10k-admm-cold-duals", 10_000, "admm_batched",
+               False),
+              ("serve/slo-100k-greedy", 100_000, "greedy_batched", True))
+
+
+def sweep_diffs(x: dict, y: dict) -> list:
+    """What differs between two ``run_sweep`` results, bit for bit: the
+    stat and eval streams, and every leaf of every arm's carry."""
+    from repro_torch import tree
+    from repro_torch.engine.state import with_generator_state
+    from repro_torch.theory import ErrorBudget
+    keys = ("n_scheduled", "b_t", "rt_bound", "eval_rounds", "loss",
+            "accuracy")
+    bad = [k for k in keys if (k in x) != (k in y)
+           or (k in x and not np.array_equal(x[k], y[k]))]
+    bad += [f"budget.{f}" for f, a, b in zip(ErrorBudget._fields,
+                                             x["budget"], y["budget"])
+            if not np.array_equal(a, b)]
+    for a, (sx, sy) in enumerate(zip(x["state"], y["state"])):
+        lx, ly = (tree.leaves(with_generator_state(s)) for s in (sx, sy))
+        if len(lx) != len(ly) or not all(
+                torch.equal(p.cpu(), q.cpu()) for p, q in zip(lx, ly)):
+            bad.append(f"carry of arm {a}")
+    return bad
+
+
+def scan_host_pair(dev, task: Task, label: str, per_round: dict,
+                   cfg_kw: dict, ob_kw: dict, optimizer=None) -> dict:
+    """One phase-8 configuration: ``run_sweep`` over the EF seeds x 20
+    rounds in scan (the CUDA graph) and host mode, equal bit for bit in
+    every stat and every leaf of the carry (generator state included:
+    a generator registered with the graphs reports the replays' Philox
+    offset), the loss falling in every arm, each mode launching
+    ``per_round`` a round; then the steady ms per arm-round of both, in
+    turns. Returns the launch counts of the scan run and the times."""
+    from repro_torch import tree
+    from repro_torch.engine import EngineRun, FLConfig, RoundGraph, make_arms
+    from repro_torch.engine.state import arm_at
+    from repro_torch.kernels import build
+    from repro_torch.optim import make
+
+    ob = task.obcsaa(biht_iters=SWEEP_ITERS, **ob_kw)
+    A, R, W = len(EF_SEEDS), SWEEP_ROUNDS, RoundGraph.WARMUP
+    runs, outs, counts, secs = {}, {}, {}, {}
+    for mode in ("scan", "host"):
+        cfg = FLConfig(aggregator="obcsaa", learning_rate=0.1, rounds=R,
+                       eval_every=SWEEP_EVAL, seed=0, mode=mode, obcsaa=ob,
+                       error_feedback=True, **cfg_kw)
+        opt = make(optimizer[0], **optimizer[1]) if optimizer else None
+        runs[mode] = EngineRun(cfg, task.loss_fn, task.params0, task.data,
+                               task.k_weights(), eval_fn=task.eval_fn,
+                               optimizer=opt, device=dev)
+        arms = make_arms(cfg, seeds=EF_SEEDS)
+        torch.cuda.synchronize()
+        build.reset_launch_counts()
+        t0 = time.perf_counter()
+        outs[mode] = runs[mode].run_sweep(arms)
+        torch.cuda.synchronize()
+        secs[mode] = time.perf_counter() - t0
+        counts[mode] = build.launch_counts()
+    sc, ho = outs["scan"], outs["host"]
+    bad = sweep_diffs(sc, ho)
+    if bad:
+        fail(f"{label}: scan (CUDA graph) differs from host in {bad}")
+    st = sc["state"][0]
+    if float(st.residual.abs().sum()) == 0:
+        fail(f"{label}: the EF residual stayed zero")
+    if st.decode_x0 is not None and float(st.decode_x0.abs().sum()) == 0:
+        fail(f"{label}: the decoder's warm start stayed zero")
+    if optimizer and not any(float(x.abs().sum()) > 0
+                             for x in tree.leaves(st.opt_state)):
+        fail(f"{label}: the optimizer state stayed zero")
+    if not np.isfinite(sc["rt_bound"]).all():
+        fail(f"{label}: rt_bound not finite")
+    if not (sc["loss"][:, -1] < task.loss0).all():
+        fail(f"{label}: loss did not fall in every arm ({task.loss0} -> "
+             f"{sc['loss'][:, -1].tolist()})")
+    want = {k: per_round.get(k, 0) for k in counts["scan"]}
+    for entry in runs["scan"].capture_log:
+        if entry["captured"] != want:
+            fail(f"{label}: a replay launches {entry['captured']}, an eager"
+                 f" round {want}")
+    expect_counts(f"{label} host", counts["host"], per_round, A * R)
+    expect_counts(f"{label} scan (warm-up + replays)", counts["scan"],
+                  per_round, A * (W + R))
+    log(f"{label}: scan equals host bit for bit over {A} arms x {R} rounds "
+        f"(stats, loss, and every carry leaf: params, opt_state, fade, β, "
+        f"decode_x0, residual, generator state); loss {task.loss0:.4f} -> "
+        + ", ".join(f"{x:.4f}" for x in sc["loss"][:, -1])
+        + f"; accuracy " + ", ".join(f"{x:.4f}" for x in
+                                     sc["accuracy"][:, -1])
+        + f"; n_scheduled {sc['n_scheduled'][0].tolist()}")
+    log(f"{label}: whole sweep (captures included) {secs['scan'] * 1e3:.1f}"
+        f" ms scan, {secs['host'] * 1e3:.1f} ms host")
+
+    steady = {}
+    arms = make_arms(runs["scan"].cfg, seeds=EF_SEEDS)
+    for mode, run in runs.items():
+        state, arm = run.init(arm_at(arms, 0))
+        state, _ = run.run_chunk(state, arm, 0, 1)    # scan: the capture
+        steady[mode] = [run, state, arm]
+
+    def chunk(mode, n):
+        run, state, arm = steady[mode]
+        steady[mode][1], _ = run.run_chunk(state, arm, 0, n)
+
+    times = {"scan": [], "host": []}
+    for _ in range(3):      # in turns: scan, host, host, scan
+        for mode in ("scan", "host", "host", "scan"):
+            times[mode] += [t / 10 for t in host_ms(lambda: chunk(mode, 10),
+                                                    1)]
+    ms = {m: median(v) for m, v in times.items()}
+    log(f"{label}: steady ms per arm-round (chunks of 10, host clock, "
+        f"median of {len(times['scan'])}): scan {ms['scan']:.3f}, host "
+        f"{ms['host']:.3f}")
+    for mode in ("scan", "host"):
+        run, state, arm = steady[mode]
+        run.release(state, arm)
+    return {"counts": counts["scan"], "ms": ms}
+
+
+def run_ef_phase(dev, task: Task) -> dict:
+    """Phase 8a: error feedback at §V width (benchmarks/ablations.py's
+    ablate/obcsaa_ef arm, 20 rounds of its 80), scheduler ``all`` with
+    SGD, then ``greedy_batched`` (through K7) with momentum (β = 0.9) and
+    with Adam: scan ≡ host bit for bit each time."""
+    from repro_torch.sched import SchedConfig
+    greedy = {"scheduler": "greedy_batched",
+              "sched_cfg": SchedConfig(use_kernel=True)}
+    per_greedy = dict(EF_PER_ROUND, prefix_eval=1)
+    out = {"ef_all": scan_host_pair(dev, task, "ef all", EF_PER_ROUND, {},
+                                    {})}
+    out["ef_momentum"] = scan_host_pair(
+        dev, task, "ef greedy momentum", per_greedy, greedy, {},
+        ("momentum", {"beta": 0.9}))
+    out["ef_adam"] = scan_host_pair(dev, task, "ef greedy adam", per_greedy,
+                                    greedy, {}, ("adam", {}))
+    return out
+
+
+def run_warm_phase(dev, task: Task) -> dict:
+    """Phase 8b: warm-start IHT at §V width (engine_bench.py's decoder:
+    iht, τ = 0.25, warm_start; with EF and ``admm_batched``), validated
+    (``decode_validate="raise"``: an unstable τ·λ̂ fails here)."""
+    return scan_host_pair(dev, task, "warm iht admm", WARM_PER_ROUND,
+                          {"scheduler": "admm_batched"},
+                          dict(recon_alg="iht", recon_tau=0.25,
+                               warm_start=True, decode_validate="raise"))
+
+
+def run_resume_phase(dev, task: Task) -> None:
+    """Phase 8c: 8a's Adam arms in scan mode with ``ckpt_dir``; the steps
+    past the middle boundary deleted and the sweep resumed in a fresh
+    run: its final carry of every arm (params, opt_state, fade, β,
+    decode_x0, residual, generator state) and its stat tail equal the
+    uninterrupted run's bit for bit. Prints the save ms per boundary and
+    the peak device memory of the chunk-major run (every arm's graph
+    alive at once)."""
+    import shutil
+    import tempfile
+    from repro_torch import checkpoint
+    from repro_torch.engine import EngineRun, FLConfig, make_arms
+    from repro_torch.optim import make
+    from repro_torch.sched import SchedConfig
+
+    ob = task.obcsaa(biht_iters=SWEEP_ITERS)
+    cfg = FLConfig(aggregator="obcsaa", learning_rate=0.1,
+                   rounds=SWEEP_ROUNDS, eval_every=SWEEP_EVAL, seed=0,
+                   mode="scan", obcsaa=ob, error_feedback=True,
+                   scheduler="greedy_batched",
+                   sched_cfg=SchedConfig(use_kernel=True))
+    arms = make_arms(cfg, seeds=EF_SEEDS)
+
+    def run():
+        return EngineRun(cfg, task.loss_fn, task.params0, task.data,
+                         task.k_weights(), eval_fn=task.eval_fn,
+                         optimizer=make("adam"), device=dev)
+
+    from repro_torch.kernels.build import BUILD_DIR
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as d:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        full_run = run()
+        full = full_run.run_sweep(arms, ckpt_dir=d)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 20
+        steps = sorted(int(n.split("_")[1]) for n in os.listdir(d))
+        mid = steps[(len(steps) - 1) // 2]
+        for n in steps:
+            if n > mid:
+                shutil.rmtree(checkpoint.step_dir(d, n))
+        res = run().run_sweep(arms, ckpt_dir=d, resume=True)
+    if res["t_start"] != mid:
+        fail(f"resume: started at {res['t_start']}, the kept step is {mid}")
+    tail = {k: (v[:, -res[k].shape[1]:] if k in ("n_scheduled", "b_t",
+                                                 "rt_bound", "loss",
+                                                 "accuracy") else v)
+            for k, v in full.items()}
+    tail["eval_rounds"] = full["eval_rounds"][-len(res["eval_rounds"]):]
+    tail["budget"] = type(full["budget"])(*(
+        b[:, -res["n_scheduled"].shape[1]:] for b in full["budget"]))
+    bad = sweep_diffs(res, tail)
+    if bad:
+        fail(f"resume: the resumed sweep differs from the uninterrupted one"
+             f" in {bad}")
+    log(f"resume: steps saved {steps}, kept up to {mid}, resumed at "
+        f"t={res['t_start']}: final carry of {len(EF_SEEDS)} arms (params, "
+        f"opt_state, fade, β, decode_x0, residual, generator state) and "
+        f"the stat tail equal the uninterrupted run bit for bit; save ms "
+        f"per boundary " + ", ".join(f"{x * 1e3:.1f}"
+                                     for x in full_run.save_s)
+        + f"; peak device memory {peak:.1f} MiB with {len(EF_SEEDS)} "
+        f"arms' graphs alive")
+
+
+def serve_cfg(cells, scheduler, **kw):
+    from repro_torch.sched import ScenarioConfig, SchedConfig
+    from repro_torch.serve import ServeConfig
+    base = dict(scenario=ScenarioConfig(cells=cells, workers=SERVE_U,
+                                        corr=SERVE_CORR),
+                scheduler=scheduler, stale_threshold=SERVE_THRESHOLD,
+                update_frac=SERVE_FRAC,
+                sched_cfg=SchedConfig(use_kernel=True))
+    base.update(kw)
+    return ServeConfig(**base)
+
+
+def run_serve_phase(dev) -> dict:
+    """Phase 8d: the service (benchmarks/serve_bench.py:81-155): the cache
+    parity gate (384 cells, threshold 0, update_frac 0.35, 6 ticks, both
+    solvers: cache ≡ ``fresh_solve`` bit for bit), the warm parity gate
+    (B = 256: β cold ≡ β warm bit for bit), then the SLO rows
+    serve/slo-10k-admm and serve/slo-100k-greedy (2 warm-up ticks, 8
+    timed), and serve/slo-10k-admm once more without the dual warm start.
+    Returns the launch counts of the timed 100k-cell ticks."""
+    from repro_torch.core.channel import draw_cn, draw_fades
+    from repro_torch.kernels import build
+    from repro_torch.sched import (BatchedProblem, admm_solve_batched,
+                                   greedy_solve_batched, take)
+    from repro_torch.serve import (fresh_solve, init_service, movement,
+                                   run_ticks, slo_summary)
+    from repro_torch.serve.service import _problem as problem_of
+    from repro_torch.theory import AnalysisConstants
+
+    for scheduler in ("admm_batched", "greedy_batched"):
+        cfg = serve_cfg(384, scheduler, stale_threshold=0.0,
+                        update_frac=0.35)
+        st, stats, _ = run_ticks(cfg, init_service(cfg, 1, device=dev), 6)
+        beta, b_t, rt = fresh_solve(cfg, st)
+        if not (torch.equal(beta, st.beta) and torch.equal(b_t, st.b_t)
+                and torch.equal(rt, st.rt)):
+            fail(f"serve cache parity ({scheduler}): the cache differs from "
+                 "a fresh full-fleet solve")
+        log(f"serve cache parity ({scheduler}, 384 cells, 6 ticks): cache "
+            f"equals fresh_solve bit for bit; hit rate after the cold tick "
+            f"{np.mean([s.hit_rate for s in stats[1:]]):.3f}")
+
+    const = AnalysisConstants(rho1=200.0, G=1.0)
+
+    def problem(g):
+        h = torch.clamp(g.abs().to(torch.float32), min=1e-3)
+        return BatchedProblem.from_arrays(h, 3000.0, 10.0, 1e-4, D=50890,
+                                          S=1000, kappa=1000, const=const)
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+    g0 = draw_cn(gen, (256, SERVE_U), dev)
+    *_, info0 = admm_solve_batched(problem(g0), return_duals=True)
+    _, g1 = draw_fades(gen, rho=SERVE_CORR, prev=g0, clamp=False)
+    beta_c, _, _, ic = admm_solve_batched(problem(g1), return_duals=True)
+    beta_w, _, _, iw = admm_solve_batched(problem(g1), duals=info0.duals,
+                                          return_duals=True)
+    if not torch.equal(beta_c, beta_w):
+        fail("serve warm parity: the warm-started β differs from the cold β")
+    log(f"serve warm parity (B=256, U={SERVE_U}): β warm equals β cold bit "
+        f"for bit; mean outer iterations cold "
+        f"{float(ic.iters.float().mean()):.2f}, warm "
+        f"{float(iw.iters.float().mean()):.2f}")
+
+    counts = {}
+    for name, cells, scheduler, warm in SERVE_ROWS:
+        cfg = serve_cfg(cells, scheduler, warm_duals=warm)
+        state = init_service(cfg, 0, device=dev)
+        state, _, _ = run_ticks(cfg, state, SERVE_WARMUP)
+        torch.cuda.synchronize()
+        build.reset_launch_counts()
+        state, stats, lat = run_ticks(cfg, state, SERVE_TICKS, timed=True)
+        counts[name] = build.launch_counts()
+        want = sum(1 for s in stats if s.n_dirty) \
+            if scheduler == "greedy_batched" else 0
+        expect_counts(name, counts[name], {"prefix_eval": 1}
+                      if want else {}, want)
+        slo = slo_summary(stats, lat, cells)
+        mov = median(host_ms(lambda: movement(cfg, state), 10))
+        # the bucketed solve alone, on a bucket of the last tick's size;
+        # for ADMM cold and seeded with the cells' duals, as a tick does
+        idx = torch.arange(stats[-1].n_solved, device=dev) % cells
+        prob = problem_of(cfg, state.h_seen[idx])
+        if scheduler == "admm_batched":
+            solves = {"cold": lambda: admm_solve_batched(
+                prob, cfg.sched_cfg, return_duals=True)}
+            if warm:
+                duals = take(state.duals, idx)
+                solves["warm"] = lambda: admm_solve_batched(
+                    prob, cfg.sched_cfg, duals=duals, return_duals=True)
+            solve_ms = "; ".join(
+                f"{k} {median(host_ms(fn, 5)):.3f} ms, outer iterations "
+                f"{dist(fn()[3].iters.cpu().numpy())}"
+                for k, fn in solves.items())
+        else:
+            ms = median(host_ms(
+                lambda: greedy_solve_batched(prob, cfg.sched_cfg), 5))
+            solve_ms = f"{ms:.3f} ms"
+        wall, busy, events, _ = device_busy(
+            lambda: run_ticks(cfg, state, 1))
+        if not (torch.isfinite(state.rt).all()
+                and bool((state.beta.sum(-1) >= 1).all())):
+            fail(f"{name}: a served schedule is empty or R_t not finite")
+        buckets = sorted({s.n_solved for s in stats})
+        log(f"{name}: {cells} cells x {SERVE_U}, rho={SERVE_CORR}, "
+            f"threshold {SERVE_THRESHOLD}, update_frac {SERVE_FRAC}, "
+            f"{SERVE_TICKS} timed ticks: p50 {slo['p50_ms']:.3f} ms, p99 "
+            f"{slo['p99_ms']:.3f} ms, mean {slo['mean_ms']:.3f} ms; hit "
+            f"rate {slo['hit_rate']:.3f}; solved/s {slo['solved_per_s']:.0f}"
+            f", served/s {slo['served_per_s']:.0f}; buckets {buckets}; "
+            f"movement (the host read of the dirty set) {mov:.3f} ms "
+            f"(median of 10, host clock); the solve alone at the last "
+            f"bucket (median of 5, host clock): {solve_ms}; "
+            f"profiler, one tick: wall {wall:.3f} ms, device busy "
+            f"{busy:.3f} ms ({100 * busy / wall:.1f}%)"
+            + ("; mean ADMM iterations " + ", ".join(
+                f"{s.mean_iters:.1f}" for s in stats)
+               if scheduler == "admm_batched" else ""))
+        for e in sorted(events, key=lambda e: -e.self_device_time_total)[:6]:
+            log(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:5d}x"
+                f"  {e.key[:70]}")
+    return counts["serve/slo-100k-greedy"]
+
+
 SOURCES = {
     "topk_select": ("src/repro_torch/kernels/csrc/topk_select.cu",
                     "src/repro/kernels/topk_select.py:23"),
@@ -1550,6 +1935,12 @@ def main() -> None:
         dev, Task(dev, workers=FIG3_U, samples=FIG3_K))
     run_host_schedulers(dev)
     run_admm_fleet(dev)
+    fig3 = Task(dev, workers=FIG3_U, samples=FIG3_K)
+    for name, r in run_ef_phase(dev, fig3).items():
+        paths[name] = r["counts"]
+    paths["warm_iht"] = run_warm_phase(dev, fig3)["counts"]
+    run_resume_phase(dev, fig3)
+    paths["serve_100k"] = run_serve_phase(dev)
     kernels = []
     for name, r in results.items():
         source, replaces = SOURCES[name]
@@ -1569,7 +1960,12 @@ def main() -> None:
                 "cold_ms_compress_n130": r["cold_ms_compress"]}
                if "ms_compress" in r else {}),
             **({"cumsum_only_ms": r["cumsum_only_ms"],
-                "ms_greedy_b1_u10": r["ms_greedy"]}
+                "ms_greedy_b1_u10": r["ms_greedy"],
+                "ms_serve_b131072_u16": r["ms_serve_b131072_u16"],
+                "plain_ms_serve_b131072_u16":
+                    r["plain_ms_serve_b131072_u16"],
+                "bound_ms_serve_b131072_u16":
+                    r["bound_ms_serve_b131072_u16"]}
                if name == "prefix_eval" else {})})
     print(json.dumps({"kernels": kernels}))
     print(card)

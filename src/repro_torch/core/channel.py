@@ -13,6 +13,7 @@ from __future__ import annotations
 import math
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
@@ -55,8 +56,10 @@ def draw_fades(generator: Optional[torch.Generator] = None, shape=None, *,
     if prev is None:
         g = w
     else:
-        innov = math.sqrt(max(1.0 - float(rho) ** 2, 0.0))
-        g = float(rho) * prev + innov * w
+        # √(1−ρ²) in f32, as the reference computes it: g is then its bits
+        r = np.float32(rho)
+        innov = np.sqrt(np.maximum(np.float32(1.0) - r * r, np.float32(0)))
+        g = float(r) * prev + float(innov) * w
     g = g.to(torch.complex64)
     h = g.abs().to(torch.float32)
     if clamp:

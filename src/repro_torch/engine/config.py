@@ -1,9 +1,8 @@
-"""FL experiment configuration; port of ``repro/engine/config.py`` for the
-slice the port runs: aggregators ``obcsaa``, ``topk_aa`` and ``perfect``
-under every scheduler of ``sched/registry.py``, in ``scan`` or ``host``
-mode, with or without the ADMM dual warm start. Error feedback, warm-start
-decoding and checkpoints are not ported yet; asking for them raises
-``NotImplementedError`` instead of running something else."""
+"""FL experiment configuration; port of ``repro/engine/config.py``:
+aggregators ``obcsaa``, ``topk_aa`` and ``perfect`` under every scheduler
+of ``sched/registry.py``, in ``scan`` or ``host`` mode, with or without
+the ADMM dual warm start, error feedback, warm-start decoding
+(``OBCSAAConfig.warm_start``) and sweep checkpoints."""
 from __future__ import annotations
 
 from dataclasses import dataclass, field
@@ -37,6 +36,9 @@ class FLConfig:
     const: AnalysisConstants = field(default_factory=AnalysisConstants)
     # topk_aa baseline: the κ budget over the FULL vector
     topk_dense: int = 1000
+    # per-worker error feedback (Stich et al., the paper's ref. [37]): each
+    # worker adds the residual of its top-κ sparsification to the next
+    # round's gradient before compression
     error_feedback: bool = False
     # Fading temporal correlation ρ of the Gauss-Markov recursion
     # (core/channel.py); 0 is the paper's i.i.d. block fading
@@ -47,6 +49,8 @@ class FLConfig:
     mode: str = "auto"
     # Solver knobs of the batched P2 schedulers (None -> defaults)
     sched_cfg: Optional[SchedConfig] = None
+    # run_sweep saves a SweepCheckpoint here at every chunk boundary; with
+    # ckpt_resume it restores the latest step and continues bit for bit
     ckpt_dir: Optional[str] = None
     ckpt_resume: bool = False
     # carry the ADMM multipliers of round t's schedule to seed round t+1's
@@ -67,13 +71,6 @@ class FLConfig:
                              f"{SCHEDULERS}")
         if self.mode not in MODES:
             raise ValueError(f"mode {self.mode!r}; one of {MODES}")
-        for name, on in (("warm-start decoding across rounds",
-                          self.obcsaa.warm_start),
-                         ("error feedback", self.error_feedback),
-                         ("checkpoints (ckpt_dir / ckpt_resume)",
-                          self.ckpt_dir is not None or self.ckpt_resume)):
-            if on:
-                raise NotImplementedError(f"{name} is not ported yet")
 
     def engine_capable(self) -> bool:
         """Does every per-round decision run inside the round itself?"""

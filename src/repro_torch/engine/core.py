@@ -11,10 +11,12 @@ over the round functions, as the reference does:
                            ``admm_batched``/``admm_batched_jit`` (Algorithm
                            2 in its in-round form, sched/admm.py), with the
                            dual warm start when ``sched_warm_duals``
-- ``round_given_schedule`` local gradients (eq. 3), compress + MAC +
-                           decode (eq. 6-13), the top-κ analog baseline or
-                           the perfect mean, the SGD update (eq. 14), and
-                           the Theorem-1 budget of the round (eq. 19)
+- ``round_given_schedule`` local gradients (eq. 3), the error-feedback
+                           split (``ef_split``), compress + MAC + decode
+                           (eq. 6-13) with the decoder's warm start, the
+                           top-κ analog baseline or the perfect mean, the
+                           optimizer's update (eq. 14), and the Theorem-1
+                           budget of the round (eq. 19)
 - ``full_round``           fade draw + schedule + the round
 
 σ², P^Max and the learning rate come from the arm (``engine/state.Arms``)
@@ -26,6 +28,13 @@ Random draws come from the carry's ``torch.Generator``, in order: the
 initial fade, then per round the fade innovation and the AWGN. Both can
 be passed in instead (``fade_w=``, ``noise=``), which is how tests replay
 the reference's ``fold_in(key, t)`` draws.
+
+With error feedback under ``obcsaa`` the round is the reference's fused
+one: the EF split's top-κ (the plain ``topk_sparsify``, or its bisection
+under ``spmd_topk``: the reference calls no kernel there either) is what
+the workers compress, ``presparsified``, so the compression launches no
+``topk_select``. The warm start's reset on a schedule change is a device
+``where``, not a host read.
 """
 from __future__ import annotations
 
@@ -36,10 +45,12 @@ import torch
 
 from repro_torch.core import channel as chan
 from repro_torch.core.obcsaa import OBCSAAConfig, simulate_round
-from repro_torch.core.sparsify import flatten_pytree, topk_sparsify
+from repro_torch.core.sparsify import (flatten_pytree, topk_sparsify,
+                                       topk_sparsify_bisect)
 from repro_torch.decode.registry import resolve_validate
 from repro_torch.engine.config import ENGINE_SCHEDULERS, FLConfig
 from repro_torch.engine.state import Arms, EngineState, RoundStats
+from repro_torch.optim.optimizers import ef_step
 from repro_torch.sched.admm import AdmmDuals, admm_solve_batched_jit
 from repro_torch.sched.greedy import greedy_solve_batched
 from repro_torch.sched.problem import BatchedProblem
@@ -130,7 +141,10 @@ def build_engine(cfg: FLConfig, loss_fn: Callable, opt, D: int, U: int,
     and the PS; the round runs on its device."""
     ob = _resolve_decoder(cfg.obcsaa, phi)
     device = phi.device
-    _, s_eff, kappa_eff = budget_geometry(ob, D)
+    n_chunks, s_eff, kappa_eff = budget_geometry(ob, D)
+    pad = n_chunks * ob.chunk - D
+    warm = cfg.aggregator == "obcsaa" and ob.warm_start
+    ef = cfg.error_feedback
     track_bound = cfg.aggregator == "obcsaa"    # eq. 19 models obcsaa
     probe = cfg.probe_agg_error
     all_in = torch.ones((U,), device=device)    # β of the perfect mean
@@ -148,6 +162,11 @@ def build_engine(cfg: FLConfig, loss_fn: Callable, opt, D: int, U: int,
         return EngineState(params=params, opt_state=opt.init(params),
                            fade=fade0,
                            prev_beta=-torch.ones((U,), device=device),
+                           decode_x0=torch.zeros((n_chunks, ob.chunk),
+                                                 device=device)
+                           if warm else None,
+                           residual=torch.zeros((U, D), device=device)
+                           if ef else None,
                            generator=gen,
                            sched_duals=AdmmDuals.zeros((U,), device=device)
                            if warm_duals else None)
@@ -184,6 +203,29 @@ def build_engine(cfg: FLConfig, loss_fn: Callable, opt, D: int, U: int,
                 "host path, FederatedTrainer in mode='host'")
         return beta[0], b_t[0], duals_out
 
+    def _ef_sparse_approx(corrected):
+        """approx_fn of ``ef_step``: per-chunk top-κ of the padded corrected
+        gradient, by ``topk_sparsify`` or, under ``spmd_topk``, its
+        bisection. Returns (sparse (U, D_pad), its unpadded view): the
+        residual keeps exactly what the top-κ dropped."""
+        gp = torch.nn.functional.pad(corrected, (0, pad))
+        gc = gp.reshape(gp.shape[0], -1, ob.chunk)
+        if ob.spmd_topk:
+            sp, _ = topk_sparsify_bisect(gc, ob.topk, iters=ob.bisect_iters)
+        else:
+            sp, _ = topk_sparsify(gc, ob.topk)
+        sp = sp.reshape(gp.shape)
+        return sp, sp[:, :D]
+
+    def ef_split(grads, residual):
+        """EF correction and residual update through ``optim.ef_step``.
+        Returns (corrected, residual', sparse (U, D_pad)): the sparse
+        vector is sparse_κ of what obcsaa transmits, so the compression
+        takes it as it is instead of selecting again."""
+        sp, new_residual, corrected = ef_step(grads, residual,
+                                              _ef_sparse_approx)
+        return corrected, new_residual, sp
+
     def round_given_schedule(state: EngineState, arm: Arms, worker_data,
                              k_weights, h, fade, beta, b_t,
                              noise: Optional[torch.Tensor] = None,
@@ -191,6 +233,18 @@ def build_engine(cfg: FLConfig, loss_fn: Callable, opt, D: int, U: int,
         """Eq. 3 → 6-7 → 10 → 13 → 43 → 14 with the schedule decided;
         ``sched_duals`` (the solve's exit multipliers) go into the carry."""
         grads = stacked_grads(loss_fn, state.params, worker_data)
+        residual = state.residual
+        presparse = False
+        if ef:
+            grads, residual, sparse = ef_split(grads, residual)
+        dense = grads          # the probe's target: before compression
+        if ef and cfg.aggregator == "obcsaa":
+            grads, presparse = sparse, True
+        x0 = state.decode_x0
+        if warm:
+            # a schedule change resets the warm start, on the device
+            changed = torch.any(beta != state.prev_beta)
+            x0 = torch.where(changed, torch.zeros_like(x0), x0)
         if cfg.aggregator == "perfect":
             ghat = perfect_aggregate(grads, k_weights, beta)
         elif cfg.aggregator == "topk_aa":
@@ -198,13 +252,17 @@ def build_engine(cfg: FLConfig, loss_fn: Callable, opt, D: int, U: int,
                                      cfg.topk_dense, arm.noise_var,
                                      generator=state.generator, noise=noise)
         else:
-            ghat, _ = simulate_round(ob, grads, k_weights, beta, b_t, h,
-                                     phi=phi, generator=state.generator,
-                                     noise=noise, noise_var=arm.noise_var)
+            ghat, diag = simulate_round(
+                ob, grads, k_weights, beta, b_t, h, phi=phi,
+                generator=state.generator, noise=noise, decode_x0=x0,
+                noise_var=arm.noise_var, presparsified=presparse)
+            if warm:
+                x0 = diag["decode_xhat"]
         params, opt_state = opt.update(unflatten(ghat[:D]), state.opt_state,
                                        state.params, arm.lr)
         new_state = EngineState(params=params, opt_state=opt_state,
-                                fade=fade, prev_beta=beta,
+                                fade=fade, prev_beta=beta, decode_x0=x0,
+                                residual=residual,
                                 generator=state.generator,
                                 sched_duals=sched_duals)
         budget = None
@@ -214,7 +272,7 @@ def build_engine(cfg: FLConfig, loss_fn: Callable, opt, D: int, U: int,
                                   noise_var=arm.noise_var)
         agg_err = None
         if probe:
-            ideal = perfect_aggregate(grads, k_weights, beta)
+            ideal = perfect_aggregate(dense, k_weights, beta)
             agg_err = torch.sum((ghat[:D] - ideal) ** 2)
         stats = RoundStats(n_scheduled=torch.sum(beta).to(torch.int32),
                            b_t=torch.as_tensor(b_t, dtype=torch.float32),

@@ -2,8 +2,11 @@
 the port's counterpart of the reference's ``lax.scan`` chunk
 (``repro/engine/runner.py``'s ``_chunk_fn``).
 
-``RoundGraph`` owns the arm's carry as static tensors (parameters, fade
-state, previous β, the ADMM multipliers under ``sched_warm_duals``) and a
+``RoundGraph`` owns the arm's carry as static tensors — every leaf of the
+``EngineState`` but the generator, walked by ``repro_torch.tree``:
+parameters, optimizer state (momentum's moments; Adam's moments and its
+step counter, which the graph increments), fade state, previous β, the
+decoder's warm start, the EF residuals and the ADMM multipliers — and a
 stats buffer on the card. Its capture runs ``EngineFns.full_round`` on
 the carry, copies the new carry over the old in place, and writes the
 round's stats into the next row of the buffer (a slot counter on the
@@ -45,10 +48,9 @@ from typing import Dict, List
 
 import torch
 
-from repro_torch import control
+from repro_torch import control, tree
 from repro_torch.engine.state import Arms, EngineState, RoundStats
 from repro_torch.kernels import build
-from repro_torch.sched.admm import AdmmDuals
 from repro_torch.theory.bounds import ErrorBudget
 
 
@@ -64,21 +66,15 @@ class RoundGraph:
 
     def __init__(self, full_round, state: EngineState, arm: Arms,
                  worker_data, k_weights):
-        if state.opt_state != ():
-            raise NotImplementedError(
-                "RoundGraph carries the parameters, the fade state and β; "
-                "an optimizer with state (momentum, Adam) is not ported")
         self.device = state.fade.device
         self._full_round = full_round
         self.arm = arm
         self.worker_data = worker_data
         self.k_weights = k_weights
         self.generator = state.generator
-        self.params = {k: v.detach().clone() for k, v in state.params.items()}
-        self.fade = state.fade.clone()
-        self.prev_beta = state.prev_beta.clone()
-        self.duals = None if state.sched_duals is None else AdmmDuals(
-            *(d.clone() for d in state.sched_duals))
+        leaves, self._treedef = tree.flatten(
+            state._replace(generator=None))
+        self._leaves = [t.detach().clone() for t in leaves]
         self.slot = torch.zeros((1,), dtype=torch.int64, device=self.device)
         self.buf = None         # (CAP, n_stats) f32, made in the warm-up
         self.has_budget = self.has_err = False
@@ -91,20 +87,15 @@ class RoundGraph:
 
     # -- the carry ---------------------------------------------------------
 
-    def _carry(self) -> List[torch.Tensor]:
-        return [*self.params.values(), self.fade, self.prev_beta,
-                *(self.duals or ())]
-
     def state(self) -> EngineState:
         """The carry as an ``EngineState``: these tensors are the graph's
         static buffers, which every replay overwrites in place."""
-        return EngineState(params=self.params, opt_state=(), fade=self.fade,
-                           prev_beta=self.prev_beta,
-                           generator=self.generator, sched_duals=self.duals)
+        return tree.unflatten(self._treedef, self._leaves)._replace(
+            generator=self.generator)
 
     def load(self, state: EngineState) -> None:
         """Copy a carry into the static buffers (no-op for our own)."""
-        if state.fade is self.fade:
+        if state.fade is self.state().fade:
             return
         if state.generator is not self.generator:
             raise ValueError("RoundGraph.load: the state belongs to another "
@@ -112,11 +103,8 @@ class RoundGraph:
         self._copy_in(state)
 
     def _copy_in(self, state: EngineState) -> None:
-        for k, v in state.params.items():
-            self.params[k].copy_(v)
-        self.fade.copy_(state.fade)
-        self.prev_beta.copy_(state.prev_beta)
-        for dst, src in zip(self.duals or (), state.sched_duals or ()):
+        for dst, src in zip(self._leaves,
+                            tree.leaves(state._replace(generator=None))):
             dst.copy_(src)
 
     # -- one round ---------------------------------------------------------
@@ -140,7 +128,7 @@ class RoundGraph:
         self.slot.add_(1)
 
     def _capture(self) -> None:
-        saved = [t.clone() for t in self._carry()]
+        saved = [t.clone() for t in self._leaves]
         gen_state = self.generator.get_state()
         stream = torch.cuda.Stream(self.device)
         stream.wait_stream(torch.cuda.current_stream(self.device))
@@ -152,7 +140,7 @@ class RoundGraph:
         torch.cuda.synchronize(self.device)
         self.warmup_launches = _diff(build.launch_counts(), before)
         self.warmup_s = time.perf_counter() - t0
-        for dst, src in zip(self._carry(), saved):
+        for dst, src in zip(self._leaves, saved):
             dst.copy_(src)
         # the warm-up made the stats buffer on the capture stream; make
         # the kept one on the caller's, where the replays run

@@ -1,33 +1,46 @@
-"""Rounds in chunks cut at the eval cadence, and sweeps over arms; port of
-``repro/engine/runner.py``.
+"""Rounds in chunks cut at the eval cadence, and sweeps over arms, with
+checkpoint and resume; port of ``repro/engine/runner.py``.
 
 The reference advances a chunk of rounds as one jitted ``lax.scan`` and
 vmaps it over an ``Arms`` grid. Here a chunk is, on the card, the arm's
 round replayed from a CUDA graph (``engine/graph.py``), one replay a
 round, with the stats read back only at the chunk's end; on the CPU, and
 in ``mode="host"``, it is the eager loop over ``EngineFns.full_round``.
-Arms run one after another, each with its own generator.
+Each arm has its own generator. The sweep runs chunk-major — for each
+chunk, every arm — so that at each chunk boundary all A arms stand at the
+same round, which is what a checkpoint holds; each arm keeps its graph
+until the sweep ends. Arms share nothing, so the order changes no bit.
 
 ``run_sweep`` returns the reference's keys: the per-round
-``n_scheduled``/``b_t`` (A, rounds), the Theorem-1 ``budget`` and its
-``rt_bound`` for ``obcsaa``, ``agg_err`` with the probe, the eval streams
-``eval_rounds``/``loss``/``accuracy`` (A, n_evals) with an ``eval_fn``,
-the final ``params`` stacked (A, ...), ``state`` (one ``EngineState`` per
-arm), ``arms`` and ``t_start`` (0: checkpoints are not ported).
+``n_scheduled``/``b_t`` (A, rounds − t_start), the Theorem-1 ``budget``
+and its ``rt_bound`` for ``obcsaa``, ``agg_err`` with the probe, the eval
+streams ``eval_rounds``/``loss``/``accuracy`` (A, n_evals) with an
+``eval_fn``, the final ``params`` stacked (A, ...), ``state`` (one
+``EngineState`` per arm), ``arms`` and ``t_start``.
+
+Checkpoints: with ``ckpt_dir`` a ``SweepCheckpoint`` is saved at every
+chunk boundary (``checkpoint.save``: the carry of every arm stacked, each
+generator's state as a uint8 leaf, the arms, ``t_next``); ``resume``
+restores the latest step, puts each generator back in the state it had,
+and continues bit for bit as the uninterrupted sweep would.
 """
 from __future__ import annotations
 
+import time
 from typing import Callable, Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
 
+from repro_torch import checkpoint, tree
 from repro_torch.core.sparsify import flatten_pytree
 from repro_torch.device import resolve_device
 from repro_torch.engine.core import EngineFns, build_engine
 from repro_torch.engine.graph import RoundGraph
-from repro_torch.engine.state import (Arms, EngineState, RoundStats, arm_at,
-                                      make_arms, n_arms, single_arm)
+from repro_torch.engine.state import (Arms, EngineState, RoundStats,
+                                      SweepCheckpoint, arm_at, make_arms,
+                                      n_arms, single_arm,
+                                      with_generator_state)
 from repro_torch.optim.optimizers import sgd
 from repro_torch.theory.bounds import ErrorBudget
 
@@ -174,6 +187,58 @@ class EngineRun:
             stats.append(st)
         return state, _join(stats)
 
+    # -- checkpoints -------------------------------------------------------
+
+    @staticmethod
+    def _stacked(states: List[EngineState]) -> EngineState:
+        """The arms' carries stacked (A, ...) on the CPU, each generator
+        replaced by its state (a uint8 tensor)."""
+        flats = [tree.flatten(with_generator_state(st)) for st in states]
+        cols = zip(*(leaves for leaves, _ in flats))
+        return tree.unflatten(flats[0][1], [
+            torch.stack([x.detach().cpu() for x in col]) for col in cols])
+
+    def sweep_template(self, arms: Arms) -> SweepCheckpoint:
+        """The shape and dtype template of the sweep checkpoint, on the
+        ``meta`` device (nothing allocated on the card), structurally what
+        ``run_sweep`` saves, so ``checkpoint.restore`` checks it leaf by
+        leaf before touching the carry."""
+        A = n_arms(arms)
+        state, _ = self.init(arm_at(arms, 0) if arms.noise_var.ndim
+                             else arms)
+        flat, treedef = tree.flatten(with_generator_state(state))
+        meta = [torch.empty((A,) + tuple(x.shape), dtype=x.dtype,
+                            device="meta") for x in flat]
+        return SweepCheckpoint(
+            state=tree.unflatten(treedef, meta), arms=arms,
+            t_next=torch.empty((), dtype=torch.int32, device="meta"))
+
+    def _restore_sweep(self, ckpt_dir: str, arms: Arms):
+        """(per-arm states, t_start) from the latest checkpoint step, or
+        None. The saved arms must equal the requested ones bit for bit: a
+        sweep resumed under other seeds, σ², P^Max or learning rates would
+        mix two trajectories."""
+        step = checkpoint.latest_step(ckpt_dir)
+        if step is None:
+            return None
+        ck = checkpoint.restore(ckpt_dir, step, self.sweep_template(arms))
+        for name, saved, want in zip(Arms._fields, ck.arms, arms):
+            if not torch.equal(saved, want.cpu()):
+                raise ValueError(
+                    f"checkpoint {ckpt_dir!r} step {step} was written "
+                    f"under different arms (field {name!r} differs); "
+                    f"resuming would mix trajectories — pass the arms the "
+                    f"sweep was started with")
+        flat, treedef = tree.flatten(ck.state)
+        states = []
+        for a in range(n_arms(arms)):
+            st = tree.unflatten(treedef, [x[a].clone().to(self.device)
+                                          for x in flat])
+            gen = torch.Generator(device=self.device)
+            gen.set_state(st.generator.cpu())   # a view here crashes torch
+            states.append(st._replace(generator=gen))
+        return states, int(ck.t_next)
+
     # -- arms sweep --------------------------------------------------------
 
     def run_sweep(self, arms: Arms, rounds: Optional[int] = None,
@@ -183,59 +248,94 @@ class EngineRun:
                   draws: Optional[Draws] = None) -> Dict:
         """Run every arm for ``rounds`` rounds in chunks cut at the eval
         cadence (``run_chunk``: graph replays in scan mode on the card, the
-        eager loop otherwise). ``draws`` replaces the generators' draws,
-        in ``mode="host"``."""
+        eager loop otherwise), chunk-major. ``ckpt_dir`` (or
+        ``cfg.ckpt_dir``) saves a ``SweepCheckpoint`` at every chunk
+        boundary, with its seconds in ``self.save_s``; ``resume`` (or
+        ``cfg.ckpt_resume``) restores the latest step and continues, the
+        streams then covering [t_start, rounds). ``draws`` replaces the
+        generators' draws, in ``mode="host"``."""
         cfg = self.cfg
-        if ckpt_dir is not None or resume:
-            raise NotImplementedError("run_sweep checkpoints (ckpt_dir / "
-                                      "resume) are not ported yet")
         rounds = rounds or cfg.rounds
         eval_every = eval_every if eval_every is not None \
             else (cfg.eval_every if self.eval_fn else None)
+        ckpt_dir = ckpt_dir if ckpt_dir is not None else cfg.ckpt_dir
+        resume = cfg.ckpt_resume if resume is None else resume
         if draws is not None and self.mode != "host":
             raise ValueError("run_sweep: injected draws replace the "
                              "generators in mode='host' only")
         A = n_arms(arms)
         spans = chunk_spans(rounds, eval_every)
-        states, stats, losses, accs = [], [], [], []
+        states, devarms = [], []
         for a in range(A):
             arm_a = arm_at(arms, a) if arms.noise_var.ndim else arms
             state, arm = self.init(
                 arm_a, fade0_w=None if draws is None else draws.fade0[a])
-            chunks, loss_a, acc_a = [], [], []
-            for t0, n in spans:
-                if draws is None:
-                    state, st = self.run_chunk(state, arm, t0, n)
-                else:
-                    state, st = self._eager_chunk(state, arm, t0, n,
-                                                  draws, a)
-                chunks.append(st)
-                if self.eval_fn:
-                    loss, acc = self.eval_fn(state.params)
-                    loss_a.append(torch.as_tensor(loss).detach().cpu())
-                    acc_a.append(torch.as_tensor(acc).detach().cpu())
-            self.release(state, arm)
             states.append(state)
-            stats.append(_join(chunks, torch.cat))
-            losses.append(loss_a)
-            accs.append(acc_a)
+            devarms.append(arm)
+        t_start = 0
+        if resume:
+            if not ckpt_dir:
+                raise ValueError("run_sweep(resume=True) needs ckpt_dir "
+                                 "(or FLConfig.ckpt_dir)")
+            restored = self._restore_sweep(ckpt_dir, arms)
+            if restored is not None:
+                states, t_start = restored
+        stats = [[] for _ in range(A)]
+        losses = [[] for _ in range(A)]
+        accs = [[] for _ in range(A)]
+        eval_ts = []
+        self.save_s = []
+        for t0, n in spans:
+            if t0 + n <= t_start:
+                continue                    # chunk covered by the resume
+            if t0 < t_start:
+                raise ValueError(
+                    f"checkpoint t_next={t_start} does not land on a chunk "
+                    f"boundary for rounds={rounds}, eval_every={eval_every} "
+                    f"— resume must use the cadence the sweep was saved "
+                    f"with (boundary before it: t0={t0})")
+            for a in range(A):
+                if draws is None:
+                    states[a], st = self.run_chunk(states[a], devarms[a],
+                                                   t0, n)
+                else:
+                    states[a], st = self._eager_chunk(
+                        states[a], devarms[a], t0, n, draws, a)
+                stats[a].append(st)
+                if self.eval_fn:
+                    loss, acc = self.eval_fn(states[a].params)
+                    losses[a].append(torch.as_tensor(loss).detach().cpu())
+                    accs[a].append(torch.as_tensor(acc).detach().cpu())
+            eval_ts.append(t0 + n - 1)
+            if ckpt_dir:
+                t = time.perf_counter()
+                checkpoint.save(ckpt_dir, t0 + n, SweepCheckpoint(
+                    state=self._stacked(states), arms=arms,
+                    t_next=torch.tensor(t0 + n, dtype=torch.int32)))
+                self.save_s.append(time.perf_counter() - t)
+        for state, arm in zip(states, devarms):
+            self.release(state, arm)
+        joined = [_join(s, torch.cat) if s else None for s in stats]
 
         def host(get):
-            return np.stack([get(s).detach().cpu().numpy() for s in stats])
+            if joined[0] is None:
+                return np.zeros((A, 0), np.float32)
+            return np.stack([get(s).detach().cpu().numpy() for s in joined])
 
-        out = {"n_scheduled": host(lambda s: s.n_scheduled),
+        out = {"n_scheduled": host(lambda s: s.n_scheduled).astype(np.int32),
                "b_t": host(lambda s: s.b_t), "state": states,
                "params": {k: torch.stack([st.params[k] for st in states])
                           for k in states[0].params},
-               "arms": arms, "t_start": 0}
-        if stats[0].budget is not None:
+               "arms": arms, "t_start": t_start}
+        assert out["n_scheduled"].shape == (A, rounds - t_start)
+        if joined[0] is not None and joined[0].budget is not None:
             out["budget"] = ErrorBudget(*(host(lambda s, i=i: s.budget[i])
                                           for i in range(6)))
             out["rt_bound"] = np.asarray(out["budget"].rt())
-        if stats[0].agg_err is not None:
+        if joined[0] is not None and joined[0].agg_err is not None:
             out["agg_err"] = host(lambda s: s.agg_err)
-        if self.eval_fn and spans:
-            out["eval_rounds"] = np.asarray([t0 + n - 1 for t0, n in spans])
+        if self.eval_fn and eval_ts:
+            out["eval_rounds"] = np.asarray(eval_ts)
             out["loss"] = np.stack([torch.stack(l).numpy() for l in losses])
             out["accuracy"] = np.stack([torch.stack(a).numpy()
                                         for a in accs])

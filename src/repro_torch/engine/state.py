@@ -1,6 +1,5 @@
-"""Round carry, per-round stats and sweep arms; port of
-``repro/engine/state.py`` for the ported slice (the warm-start and
-error-feedback leaves wait with their features).
+"""Round carry, per-round stats, sweep arms and the sweep checkpoint;
+port of ``repro/engine/state.py``.
 
 ``Arms`` holds the per-arm sweep axes, the quantities an experiment grid
 varies without rebuilding the engine: a seed, σ², P^Max and the learning
@@ -24,10 +23,19 @@ class EngineState(NamedTuple):
     opt_state: Any                 # optimizer state
     fade: torch.Tensor             # (U,) complex64 Gauss-Markov state
     prev_beta: torch.Tensor        # (U,) f32; -1 before round 0
+    decode_x0: Optional[torch.Tensor]   # (n_chunks, D_c) warm start | None
+    residual: Optional[torch.Tensor]    # (U, D) EF residuals | None
     generator: torch.Generator     # the arm's fade and AWGN draws
     # the ADMM multipliers of the last schedule, a (U,)-leaf AdmmDuals
     # that seeds the next round's solve (FLConfig.sched_warm_duals) | None
     sched_duals: Any = None
+
+
+def with_generator_state(state: EngineState) -> EngineState:
+    """The carry with its generator replaced by the generator's state (a
+    uint8 tensor), so that every leaf is a tensor: what a checkpoint
+    stores and what "bit for bit the same carry" compares."""
+    return state._replace(generator=state.generator.get_state())
 
 
 class RoundStats(NamedTuple):
@@ -40,6 +48,20 @@ class RoundStats(NamedTuple):
     b_t: torch.Tensor              # f32: power scaling factor
     budget: Any = None             # ErrorBudget | None
     agg_err: Optional[torch.Tensor] = None   # f32 | None
+
+
+class SweepCheckpoint(NamedTuple):
+    """What ``run_sweep`` needs to continue bit for bit after a restart:
+    the carry of every arm stacked (A, ...) — parameters, optimizer state,
+    fade, previous β, decoder warm start, EF residuals, ADMM multipliers —
+    with each arm's ``torch.Generator`` state as a uint8 leaf (A, n) in
+    the place of the generator, the ``Arms`` it was advanced under, and
+    ``t_next``, the first round not yet run. The reference folds its keys
+    on the absolute round and saves no RNG state; the port's draws come
+    from the generators, so their states are part of the carry."""
+    state: Any                     # EngineState, (A, ...)-stacked
+    arms: Any                      # Arms the carry was advanced under
+    t_next: torch.Tensor           # int32 0-d: first round not run
 
 
 class Arms(NamedTuple):

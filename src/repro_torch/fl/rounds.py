@@ -18,6 +18,10 @@ Two modes over one round body (``engine/core.py``):
   the host, ``fl.server.schedule_round`` solves P2 in float64, and β and
   b_t go back to the card as f32.
 
+Both modes carry the same state through the round: the optimizer's
+(``opt_state``), the EF residuals (``FLConfig.error_feedback``) and the
+decoder's warm start (``OBCSAAConfig.warm_start``).
+
 Metrics are evaluated after round t when ``t % eval_every == 0`` and after
 the last round, the reference trainer's cadence.
 """
@@ -91,6 +95,10 @@ class FederatedTrainer:
     @property
     def params(self):
         return self.state.params
+
+    @property
+    def opt_state(self):
+        return self.state.opt_state
 
     @property
     def sched_trajectory(self) -> Dict[str, np.ndarray]:

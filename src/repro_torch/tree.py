@@ -1,0 +1,89 @@
+"""The port's one walk over nested containers of tensors, in
+``jax.tree_util``'s order: dicts in sorted key order, tuples, lists and
+NamedTuples in field order, ``None`` an empty node; anything else is a
+leaf. The round's graph carry (``engine/graph.py``), the optimizers and
+the checkpoint (``checkpoint/io.py``) all walk a state with it, so a
+leaf's position is the same in the three and in the reference.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, List, Tuple
+
+
+def _is_namedtuple(x) -> bool:
+    return isinstance(x, tuple) and hasattr(x, "_fields")
+
+
+def _children(node) -> List[Tuple[str, Any]]:
+    """(key path piece, child) of an inner node, as ``jax.tree_util.keystr``
+    writes the piece: ``['k']``, ``[i]`` or ``.field``."""
+    if isinstance(node, dict):
+        return [(f"[{k!r}]", node[k]) for k in sorted(node)]
+    if _is_namedtuple(node):
+        return [(f".{f}", v) for f, v in zip(node._fields, node)]
+    return [(f"[{i}]", v) for i, v in enumerate(node)]
+
+
+def _is_node(x) -> bool:
+    return x is None or isinstance(x, (dict, tuple, list))
+
+
+def flatten_with_paths(tree) -> Tuple[List[Tuple[str, Any]], Any]:
+    """([(key path, leaf)], treedef): the leaves in walk order."""
+    out: List[Tuple[str, Any]] = []
+
+    def walk(node, path):
+        if node is None:
+            return None
+        if not _is_node(node):
+            out.append((path, node))
+            return "*"
+        kids = _children(node)
+        defs = [walk(v, path + p) for p, v in kids]
+        if isinstance(node, dict):
+            return (dict, [k for k in sorted(node)], defs)
+        return (type(node), None, defs)
+
+    treedef = walk(tree, "")
+    return out, treedef
+
+
+def flatten(tree) -> Tuple[List[Any], Any]:
+    """(leaves, treedef) in walk order."""
+    leaves, treedef = flatten_with_paths(tree)
+    return [leaf for _, leaf in leaves], treedef
+
+
+def leaves(tree) -> List[Any]:
+    return flatten(tree)[0]
+
+
+def unflatten(treedef, leaves: List[Any]):
+    """The tree of ``treedef`` with ``leaves`` in walk order."""
+    it = iter(leaves)
+
+    def build(d):
+        if d is None:
+            return None
+        if d == "*":
+            return next(it)
+        kind, keys, defs = d
+        kids = [build(c) for c in defs]
+        if kind is dict:
+            return dict(zip(keys, kids))
+        if issubclass(kind, tuple) and hasattr(kind, "_fields"):
+            return kind(*kids)
+        return kind(kids)
+
+    out = build(treedef)
+    if next(it, None) is not None:
+        raise ValueError("unflatten: more leaves than the tree holds")
+    return out
+
+
+def tree_map(fn: Callable, tree, *rest):
+    """``fn`` over the leaves of ``tree`` and of the trees ``rest`` of the
+    same structure."""
+    flat, treedef = flatten(tree)
+    others = [flatten(r)[0] for r in rest]
+    return unflatten(treedef, [fn(*xs) for xs in zip(flat, *others)])

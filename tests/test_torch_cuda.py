@@ -28,6 +28,8 @@ equals the eager round (the reference's while loop) bit for bit, as the
 captured solve equals the eager solve and the compacted fleet solver the
 in-round one, lane by lane (multipliers compared by bit pattern).
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -470,8 +472,8 @@ def test_graph_capture_restores_generator_and_carry(cuda):
                        run.k_weights)
     assert torch.equal(state.generator.get_state(), before)
     for k, v in state.params.items():
-        assert torch.equal(graph.params[k], v)
-    assert torch.equal(graph.fade, state.fade)
+        assert torch.equal(graph.state().params[k], v)
+    assert torch.equal(graph.state().fade, state.fade)
     graph.run(1)
     assert not torch.equal(state.generator.get_state(), before)
 
@@ -617,3 +619,142 @@ def test_admm_compacted_equals_jit_fleet(cuda):
                  (a[3].iters, b[3].iters), *zip(a[3].duals, b[3].duals)):
         assert torch.equal(_bits(x), _bits(y))
     assert int(b[3].iters.max()) > 8 and bool((a[1] > 0).all())
+
+
+# --- error feedback, warm start, optimizer state, resume, the service ---------
+
+def _carry_equal(a, b):
+    from repro_torch import tree
+    from repro_torch.engine.state import with_generator_state
+    x, y = (tree.leaves(with_generator_state(s)) for s in (a, b))
+    return len(x) == len(y) and all(torch.equal(p.cpu(), q.cpu())
+                                    for p, q in zip(x, y))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scheduler,opt", [
+    ("all", None), ("greedy_batched", "momentum"),
+    ("greedy_batched", "adam"), ("admm_batched", "adam")])
+def test_graph_round_ef_warm_optimizer_equals_eager(cuda, scheduler, opt):
+    """Error feedback, warm-start IHT (τ = 0.25) and a stateful optimizer,
+    8 rounds of 2 arms replayed from their graphs against the eager loop:
+    every leaf of every arm's carry bit for bit — moments and Adam's step
+    counter (incremented on the card by the graph), the EF residuals, the
+    decoder's warm start, and the generator's state (a generator
+    registered with the graphs reports the replays' Philox offset) — and
+    every stat. The EF round compresses the split's top-κ as it is: K1
+    runs only in the decode, once per IHT iteration."""
+    from repro_torch import tree
+    from repro_torch.engine import EngineRun, make_arms
+    from repro_torch.optim import make
+    t = _sweep_task(cuda)
+    outs, runs = {}, {}
+    for mode in ("scan", "host"):
+        cfg = _sweep_cfg(mode, scheduler, error_feedback=True)
+        cfg = dataclasses.replace(cfg, obcsaa=dataclasses.replace(
+            cfg.obcsaa, recon_alg="iht", recon_tau=0.25, warm_start=True))
+        runs[mode] = EngineRun(cfg, t["loss_fn"], t["params"], t["data"],
+                               t["k_weights"], device=cuda,
+                               optimizer=make(opt) if opt else None)
+        outs[mode] = runs[mode].run_sweep(make_arms(cfg, seeds=[0, 1]),
+                                          rounds=8, eval_every=3)
+    s, h = outs["scan"], outs["host"]
+    for key in ("n_scheduled", "b_t", "rt_bound", "agg_err"):
+        np.testing.assert_array_equal(s[key], h[key])
+    for a in range(2):
+        assert _carry_equal(s["state"][a], h["state"][a])
+    st = s["state"][0]
+    assert float(st.residual.abs().sum()) > 0
+    assert float(st.decode_x0.abs().sum()) > 0
+    if opt:
+        assert any(float(x.abs().sum()) > 0
+                   for x in tree.leaves(st.opt_state))
+    if opt == "adam":
+        assert int(st.opt_state["t"]) == 8
+    per_round = runs["scan"].capture_log[0]["captured"]
+    assert per_round["topk_select"] == 5 and per_round["cs_project"] == 1
+    assert per_round["cs_project_resid"] == 5
+    assert per_round["backproject"] == 5
+    assert per_round["prefix_eval"] == (scheduler == "greedy_batched")
+
+
+@pytest.mark.cuda
+def test_resume_in_scan_mode_equals_uninterrupted(cuda, tmp_path):
+    """A scan-mode sweep with checkpoints, cut after its middle boundary
+    and resumed in a fresh run (generators set back before their graphs
+    are captured): the final carry and the stat tail equal the
+    uninterrupted run's bit for bit."""
+    import shutil
+    from repro_torch import checkpoint
+    from repro_torch.engine import EngineRun, make_arms
+    from repro_torch.optim import make
+    t = _sweep_task(cuda)
+    cfg = _sweep_cfg("scan", "greedy_batched", error_feedback=True)
+    arms = make_arms(cfg, seeds=[0, 1])
+
+    def run():
+        return EngineRun(cfg, t["loss_fn"], t["params"], t["data"],
+                         t["k_weights"], device=cuda, optimizer=make("adam"))
+
+    d = str(tmp_path / "ck")
+    full = run().run_sweep(arms, rounds=8, eval_every=3, ckpt_dir=d)
+    assert checkpoint.latest_step(d) == 8
+    for n in (7, 8):
+        shutil.rmtree(checkpoint.step_dir(d, n))
+    res = run().run_sweep(arms, rounds=8, eval_every=3, ckpt_dir=d,
+                          resume=True)
+    assert res["t_start"] == 4
+    for a in range(2):
+        assert _carry_equal(res["state"][a], full["state"][a])
+    for key in ("n_scheduled", "b_t", "rt_bound"):
+        np.testing.assert_array_equal(res[key], full[key][:, 4:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scheduler", ["admm_batched", "greedy_batched"])
+def test_serve_cache_parity_on_card(cuda, scheduler):
+    """benchmarks/serve_bench.py's cache-parity gate on the card (greedy
+    through K7): at threshold 0 the cache equals ``fresh_solve`` bit for
+    bit; every greedy tick that solved launched K7 once."""
+    from repro_torch.sched import ScenarioConfig
+    from repro_torch.serve import (ServeConfig, fresh_solve, init_service,
+                                   run_ticks)
+    cfg = ServeConfig(scenario=ScenarioConfig(cells=384, workers=16,
+                                              corr=0.999),
+                      scheduler=scheduler, stale_threshold=0.0,
+                      update_frac=0.35, sched_cfg=SchedConfig(use_kernel=True))
+    build.reset_launch_counts()
+    st, stats, _ = run_ticks(cfg, init_service(cfg, 1, device=cuda), 6)
+    beta, b_t, rt = fresh_solve(cfg, st)
+    assert torch.equal(beta, st.beta) and torch.equal(b_t, st.b_t)
+    assert torch.equal(rt, st.rt)
+    assert any(s.hit_rate > 0 for s in stats[1:])
+    solved = sum(1 for s in stats if s.n_dirty)
+    assert build.launch_counts()["prefix_eval"] == (
+        solved + 1 if scheduler == "greedy_batched" else 0)
+
+
+@pytest.mark.cuda
+def test_prefix_eval_at_service_bucket(cuda):
+    """K7 at the 100k-cell service's first bucket, B = 131,072 (past grid
+    y's 65,535 limit; B runs on grid x) and U = 16, K_i = 3000: R equals
+    the plain version exactly."""
+    from repro_torch.sched import ScenarioConfig, init_fades, magnitudes
+    from repro_torch.sched.problem import BatchedProblem
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    h = magnitudes(init_fades(ScenarioConfig(cells=131072, workers=16),
+                              gen))
+    bp = BatchedProblem.from_arrays(
+        h, 3000.0, 10.0, 1e-4, D=50890, S=1000, kappa=1000,
+        const=AnalysisConstants(rho1=200.0, G=1.0))
+    caps = bp.caps()
+    order = torch.sort(-caps, dim=-1, stable=True).indices
+    caps_s = torch.gather(caps, -1, order)
+    k_s = torch.gather(bp.k_weights, -1, order)
+    coefs = pack_coefs(bp)
+    got = ops.prefix_eval(caps_s, k_s, coefs)
+    assert torch.equal(got, ref.prefix_eval_ref(caps_s, k_s, coefs))
+    beta, b_t, r = greedy_solve_batched(bp, SchedConfig(use_kernel=True))
+    want = greedy_solve_batched(bp, SchedConfig(use_kernel=False))
+    for x, y in zip((beta, b_t, r), want):
+        assert torch.equal(x, y)

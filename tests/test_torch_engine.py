@@ -21,6 +21,14 @@ Tolerances:
 - the host path (``FederatedTrainer`` with a NumPy oracle, ``enum``)
   against the reference's trainer with its draws injected: β exact, each
   parameter within 1e-4 of its movement.
+- error feedback and warm-start IHT (τ = 0.25): ``run_sweep`` in host
+  mode against the reference's with its draws injected, as above, and
+  the EF residuals and the decoder's warm start each within 1e-4 of the
+  reference's norm; the fused EF round (the split's top-κ compressed as
+  it is) ≡ compressing the corrected gradient again, bit for bit; scan ≡
+  host bit for bit with EF + warm start under ``greedy_batched`` and
+  ``admm_batched``, and with momentum and Adam (every moment and the
+  step counter), as tests/test_engine.py:113-167 hold the reference.
 """
 import jax
 import jax.numpy as jnp
@@ -50,7 +58,12 @@ from repro_torch.engine import (Draws, EngineRun, budget_geometry,
                                 chunk_spans, eval_points, make_arms, n_arms,
                                 run_sweep, single_arm)
 from repro_torch.engine import FLConfig as TFL
+from repro_torch.core.obcsaa import simulate_round
+from repro_torch.core.sparsify import topk_sparsify, topk_sparsify_bisect
 from repro_torch.fl import FederatedTrainer, schedule_round
+from repro_torch.engine.state import with_generator_state
+from repro_torch.optim import make
+from repro_torch import tree
 from repro_torch.models import mlp_mnist as tm
 from repro_torch.sched import AdmmDuals
 from repro_torch.sched import SchedConfig as TSC
@@ -85,9 +98,9 @@ def _port_task(task):
                            tm.mlp_mnist_accuracy(p, xe, ye)))
 
 
-def _cfgs(aggregator, scheduler="all", packed=False, **kw):
+def _cfgs(aggregator, scheduler="all", packed=False, ob_kw=None, **kw):
     ob = dict(chunk=CHUNK, measure=MEASURE, topk=KAPPA, biht_iters=ITERS,
-              use_kernels=True, packed=packed)
+              use_kernels=True, packed=packed, **(ob_kw or {}))
     common = dict(aggregator=aggregator, scheduler=scheduler,
                   learning_rate=0.1, rounds=ROUNDS, eval_every=EVAL_EVERY,
                   topk_dense=96)
@@ -169,9 +182,12 @@ def test_config_modes_and_refusals():
     with pytest.raises(ValueError, match="mode='scan'"):
         TFL(scheduler="enum", mode="scan").resolved_mode()
     for kw in (dict(error_feedback=True), dict(ckpt_dir="x"),
-               dict(ckpt_resume=True)):
-        with pytest.raises(NotImplementedError):
-            TFL(**kw)
+               dict(ckpt_resume=True),
+               dict(obcsaa=TOB(warm_start=True, recon_alg="iht"))):
+        t = TFL(**kw)
+        assert t.resolved_mode() == "scan" and t.engine_capable()
+    with pytest.raises(ValueError, match="warm-capable"):
+        TOB(warm_start=True).decode_cfg()
     with pytest.raises(ValueError, match="mode"):
         TFL(mode="jit")
 
@@ -377,10 +393,10 @@ def test_sweep_needs_cuda_by_default(monkeypatch, task):
         run_sweep(cfg, pt["loss_fn"], pt["params"], pt["data"],
                   np.full(U, float(SAMPLES)), seeds=SEEDS, device="cpu",
                   draws=Draws(torch.zeros(2, U), torch.zeros(2, 1, U)))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="ckpt_dir"):
         run_sweep(cfg, pt["loss_fn"], pt["params"], pt["data"],
                   np.full(U, float(SAMPLES)), seeds=SEEDS, device="cpu",
-                  ckpt_dir="ckpt")
+                  resume=True)
 
 
 # --- ADMM in the round: the dual warm start -----------------------------------
@@ -465,3 +481,116 @@ def test_enum_scheduler_runs_on_host_path(task):
         assert moved > 0
         assert np.linalg.norm(tr.params[k].numpy()
                               - np.asarray(jtr.params[k])) <= 1e-4 * moved
+
+
+# --- error feedback, warm-start decoding, stateful optimizers -----------------
+
+EF_WARM = dict(recon_alg="iht", recon_tau=0.25, warm_start=True)
+
+
+@pytest.mark.parametrize("scheduler", ["all", "greedy_batched"])
+def test_run_sweep_ef_warm_matches_reference(task, scheduler):
+    jcfg, tcfg = _cfgs("obcsaa", scheduler, ob_kw=EF_WARM, mode="host",
+                       error_feedback=True)
+    xe, ye = jnp.asarray(task["xte"]), jnp.asarray(task["yte"])
+    want = jrun_sweep(
+        jcfg, lambda p, d: jm.mlp_mnist_loss(p, d["x"], d["y"]),
+        {k: jnp.asarray(v) for k, v in task["p0"].items()},
+        {"x": jnp.asarray(task["wx"]), "y": jnp.asarray(task["wy"])},
+        np.full(U, float(SAMPLES)),
+        eval_fn=lambda p: (jm.mlp_mnist_loss(p, xe, ye),
+                           jm.mlp_mnist_accuracy(p, xe, ye)),
+        seeds=SEEDS, noise_var=NOISE_VARS)
+    pt = _port_task(task)
+    got = run_sweep(tcfg, pt["loss_fn"], pt["params"], pt["data"],
+                    np.full(U, float(SAMPLES)), eval_fn=pt["eval_fn"],
+                    seeds=SEEDS, noise_var=NOISE_VARS,
+                    phi=torch.from_numpy(np.array(jcfg.obcsaa.phi())),
+                    device="cpu",
+                    draws=_reference_draws(want["arms"].key, jcfg, D))
+    np.testing.assert_array_equal(got["n_scheduled"], want["n_scheduled"])
+    np.testing.assert_allclose(got["b_t"], want["b_t"], rtol=1e-6)
+    np.testing.assert_allclose(got["loss"], want["loss"], rtol=1e-4)
+    for k, v in task["p0"].items():
+        jp = np.asarray(want["params"][k])
+        for a in range(2):
+            moved = np.linalg.norm(jp[a] - v)
+            assert moved > 0
+            assert np.linalg.norm(got["params"][k][a].numpy() - jp[a]) \
+                <= 1e-4 * moved, (k, a)
+    for name in ("residual", "decode_x0"):
+        ref = np.asarray(getattr(want["state"], name))
+        for a in range(2):
+            port = getattr(got["state"][a], name).numpy()
+            assert port.shape == ref[a].shape
+            assert np.linalg.norm(ref[a]) > 0
+            assert np.linalg.norm(port - ref[a]) <= \
+                1e-4 * np.linalg.norm(ref[a]), (name, a)
+
+
+@pytest.mark.parametrize("use_kernels,spmd", [(True, False), (False, False),
+                                              (False, True)])
+def test_fused_ef_compression_matches_double_selection(use_kernels, spmd):
+    """tests/test_engine.py:194 on the port: the split's sparse_κ fed to
+    the compression presparsified is bit for bit compressing (selecting
+    again from) the sparse vector."""
+    ob = TOB(chunk=64, measure=32, topk=8, biht_iters=3,
+             use_kernels=use_kernels, spmd_topk=spmd)
+    gen = torch.Generator().manual_seed(3)
+    grads = torch.randn(U, 192, generator=gen)
+    kw, beta, h = torch.full((U,), 16.0), torch.ones(U), torch.ones(U)
+    noise = 1e-2 * torch.randn(3, 32, generator=gen)
+    phi = ob.phi("cpu")
+    gc = grads.reshape(U, -1, ob.chunk)
+    sp = (topk_sparsify_bisect(gc, ob.topk, iters=ob.bisect_iters)[0]
+          if spmd else topk_sparsify(gc, ob.topk)[0]).reshape(U, -1)
+    a, _ = simulate_round(ob, grads, kw, beta, 1.0, h, phi=phi, noise=noise)
+    b, _ = simulate_round(ob, sp, kw, beta, 1.0, h, phi=phi, noise=noise,
+                          presparsified=True)
+    assert torch.equal(a, b)
+
+
+def _trainers_both_modes(task, scheduler, rounds, optimizer=None):
+    pt = _port_task(task)
+    out = {}
+    for mode in ("scan", "host"):
+        _, cfg = _cfgs("obcsaa", scheduler, ob_kw=EF_WARM, mode=mode,
+                       error_feedback=True, rounds=rounds, eval_every=5)
+        tr = FederatedTrainer(cfg, pt["loss_fn"], pt["params"], pt["data"],
+                              np.full(U, float(SAMPLES)),
+                              optimizer=None if optimizer is None
+                              else make(*optimizer[:1], **optimizer[1]),
+                              device="cpu")
+        tr.run()
+        out[mode] = tr
+    return out["scan"], out["host"]
+
+
+def _carry_equal(a, b):
+    fa, fb = (tree.leaves(with_generator_state(s)) for s in (a, b))
+    return len(fa) == len(fb) and all(torch.equal(x, y)
+                                      for x, y in zip(fa, fb))
+
+
+@pytest.mark.parametrize("scheduler", ["greedy_batched", "admm_batched"])
+def test_scan_equals_host_bitwise_warm_ef(task, scheduler):
+    s, h = _trainers_both_modes(task, scheduler, 12)
+    assert s.engine.mode == "scan" and h.engine.mode == "host"
+    assert _carry_equal(s.state, h.state)
+    assert s.state.residual.shape == (U, D)
+    assert s.state.residual.abs().sum() > 0
+    assert s.state.decode_x0.abs().sum() > 0
+    ts, th = s.sched_trajectory, h.sched_trajectory
+    for key in ts:
+        np.testing.assert_array_equal(ts[key], th[key])
+
+
+@pytest.mark.parametrize("opt", [("momentum", {"beta": 0.9}), ("adam", {})])
+def test_scan_equals_host_bitwise_optimizer_moments(task, opt):
+    s, h = _trainers_both_modes(task, "greedy_batched", 8, opt)
+    assert _carry_equal(s.state, h.state)
+    for x, y in zip(tree.leaves(s.opt_state), tree.leaves(h.opt_state)):
+        assert torch.equal(x, y)
+    assert any(float(x.abs().sum()) > 0 for x in tree.leaves(s.opt_state))
+    if opt[0] == "adam":
+        assert int(s.opt_state["t"]) == 8
