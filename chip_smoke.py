@@ -54,7 +54,8 @@ result line):
             of benchmarks/serve_bench.py, then 10,000 cells under
             ``admm_batched`` and 100,000 under ``greedy_batched`` (K7),
             8 timed ticks each: p50/p99 tick ms, hit rate, solved/s,
-            served/s, the movement read and the solve apart
+            served/s, the movement read and the solve apart; then the CLI
+            ``python -m repro_torch.serve`` at the 100k row, through K7
 
 Each path's launch counters are set to 0 just before it and read just
 after; a kernel of the path that was not launched fails the run.
@@ -65,6 +66,8 @@ the script exits 1.
 """
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
 import re
@@ -90,7 +93,9 @@ DECODE_K = min(4 * KAPPA, MEASURE // 2)
 # the fleet scheduling shape and instance recipe of benchmarks/sched_bench.py
 FLEET_B, FLEET_U = 64, 8192
 # the 100k-cell service's first bucket (benchmarks/serve_bench.py:155)
-SERVE_B, SERVE_U = 131072, 16
+# the 100k-cell service's buckets: the cold first tick's, and the one
+# every later tick solves (update_frac 0.5: about 50,000 dirty cells)
+SERVE_B, SERVE_B_STEADY, SERVE_U = 131072, 65536, 16
 FLEET_K, FLEET_PMAX, FLEET_NV = 3000.0, 10.0, 1e-4
 FLEET_GEOM = dict(D=50890, S=1000, kappa=1000)
 
@@ -639,7 +644,8 @@ def check_prefix_kernel(dev, gen, results) -> None:
     from repro_torch.sched import pack_coefs
 
     for b, u in [(FLEET_B, FLEET_U), (1, U_WORKERS), (5, 1000), (2, 8193),
-                 (FLEET_B, 100), (1, 3), (300, 3000), (SERVE_B, SERVE_U)]:
+                 (FLEET_B, 100), (1, 3), (300, 3000), (SERVE_B, SERVE_U),
+                 (SERVE_B_STEADY, SERVE_U)]:
         h = torch.randn(b, u, generator=gen, device=dev).abs() + 1e-3
         bp = fleet_problem(h, dev)
         caps = bp.caps()
@@ -664,13 +670,14 @@ def check_prefix_kernel(dev, gen, results) -> None:
         if (b, u) == (1, U_WORKERS):   # the greedy round's launch
             results["prefix_eval"]["ms_greedy"] = time_ms(
                 lambda: ops.prefix_eval(caps_s, k_s, coefs))
-        if (b, u) == (SERVE_B, SERVE_U):   # the 100k-cell service's bucket
+        if u == SERVE_U and b in (SERVE_B, SERVE_B_STEADY):
+            # the 100k-cell service's cold first and steady buckets
             r = results["prefix_eval"]
-            r["ms_serve_b131072_u16"] = time_ms(
+            r[f"ms_serve_b{b}_u16"] = time_ms(
                 lambda: ops.prefix_eval(caps_s, k_s, coefs))
-            r["plain_ms_serve_b131072_u16"] = time_ms(
+            r[f"plain_ms_serve_b{b}_u16"] = time_ms(
                 lambda: ref.prefix_eval_ref(caps_s, k_s, coefs))
-            r["bound_ms_serve_b131072_u16"] = bound(
+            r[f"bound_ms_serve_b{b}_u16"] = bound(
                 4 * (3 * b * u + 8 * b), 11 * b * u)[0]
         log(f"K7 prefix_eval ok at B={b} U={u}: R exact{repeat}")
         if (b, u) == (FLEET_B, FLEET_U):
@@ -1541,12 +1548,9 @@ WARM_PER_ROUND = {"topk_select": SWEEP_ITERS, "cs_project": 1,
 # benchmarks/serve_bench.py:46-52 and :148-155
 SERVE_CORR, SERVE_THRESHOLD, SERVE_FRAC = 0.999, 0.05, 0.5
 SERVE_WARMUP, SERVE_TICKS = 2, 8
-# (row, cells, scheduler, ADMM dual warm start); the cold-dual 10k row is
-# the same service with ``warm_duals=False`` (the CLI's --no-warm-duals)
-SERVE_ROWS = (("serve/slo-10k-admm", 10_000, "admm_batched", True),
-              ("serve/slo-10k-admm-cold-duals", 10_000, "admm_batched",
-               False),
-              ("serve/slo-100k-greedy", 100_000, "greedy_batched", True))
+# (row, cells, scheduler)
+SERVE_ROWS = (("serve/slo-10k-admm", 10_000, "admm_batched"),
+              ("serve/slo-100k-greedy", 100_000, "greedy_batched"))
 
 
 def sweep_diffs(x: dict, y: dict) -> list:
@@ -1760,13 +1764,12 @@ def run_resume_phase(dev, task: Task) -> None:
 
 
 def serve_cfg(cells, scheduler, **kw):
-    from repro_torch.sched import ScenarioConfig, SchedConfig
+    from repro_torch.sched import ScenarioConfig
     from repro_torch.serve import ServeConfig
     base = dict(scenario=ScenarioConfig(cells=cells, workers=SERVE_U,
                                         corr=SERVE_CORR),
                 scheduler=scheduler, stale_threshold=SERVE_THRESHOLD,
-                update_frac=SERVE_FRAC,
-                sched_cfg=SchedConfig(use_kernel=True))
+                update_frac=SERVE_FRAC)
     base.update(kw)
     return ServeConfig(**base)
 
@@ -1777,8 +1780,9 @@ def run_serve_phase(dev) -> dict:
     solvers: cache ≡ ``fresh_solve`` bit for bit), the warm parity gate
     (B = 256: β cold ≡ β warm bit for bit), then the SLO rows
     serve/slo-10k-admm and serve/slo-100k-greedy (2 warm-up ticks, 8
-    timed), and serve/slo-10k-admm once more without the dual warm start.
-    Returns the launch counts of the timed 100k-cell ticks."""
+    timed), then ``python -m repro_torch.serve``'s ``main`` at the 100k
+    row's settings for 3 ticks on its default device. Returns the launch
+    counts of the timed 100k-cell ticks."""
     from repro_torch.core.channel import draw_cn, draw_fades
     from repro_torch.kernels import build
     from repro_torch.sched import (BatchedProblem, admm_solve_batched,
@@ -1823,8 +1827,8 @@ def run_serve_phase(dev) -> dict:
         f"{float(iw.iters.float().mean()):.2f}")
 
     counts = {}
-    for name, cells, scheduler, warm in SERVE_ROWS:
-        cfg = serve_cfg(cells, scheduler, warm_duals=warm)
+    for name, cells, scheduler in SERVE_ROWS:
+        cfg = serve_cfg(cells, scheduler)
         state = init_service(cfg, 0, device=dev)
         state, _, _ = run_ticks(cfg, state, SERVE_WARMUP)
         torch.cuda.synchronize()
@@ -1842,19 +1846,19 @@ def run_serve_phase(dev) -> dict:
         idx = torch.arange(stats[-1].n_solved, device=dev) % cells
         prob = problem_of(cfg, state.h_seen[idx])
         if scheduler == "admm_batched":
-            solves = {"cold": lambda: admm_solve_batched(
-                prob, cfg.sched_cfg, return_duals=True)}
-            if warm:
-                duals = take(state.duals, idx)
-                solves["warm"] = lambda: admm_solve_batched(
-                    prob, cfg.sched_cfg, duals=duals, return_duals=True)
+            duals = take(state.duals, idx)
+            solves = {
+                "cold": lambda: admm_solve_batched(prob, cfg.solver,
+                                                   return_duals=True),
+                "warm": lambda: admm_solve_batched(
+                    prob, cfg.solver, duals=duals, return_duals=True)}
             solve_ms = "; ".join(
                 f"{k} {median(host_ms(fn, 5)):.3f} ms, outer iterations "
                 f"{dist(fn()[3].iters.cpu().numpy())}"
                 for k, fn in solves.items())
         else:
             ms = median(host_ms(
-                lambda: greedy_solve_batched(prob, cfg.sched_cfg), 5))
+                lambda: greedy_solve_batched(prob, cfg.solver), 5))
             solve_ms = f"{ms:.3f} ms"
         wall, busy, events, _ = device_busy(
             lambda: run_ticks(cfg, state, 1))
@@ -1879,6 +1883,23 @@ def run_serve_phase(dev) -> dict:
         for e in sorted(events, key=lambda e: -e.self_device_time_total)[:6]:
             log(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:5d}x"
                 f"  {e.key[:70]}")
+
+    # the CLI, as a user starts it, on the 100k row's settings: every tick
+    # solves a bucket, so K7 launches once a tick
+    from repro_torch.serve.cli import main as serve_main
+    out = io.StringIO()
+    build.reset_launch_counts()
+    with contextlib.redirect_stdout(out):
+        rc = serve_main(["--cells", "100000", "--workers", str(SERVE_U),
+                         "--scheduler", "greedy_batched", "--ticks", "3",
+                         "--corr", str(SERVE_CORR), "--threshold",
+                         str(SERVE_THRESHOLD), "--update-frac",
+                         str(SERVE_FRAC)])
+    if rc != 0:
+        fail(f"python -m repro_torch.serve exited {rc}")
+    expect_counts("serve CLI (100k, greedy, 3 ticks)",
+                  build.launch_counts(), {"prefix_eval": 1}, 3)
+    log("serve CLI: " + out.getvalue().strip().splitlines()[-1])
     return counts["serve/slo-100k-greedy"]
 
 
@@ -1961,11 +1982,8 @@ def main() -> None:
                if "ms_compress" in r else {}),
             **({"cumsum_only_ms": r["cumsum_only_ms"],
                 "ms_greedy_b1_u10": r["ms_greedy"],
-                "ms_serve_b131072_u16": r["ms_serve_b131072_u16"],
-                "plain_ms_serve_b131072_u16":
-                    r["plain_ms_serve_b131072_u16"],
-                "bound_ms_serve_b131072_u16":
-                    r["bound_ms_serve_b131072_u16"]}
+                **{k: v for k, v in r.items() if k.startswith(
+                    ("ms_serve_", "plain_ms_serve_", "bound_ms_serve_"))}}
                if name == "prefix_eval" else {})})
     print(json.dumps({"kernels": kernels}))
     print(card)

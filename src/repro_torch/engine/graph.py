@@ -75,6 +75,7 @@ class RoundGraph:
         leaves, self._treedef = tree.flatten(
             state._replace(generator=None))
         self._leaves = [t.detach().clone() for t in leaves]
+        self._fade = self.state().fade      # load()'s test for our own carry
         self.slot = torch.zeros((1,), dtype=torch.int64, device=self.device)
         self.buf = None         # (CAP, n_stats) f32, made in the warm-up
         self.has_budget = self.has_err = False
@@ -95,7 +96,7 @@ class RoundGraph:
 
     def load(self, state: EngineState) -> None:
         """Copy a carry into the static buffers (no-op for our own)."""
-        if state.fade is self.state().fade:
+        if state.fade is self._fade:
             return
         if state.generator is not self.generator:
             raise ValueError("RoundGraph.load: the state belongs to another "

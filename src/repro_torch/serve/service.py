@@ -14,9 +14,9 @@ One tick = ingestion → dirty set → compaction → solve → cache:
    set picks the bucket's size.
 3. **Compact + solve.** The dirty cells are padded into a pow2 bucket
    (``sched/compaction.py``) and solved by the fleet solver: the greedy
-   prefix sweep (through the prefix_eval kernel with
-   ``SchedConfig(use_kernel=True)``) or Algorithm 2, seeded with each
-   cell's previous exit multipliers (β unchanged bit for bit).
+   prefix sweep, always through the prefix_eval kernel (K7, which takes
+   its plain version only on CPU tensors), or Algorithm 2, seeded with
+   each cell's previous exit multipliers (β unchanged bit for bit).
 4. **Cache.** The results scatter back beside the channels they were
    solved for; the exit multipliers ride along for the next warm start.
 
@@ -24,8 +24,8 @@ Draws come from the fade state's ``torch.Generator``: the initial fade,
 the large-scale gain's draws (when shadowing or a disk layout is on),
 then each tick the fade innovation and, when ``update_frac < 1``, the
 report mask. The reference keys them by ``fold_in``; ``init_service``
-(``g0=``, ...) and ``tick`` (``w=``, ``report=``) take them instead, which
-is how tests feed both packages the same numbers.
+(``g0=``) and ``tick`` (``w=``, ``report=``) take them instead, which is
+how tests feed both packages the same numbers.
 """
 from __future__ import annotations
 
@@ -53,9 +53,8 @@ def _problem(cfg: ServeConfig, h: torch.Tensor) -> BatchedProblem:
 
 def init_service(cfg: ServeConfig,
                  generator: Union[int, torch.Generator] = 0, *,
-                 device=None, g0: Optional[torch.Tensor] = None,
-                 shadow: Optional[torch.Tensor] = None,
-                 radius_u: Optional[torch.Tensor] = None) -> ServeState:
+                 device=None, g0: Optional[torch.Tensor] = None
+                 ) -> ServeState:
     """Fresh service state on ``device`` (``None`` = CUDA): stationary
     fades, static large-scale gains and an empty cache. ``generator`` is
     a seed or a ``torch.Generator`` on that device. ``h_solved`` starts
@@ -66,8 +65,7 @@ def init_service(cfg: ServeConfig,
         dev = resolve_device(device)
         generator = torch.Generator(device=dev).manual_seed(int(generator))
     fades = init_fades(cfg.scenario, generator, g0=g0, device=dev)
-    gain = large_scale_gain(cfg.scenario, generator, shadow=shadow,
-                            radius_u=radius_u, device=dev)
+    gain = large_scale_gain(cfg.scenario, generator, device=dev)
     cells, U = gain.shape
     z = torch.zeros((cells, U), dtype=torch.float32, device=dev)
     return ServeState(
@@ -113,11 +111,11 @@ def _solve_dirty(cfg: ServeConfig, state: ServeState,
     mean_iters = float("nan")
     duals = state.duals
     if cfg.scheduler == "greedy_batched":
-        beta_s, bt_s, rt_s = greedy_solve_batched(prob, cfg.sched_cfg)
+        beta_s, bt_s, rt_s = greedy_solve_batched(prob, cfg.solver)
     else:
         duals_in = take(duals, idx) if cfg.warm else None
         beta_s, bt_s, rt_s, info = admm_solve_batched(
-            prob, cfg.sched_cfg, duals=duals_in, return_duals=True)
+            prob, cfg.solver, duals=duals_in, return_duals=True)
         mean_iters = float(info.iters.to(torch.float32).mean())
         if cfg.warm:
             duals = AdmmDuals(*(leaf.index_copy(0, idx, new) for leaf, new
@@ -171,8 +169,8 @@ def fresh_solve(cfg: ServeConfig, state: ServeState
     any batch)."""
     prob = _problem(cfg, state.h_seen)
     if cfg.scheduler == "greedy_batched":
-        return greedy_solve_batched(prob, cfg.sched_cfg)
-    return admm_solve_batched(prob, cfg.sched_cfg)
+        return greedy_solve_batched(prob, cfg.solver)
+    return admm_solve_batched(prob, cfg.solver)
 
 
 def run_ticks(cfg: ServeConfig, state: ServeState, n: int,

@@ -11,7 +11,7 @@ the ADMM exit multipliers that warm-start each cell's next solve.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 from typing import Any, NamedTuple, Optional
 
 import torch
@@ -31,6 +31,8 @@ class ServeConfig:
     """Static service parameters: one frozen config per deployment."""
     scenario: ScenarioConfig = field(default_factory=ScenarioConfig)
     scheduler: str = "admm_batched"     # SERVE_SCHEDULERS
+    # The solvers' constants; the service ignores its ``use_kernel`` and
+    # always sweeps greedy prefixes through prefix_eval (``solver``)
     sched_cfg: Optional[SchedConfig] = None
     # A cell re-solves only when its worst-worker relative channel
     # movement since its last solve exceeds this. 0 = any change re-solves
@@ -63,6 +65,13 @@ class ServeConfig:
         if self.stale_threshold < 0:
             raise ValueError(f"stale_threshold must be >= 0, got "
                              f"{self.stale_threshold}")
+
+    @property
+    def solver(self) -> SchedConfig:
+        """The config every solve of the service takes: ``sched_cfg``
+        with the greedy sweep through the prefix_eval kernel (K7), which
+        takes its plain version only on CPU tensors."""
+        return replace(self.sched_cfg or SchedConfig(), use_kernel=True)
 
     @property
     def warm(self) -> bool:

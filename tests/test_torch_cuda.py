@@ -722,7 +722,7 @@ def test_serve_cache_parity_on_card(cuda, scheduler):
     cfg = ServeConfig(scenario=ScenarioConfig(cells=384, workers=16,
                                               corr=0.999),
                       scheduler=scheduler, stale_threshold=0.0,
-                      update_frac=0.35, sched_cfg=SchedConfig(use_kernel=True))
+                      update_frac=0.35)
     build.reset_launch_counts()
     st, stats, _ = run_ticks(cfg, init_service(cfg, 1, device=cuda), 6)
     beta, b_t, rt = fresh_solve(cfg, st)
@@ -736,25 +736,41 @@ def test_serve_cache_parity_on_card(cuda, scheduler):
 
 @pytest.mark.cuda
 def test_prefix_eval_at_service_bucket(cuda):
-    """K7 at the 100k-cell service's first bucket, B = 131,072 (past grid
-    y's 65,535 limit; B runs on grid x) and U = 16, K_i = 3000: R equals
-    the plain version exactly."""
+    """K7 at the 100k-cell service's buckets, U = 16, K_i = 3000: the cold
+    first tick's B = 131,072 (past grid y's 65,535 limit; B runs on grid
+    x) and the steady ticks' B = 65,536. R equals the plain version
+    exactly."""
     from repro_torch.sched import ScenarioConfig, init_fades, magnitudes
     from repro_torch.sched.problem import BatchedProblem
     gen = torch.Generator(device=cuda).manual_seed(5)
-    h = magnitudes(init_fades(ScenarioConfig(cells=131072, workers=16),
-                              gen))
-    bp = BatchedProblem.from_arrays(
-        h, 3000.0, 10.0, 1e-4, D=50890, S=1000, kappa=1000,
-        const=AnalysisConstants(rho1=200.0, G=1.0))
-    caps = bp.caps()
-    order = torch.sort(-caps, dim=-1, stable=True).indices
-    caps_s = torch.gather(caps, -1, order)
-    k_s = torch.gather(bp.k_weights, -1, order)
-    coefs = pack_coefs(bp)
-    got = ops.prefix_eval(caps_s, k_s, coefs)
-    assert torch.equal(got, ref.prefix_eval_ref(caps_s, k_s, coefs))
-    beta, b_t, r = greedy_solve_batched(bp, SchedConfig(use_kernel=True))
-    want = greedy_solve_batched(bp, SchedConfig(use_kernel=False))
-    for x, y in zip((beta, b_t, r), want):
-        assert torch.equal(x, y)
+    for cells in (131072, 65536):
+        h = magnitudes(init_fades(ScenarioConfig(cells=cells, workers=16),
+                                  gen))
+        bp = BatchedProblem.from_arrays(
+            h, 3000.0, 10.0, 1e-4, D=50890, S=1000, kappa=1000,
+            const=AnalysisConstants(rho1=200.0, G=1.0))
+        caps = bp.caps()
+        order = torch.sort(-caps, dim=-1, stable=True).indices
+        caps_s = torch.gather(caps, -1, order)
+        k_s = torch.gather(bp.k_weights, -1, order)
+        coefs = pack_coefs(bp)
+        got = ops.prefix_eval(caps_s, k_s, coefs)
+        assert torch.equal(got, ref.prefix_eval_ref(caps_s, k_s, coefs))
+        beta, b_t, r = greedy_solve_batched(bp, SchedConfig(use_kernel=True))
+        want = greedy_solve_batched(bp, SchedConfig(use_kernel=False))
+        for x, y in zip((beta, b_t, r), want):
+            assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+def test_serve_cli_on_card_launches_prefix_eval(cuda, capsys):
+    """``python -m repro_torch.serve --scheduler greedy_batched`` on the
+    card (its default device) sweeps every tick's bucket through K7: at
+    threshold 0 every cell moves, so each of the 3 ticks launches it
+    once."""
+    from repro_torch.serve.cli import main as cli_main
+    build.reset_launch_counts()
+    assert cli_main(["--cells", "4096", "--scheduler", "greedy_batched",
+                     "--ticks", "3", "--threshold", "0.0"]) == 0
+    assert build.launch_counts()["prefix_eval"] == 3
+    assert "device=cuda" in capsys.readouterr().out

@@ -31,7 +31,7 @@ from repro.serve import ServeConfig as JServe
 from repro.serve import init_service as jinit
 from repro.serve import tick as jtick
 from repro_torch.core.channel import draw_cn
-from repro_torch.sched import ScenarioConfig
+from repro_torch.sched import SchedConfig, ScenarioConfig
 from repro_torch.serve import (ServeConfig, TickStats, fresh_solve, ingest,
                                init_service, movement, run_ticks,
                                slo_summary, tick)
@@ -213,6 +213,29 @@ def test_serve_cli_smoke(capsys):
     out = capsys.readouterr().out
     assert rc == 0 and "SLO:" in out and "hit_rate" in out
     assert "device=cpu" in out
+
+
+@pytest.mark.parametrize("sched_cfg", [None, SchedConfig(use_kernel=False)])
+def test_serve_greedy_goes_through_prefix_eval(monkeypatch, sched_cfg):
+    """The service sweeps greedy prefixes through the K7 wrapper whatever
+    ``sched_cfg.use_kernel`` says (on CPU tensors the wrapper takes its
+    plain version): one call a tick that solved, none outside it."""
+    import repro_torch.sched.greedy as greedy
+    calls = []
+    wrapped = greedy.prefix_eval
+
+    def counting(*a):
+        calls.append(a[0].shape)
+        return wrapped(*a)
+
+    monkeypatch.setattr(greedy, "prefix_eval", counting)
+    cfg = _serve_cfg(cells=40, scheduler="greedy_batched",
+                     stale_threshold=0.0, update_frac=1.0,
+                     sched_cfg=sched_cfg)
+    assert cfg.solver.use_kernel
+    _, stats, _ = run_ticks(cfg, init_service(cfg, 0, device="cpu"), 3)
+    assert len(calls) == sum(1 for s in stats if s.n_dirty) == 3
+    assert all(shape == (64, 16) for shape in calls)
 
 
 def test_serve_needs_cuda_by_default(monkeypatch):
