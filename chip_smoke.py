@@ -56,6 +56,16 @@ result line):
             8 timed ticks each: p50/p99 tick ms, hit rate, solved/s,
             served/s, the movement read and the solve apart; then the CLI
             ``python -m repro_torch.serve`` at the 100k row, through K7
+9.  lm      the LM trainer at gemma2-2b's full width (D = 2,614,222,080,
+            one card = one FL worker, batch 4 x 128, the CLI's
+            ``--cs-chunk 1024 --cs-measure 256 --cs-topk 64``, BIHT 10):
+            3 ``mean`` steps, the loss falling; 3 ``obcsaa`` steps, every
+            decoded chunk finite, at most decode_k nonzeros and of norm
+            ‖top-κ(g_chunk)‖; a timed step split into stages by CUDA
+            events, the largest leaves' ms, a profiled step, peak memory;
+            no launch of K1-K7 (the reference's trainer runs no Pallas
+            kernel); then ``python -m repro_torch.launch.train --arch
+            gemma2-2b --steps 2``
 
 Each path's launch counters are set to 0 just before it and read just
 after; a kernel of the path that was not launched fails the run.
@@ -1903,6 +1913,248 @@ def run_serve_phase(dev) -> dict:
     return counts["serve/slo-100k-greedy"]
 
 
+# -- phase 9 ------------------------------------------------------------------
+
+# the LM trainer's CLI defaults (src/repro/launch/train.py:153-205):
+# gemma2-2b at full width, batch 4 x 128 synthetic tokens, SGD at lr 3e-2,
+# chunks of 1024, S_c = 256, κ_c = 64, BIHT 10 (decode sparsity 128)
+LM_ARCH, LM_BATCH, LM_SEQ = "gemma2-2b", 4, 128
+LM_TRAIN = dict(learning_rate=3e-2, cs_chunk=1024, cs_measure=256,
+                cs_topk=64, biht_iters=10)
+LM_D = 2_614_222_080
+
+
+class StageClock:
+    """The train step's hook: a CUDA event where each stage ends and one
+    where the next begins, so whatever the hook does in between (the
+    leaf gates) is outside every interval. ``stages()`` sums the device
+    ms of forward+backward, compression, decode and update; ``leaves()``
+    gives each leaf's compression + decode ms."""
+
+    def __init__(self, gate=None):
+        self.gate = gate
+        self.marks = []
+
+    def _event(self):
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        return e
+
+    def start(self):
+        self.marks = [("start", -1, None, self._event())]
+
+    def __call__(self, stage, i, grad, out):
+        end = self._event()
+        if self.gate is not None and stage == "decode":
+            self.gate(i, grad, out)
+        self.marks.append((stage, i, end, self._event()))
+
+    def intervals(self):
+        torch.cuda.synchronize()
+        return [(stage, i, prev[3].elapsed_time(end))
+                for prev, (stage, i, end, _) in zip(self.marks,
+                                                    self.marks[1:])]
+
+    def stages(self) -> dict:
+        out = {"backward": 0.0, "compress": 0.0, "decode": 0.0,
+               "update": 0.0}
+        for stage, _, ms in self.intervals():
+            out[stage] += ms
+        return out
+
+    def leaves(self) -> dict:
+        per = {}
+        for stage, i, ms in self.intervals():
+            if stage in ("compress", "decode"):
+                per[i] = per.get(i, 0.0) + ms
+        return per
+
+
+class LeafGate:
+    """Phase 9's check of one decoded leaf against its gradient, chunk by
+    chunk: finite; at most ``decode_k`` nonzeros; with U = 1 and β = 1
+    magnitude tracking rescales a chunk to the norm it transmitted, so
+    its norm equals ‖top-κ(g_chunk)‖ (rtol 1e-4), where top-κ keeps every
+    entry tied with the κ-th magnitude, as the bisection selects (weight
+    gradients computed in bf16 hold many exact ties); a chunk whose
+    gradient is all zero decodes to exactly 0. The chunks are the decoded
+    ones before the cut back to the leaf's size: a leaf's last chunk
+    holds its zero-padded tail, where the decode may put mass."""
+
+    def __init__(self, ob, names):
+        self.ob, self.names = ob, names
+        self.chunks = self.zero = 0
+        self.max_nnz, self.max_rel = 0, 0.0
+
+    def __call__(self, i, grad, decoded):
+        ob = self.ob
+        pad = (-grad.numel()) % ob.chunk
+        g = torch.nn.functional.pad(grad.reshape(-1).float(), (0, pad))
+        g, o = g.reshape(-1, ob.chunk), decoded.reshape(-1, ob.chunk)
+        name = self.names[i]
+        if not bool(torch.isfinite(o).all()):
+            fail(f"lm obcsaa: decoded {name} is not finite")
+        nnz = int((o != 0).sum(-1).max())
+        if nnz > ob.decode_k:
+            fail(f"lm obcsaa: a decoded chunk of {name} has {nnz} nonzeros "
+                 f"> decode_k = {ob.decode_k}")
+        # the κ-th largest magnitude; every entry tied with it is sent too
+        kth = torch.topk(g.abs(), ob.topk, dim=-1).values[:, -1:]
+        want = torch.linalg.vector_norm(g * (g.abs() >= kth), dim=-1)
+        got = torch.linalg.vector_norm(o, dim=-1)
+        zero = want == 0
+        if bool((o[zero] != 0).any()):
+            fail(f"lm obcsaa: a chunk of {name} with an all-zero gradient "
+                 "decoded to nonzeros")
+        rel = float(((got - want).abs() / want.clamp(min=1e-30))[~zero]
+                    .max()) if bool((~zero).any()) else 0.0
+        if rel > 1e-4:
+            fail(f"lm obcsaa: {name}: a decoded chunk's norm is off "
+                 f"‖top-κ(g)‖ by {rel:.3e} relative (> 1e-4)")
+        self.chunks += g.shape[0]
+        self.zero += int(zero.sum())
+        self.max_nnz = max(self.max_nnz, nnz)
+        self.max_rel = max(self.max_rel, rel)
+
+
+def run_lm_phase(dev, card: str) -> dict:
+    """Phase 9: the LM trainer at gemma2-2b's full width, one card = one
+    FL worker. 3 ``mean`` steps (the loss finite and falling), then 3
+    ``obcsaa`` steps whose every decoded leaf is gated (``LeafGate``),
+    one more timed on the host clock with its stages split by CUDA
+    events, one under the profiler; the launch counters of K1-K7 must
+    read 0 over all of it (the reference's trainer calls no Pallas
+    kernel). Then ``python -m repro_torch.launch.train --arch gemma2-2b
+    --steps 2`` as a user starts it. Returns the path's launch counts."""
+    import gc
+
+    from repro_torch import tree
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.kernels import build
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.launch.train import make_batch
+    from repro_torch.models.registry import build_model
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(LM_ARCH)
+    model = build_model(cfg)
+    batch = make_batch(cfg, LM_BATCH, LM_SEQ, device=dev)
+    build.reset_launch_counts()
+    losses, step_s, peak = {}, {}, {}
+    for agg in ("mean", "obcsaa"):
+        tcfg = TrainConfig(aggregation=agg, **LM_TRAIN)
+        t0 = time.perf_counter()
+        params = model.init(0, device=dev)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        paths = tree.flatten_with_paths(params)[0]
+        D = sum(p.numel() for _, p in paths)
+        if D != LM_D or D != cfg.param_count():
+            fail(f"lm: D = {D:,}, want {LM_D:,} = param_count()")
+        opt_state = steps_lib.make_optimizer(tcfg).init(params)
+        step = steps_lib.make_train_step(model, tcfg)
+        losses[agg], step_s[agg] = [], []
+        gate = None
+        if agg == "obcsaa":
+            ob = steps_lib.obcsaa_config(tcfg)
+            gate = LeafGate(ob, [p for p, _ in paths])
+        clock = StageClock(gate)
+        torch.cuda.reset_peak_memory_stats()
+        for t in range(3):
+            ctx = steps_lib.default_round_ctx(seed=t, device=dev)
+            ctx["hook"] = clock
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            clock.start()
+            params, opt_state, m = step(params, opt_state, batch, ctx)
+            losses[agg].append(float(m["loss"]))
+            step_s[agg].append(time.perf_counter() - t0)
+        if not all(np.isfinite(losses[agg])):
+            fail(f"lm {agg}: a loss is not finite: {losses[agg]}")
+        log(f"lm {agg}: {cfg.name} D={D:,} (init {init_s:.2f} s); losses "
+            + ", ".join(f"{x:.4f}" for x in losses[agg])
+            + "; s per step (host clock, synchronised) "
+            + ", ".join(f"{x:.3f}" for x in step_s[agg]))
+        if agg == "mean":
+            peak["mean"] = torch.cuda.max_memory_allocated() / 2 ** 30
+            if not losses[agg][2] < losses[agg][1] < losses[agg][0]:
+                fail(f"lm mean: the loss does not fall: {losses[agg]}")
+        else:
+            log(f"lm obcsaa gates (3 steps): {gate.chunks:,} decoded chunks "
+                f"finite, at most {gate.max_nnz} nonzeros (decode_k "
+                f"{ob.decode_k}), norms = ‖top-κ(g)‖ within "
+                f"{gate.max_rel:.2e} relative, {gate.zero:,} all-zero "
+                f"chunks decoded to exactly 0")
+            # one more step, ungated: host s/step and the device stages
+            clock = StageClock()
+            ctx = steps_lib.default_round_ctx(seed=3, device=dev)
+            ctx["hook"] = clock
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            clock.start()
+            params, opt_state, m = step(params, opt_state, batch, ctx)
+            torch.cuda.synchronize()
+            ungated = time.perf_counter() - t0
+            peak["obcsaa"] = torch.cuda.max_memory_allocated() / 2 ** 30
+            st = clock.stages()
+            log(f"lm obcsaa step 3 (ungated): {ungated:.3f} s host clock, "
+                f"loss {float(m['loss']):.4f}; device ms: forward+backward "
+                f"{st['backward']:.1f}, compression {st['compress']:.1f}, "
+                f"decode {st['decode']:.1f}, update {st['update']:.1f} "
+                f"(sum {sum(st.values()):.1f})")
+            per = clock.leaves()
+            big = sorted(range(len(paths)),
+                         key=lambda i: -paths[i][1].numel())[:3]
+            log("lm obcsaa: the three largest leaves' aggregation ms "
+                "(compression + decode): " + ", ".join(
+                    f"{paths[i][0]} ({paths[i][1].numel():,}) "
+                    f"{per[i]:.1f}" for i in big))
+
+            def one_step():
+                nonlocal params, opt_state
+                ctx = steps_lib.default_round_ctx(seed=4, device=dev)
+                params, opt_state, _ = step(params, opt_state, batch, ctx)
+
+            wall, busy, events, _ = device_busy(one_step)
+            log(f"lm obcsaa, profiler, one step: wall {wall:.1f} ms, device "
+                f"busy {busy:.1f} ms ({100 * busy / wall:.1f}%)")
+            for e in sorted(events,
+                            key=lambda e: -e.self_device_time_total)[:6]:
+                log(f"  {e.self_device_time_total / 1e3:9.1f} ms  "
+                    f"{e.count:6d}x  {e.key[:70]}")
+        del params, opt_state, step
+        gc.collect()
+    counts = build.launch_counts()
+    expect_counts("lm (gemma2-2b, mean + obcsaa)", counts, {}, 0)
+    log(f"lm: s per step, median of steps 1-2: mean "
+        f"{median(step_s['mean'][1:]):.3f}, obcsaa (gated) "
+        f"{median(step_s['obcsaa'][1:]):.3f}; peak device memory "
+        f"(max_memory_allocated): 3 mean steps {peak['mean']:.2f} GiB, the "
+        f"ungated obcsaa step {peak['obcsaa']:.2f} GiB; {card}")
+    del batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the CLI as a user starts it: full width, obcsaa, on the card
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    r = subprocess.run([sys.executable, "-m", "repro_torch.launch.train",
+                        "--arch", LM_ARCH, "--steps", "2"], cwd=ROOT,
+                       env=env, capture_output=True, text=True, timeout=600)
+    if r.returncode:
+        fail(f"python -m repro_torch.launch.train exited {r.returncode}: "
+             f"{r.stderr.strip()[-2000:]}")
+    for line in r.stdout.strip().splitlines():
+        log(f"lm CLI: {line}")
+    log(f"lm CLI: exit 0 in {time.perf_counter() - t0:.1f} s; phase 9 took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
 SOURCES = {
     "topk_select": ("src/repro_torch/kernels/csrc/topk_select.cu",
                     "src/repro/kernels/topk_select.py:23"),
@@ -1962,6 +2214,7 @@ def main() -> None:
     paths["warm_iht"] = run_warm_phase(dev, fig3)["counts"]
     run_resume_phase(dev, fig3)
     paths["serve_100k"] = run_serve_phase(dev)
+    paths["lm"] = run_lm_phase(dev, card)
     kernels = []
     for name, r in results.items():
         source, replaces = SOURCES[name]

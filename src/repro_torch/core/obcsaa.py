@@ -4,7 +4,14 @@ Port of ``repro/core/obcsaa.py``, simulation mode (the paper's §V): per
 worker C(g) = sign(Φ · sparse_κ(g)) (eq. 7) on chunks of D_c, the
 power-controlled MAC superposition plus AWGN (eq. 8-12), post-processing
 (eq. 13), 1-bit CS decode through the ``repro_torch.decode`` registry
-(eq. 43). The shard-mapped production mode waits for the ``dist`` slice.
+(eq. 43).
+
+The production mode's names (``shardmap_compress``, ``shardmap_mac``,
+``shardmap_reconstruct``, ``shardmap_aggregate``) are here in their
+one-worker form: one card is one FL worker, so the over-the-air sum is
+that worker's own power-scaled symbols and ``ksum = K·β``. Their ``group``
+argument is where ``dist/`` will pass a process group for more workers;
+in this slice it must be ``None``.
 
 With ``use_kernels=True`` one round launches the CUDA kernels as one
 batch: every worker's chunks (U·n_chunks rows) go through ONE
@@ -23,6 +30,7 @@ from repro_torch.core.quantize import PACK, pack_signs, sign_pm1, unpack_signs
 from repro_torch.core.sparsify import topk_sparsify, topk_sparsify_bisect
 from repro_torch.decode import DecodeConfig
 from repro_torch.decode import decode as cs_decode
+from repro_torch.kernels.sign import unpack_bits
 
 
 @dataclass(frozen=True)
@@ -83,7 +91,7 @@ class OBCSAAConfig:
                             validate=self.decode_validate)
 
 
-# --- compression core ----------------------------------------------------------
+# --- compression core --------------------------------------------------------
 
 def compress_chunks(cfg: OBCSAAConfig, flat: torch.Tensor,
                     phi: torch.Tensor, presparsified: bool = False):
@@ -132,7 +140,7 @@ def reconstruct_chunks(cfg: OBCSAAConfig, y: torch.Tensor,
     return (flat, raw) if return_raw else flat
 
 
-# --- simulation mode (paper §V) ------------------------------------------------
+# --- simulation mode (paper §V) ----------------------------------------------
 
 def simulate_round(cfg: OBCSAAConfig, grads_flat: torch.Tensor,
                    k_weights: torch.Tensor, beta: torch.Tensor, b_t,
@@ -173,6 +181,98 @@ def simulate_round(cfg: OBCSAAConfig, grads_flat: torch.Tensor,
     diag = {"denom": denom, "mbar_mean": torch.mean(mbar),
             "y_rms": torch.sqrt(torch.mean(y ** 2)), "decode_xhat": xraw}
     return ghat[:D], diag
+
+
+# --- production mode, one worker (the LM trainer) ----------------------------
+
+def _one_worker(group) -> None:
+    if group is not None:
+        raise NotImplementedError(
+            "the shard-mapped aggregation takes one worker (group=None) in "
+            "this slice; more workers need dist/collectives (ROADMAP.md "
+            "Queue 1, item 7)")
+
+
+def _f32(x, device) -> torch.Tensor:
+    return torch.as_tensor(x, dtype=torch.float32, device=device)
+
+
+def shardmap_compress(cfg: OBCSAAConfig, local_flat: torch.Tensor,
+                      group=None, *, k_weight, beta_i, b_t,
+                      phi: Optional[torch.Tensor] = None, wire_dtype=None):
+    """Worker-side half: compress this worker's gradient (eq. 7), scale by
+    the power factor (eq. 10-11) and superpose over the MAC (eq. 12).
+    Returns ``(y, ksum, mag_sum)``, what ``shardmap_reconstruct`` needs;
+    ``wire_dtype`` narrows the transmitted symbols (ignored when
+    ``cfg.packed``)."""
+    phi = cfg.phi(local_flat.device) if phi is None else phi
+    signs, mags = compress_chunks(cfg, local_flat, phi)
+    return shardmap_mac(cfg, signs, mags, group, k_weight=k_weight,
+                        beta_i=beta_i, b_t=b_t, wire_dtype=wire_dtype)
+
+
+def shardmap_mac(cfg: OBCSAAConfig, signs, mags, group=None, *, k_weight,
+                 beta_i, b_t, wire_dtype=None):
+    """MAC superposition of already-compressed symbols (eq. 12). With
+    ``cfg.packed`` the words become the exact integer lane sums β·(2·bit
+    − 1), scaled by K·b_t after the sum; otherwise the f32 (or
+    ``wire_dtype``) symbols times K·β·b_t. Returns ``(y, ksum,
+    mag_sum)``; ``mag_sum`` is None without magnitude tracking."""
+    _one_worker(group)
+    dev = signs.device
+    k_weight, beta_i, b_t = (_f32(k_weight, dev), _f32(beta_i, dev),
+                             _f32(b_t, dev))
+    if cfg.packed:
+        contrib = 2 * unpack_bits(signs, torch.int32) - 1
+        s_int = contrib * beta_i.to(torch.int32)
+        y = s_int.to(torch.float32) * (k_weight * b_t)       # eq. (12)
+    else:
+        wd = wire_dtype or signs.dtype
+        y = signs.to(wd) * (k_weight * beta_i * b_t).to(wd)  # eq. (12)
+    ksum = k_weight * beta_i
+    mag_sum = (mags * ksum.to(mags.dtype) if cfg.magnitude_tracking
+               else None)
+    return y, ksum, mag_sum
+
+
+def shardmap_reconstruct(cfg: OBCSAAConfig, y: torch.Tensor, ksum,
+                         mag_sum=None, *, b_t,
+                         phi: Optional[torch.Tensor] = None,
+                         generator: Optional[torch.Generator] = None,
+                         noise: Optional[torch.Tensor] = None,
+                         decode_x0=None) -> torch.Tensor:
+    """PS-side half: AWGN + post-processing (eq. 13) + 1-bit CS decode
+    (eq. 43). ``noise`` is the AWGN (n_chunks, S_c); when it is not given
+    it is drawn from ``generator`` at ``cfg.noise_var``."""
+    dev = y.device
+    phi = cfg.phi(dev) if phi is None else phi
+    ksum, b_t = _f32(ksum, dev), _f32(b_t, dev)
+    denom = torch.clamp(ksum * b_t, min=1e-12)
+    if noise is None:
+        noise = chan.draw_noise(generator, y.shape, cfg.noise_var,
+                                device=dev)
+    y = (y.to(torch.float32) + noise) / denom                 # eq. (13)
+    mbar = (mag_sum / torch.clamp(ksum, min=1e-12)
+            if (cfg.magnitude_tracking and mag_sum is not None) else None)
+    return reconstruct_chunks(cfg, y, mbar, phi, x0=decode_x0)
+
+
+def shardmap_aggregate(cfg: OBCSAAConfig, local_flat: torch.Tensor,
+                       group=None, *, k_weight, beta_i, b_t,
+                       n_workers: int = 1,
+                       phi: Optional[torch.Tensor] = None,
+                       generator: Optional[torch.Generator] = None,
+                       noise: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
+    """Compress, superpose and decode one worker's (D_pad,) gradient;
+    returns the reconstructed global gradient, as the PS broadcasts it."""
+    del n_workers  # implied by group; kept for call-site stability
+    phi = cfg.phi(local_flat.device) if phi is None else phi
+    y, ksum, mag_sum = shardmap_compress(cfg, local_flat, group,
+                                         k_weight=k_weight, beta_i=beta_i,
+                                         b_t=b_t, phi=phi)
+    return shardmap_reconstruct(cfg, y, ksum, mag_sum, b_t=b_t, phi=phi,
+                                generator=generator, noise=noise)
 
 
 def comm_stats(cfg: OBCSAAConfig, D: int) -> dict:

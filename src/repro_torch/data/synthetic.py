@@ -1,10 +1,11 @@
-"""Deterministic synthetic MNIST: a copy of the NumPy code of
-``repro/data/synthetic.py`` (``synthetic_mnist``), so the port makes the
-same arrays from the same seed without importing the JAX package.
+"""Deterministic synthetic datasets: a copy of the NumPy code of
+``repro/data/synthetic.py``, so the port makes the same arrays from the
+same seed without importing the JAX package.
 
-28x28 grayscale "digits" built from per-class stroke templates + jitter +
-pixel noise: learnable by the paper's 784-64-10 MLP, and available with
-no network access.
+- ``synthetic_mnist``: 28x28 grayscale "digits" built from per-class
+  stroke templates + jitter + pixel noise: learnable by the paper's
+  784-64-10 MLP, and available with no network access.
+- ``token_stream``: integer token streams for the LM trainer.
 """
 from __future__ import annotations
 
@@ -61,3 +62,13 @@ def synthetic_mnist(n_train: int = 60000, n_test: int = 10000,
     x = np.clip(x * scale[:, None, None] + noise, 0.0, 1.0)
     x = x.reshape(n, 784)
     return x[:n_train], y[:n_train], x[n_train:], y[n_train:]
+
+
+def token_stream(n_seqs: int, seq_len: int, vocab: int,
+                 seed: int = 0) -> Tuple[np.ndarray, np.ndarray]:
+    """Markov-ish token streams: (tokens, targets=next-token)."""
+    rng = np.random.default_rng(seed)
+    base = rng.integers(0, vocab, (n_seqs, seq_len + 1), dtype=np.int64)
+    # inject local structure: every other token repeats with offset
+    base[:, 2::2] = (base[:, 1:-1:2] + 1) % vocab
+    return base[:, :-1].astype(np.int32), base[:, 1:].astype(np.int32)

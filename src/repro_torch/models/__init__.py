@@ -1,1 +1,2 @@
-"""Models of the port: the paper's §V MLP (``mlp_mnist``)."""
+"""Models of the port: the paper's §V MLP (``mlp_mnist``) and the dense
+GQA decoders (``transformer``), behind ``registry.build_model``."""

@@ -22,7 +22,8 @@ Params = Dict[str, torch.Tensor]
 def init_mlp_mnist(seed: int = 0, d_in: int = 784, d_hidden: int = 64,
                    n_classes: int = 10, device=None) -> Params:
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = (None if dev.type == "meta"          # shapes only
+           else torch.Generator(device=dev).manual_seed(seed))
     return {
         "w1": he_init(gen, (d_in, d_hidden), device=dev),
         "b1": torch.zeros((d_hidden,), device=dev),

@@ -1,0 +1,313 @@
+"""The port's LM trainer (``repro_torch.launch``) against
+``repro.launch`` on the gemma2 smoke model (2 layers, d_model 256, vocab
+512, window 64) at batch 2 × 128 tokens, one FL worker; the reference's
+weights, Φ and per-leaf AWGN (``fold_in(key, i)``) are injected.
+
+Tolerances:
+- exact: ``_shard_aligned_perm``, checkpoints across the two packages
+  (both directions, every leaf bit for bit), resume ≡ uninterrupted on the
+  CPU.
+- per-leaf aggregation of the reference's f32 gradient: a compressed sign
+  may differ only where the projection is borderline
+  (|x·Φ_s| ≤ 2·D_c·2⁻²⁴·‖x‖·‖Φ_s‖); each decoded leaf NMSE ≤ 1e-6 and its
+  support overlap ≥ 0.99 (one flipped lane changes every later BIHT
+  iterate; about 1e-14 and 1.0 seen).
+- ``mean`` in the model's bf16, 2 SGD steps: each step's loss rtol 2e-4,
+  each parameter leaf's distance from the reference ≤ 3e-2 of its
+  movement ‖p₂ − p₀‖ (bf16 gradients agree to ~1.5%).
+- ``obcsaa`` in f32 (``scaled(cfg, dtype="float32")``), 2 steps: loss
+  rtol 1e-5 at step 0, each leaf within 1e-4 of its movement (~2e-6
+  seen). In bf16 the 1-bit uplink turns the rounding differences of the
+  gradient into other top-κ selections and signs, so the comparison is
+  made in f32.
+"""
+import os
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro import configs as jcfg
+from repro.core import channel as jchan
+from repro.core import obcsaa as job
+from repro.launch import steps as jsteps
+from repro.launch.mesh import make_host_mesh
+from repro.models.registry import build_model as jbuild
+from repro_torch import configs as tcfg
+from repro_torch import tree
+from repro_torch.convert import lm_params_from_reference
+from repro_torch.core import obcsaa as tob
+from repro_torch.core.sparsify import topk_sparsify_bisect
+from repro_torch.data import token_stream
+from repro_torch.launch import steps as tsteps
+from repro_torch.launch import train as ttrain
+from repro_torch.models.registry import build_model as tbuild
+
+ROOT = os.path.join(os.path.dirname(__file__), "..")
+CS = dict(cs_chunk=1024, cs_measure=256, cs_topk=64, biht_iters=10,
+          learning_rate=3e-2)
+B, S = 2, 128
+
+
+def _np(a):
+    return np.array(a, copy=True)
+
+
+def _t(a):
+    return torch.from_numpy(_np(a))
+
+
+def _setup(dtype=None):
+    jc, tc = (jcfg.get_smoke_config("gemma2-2b"),
+              tcfg.get_smoke_config("gemma2-2b"))
+    if dtype:
+        jc, tc = jcfg.scaled(jc, dtype=dtype), tcfg.scaled(tc, dtype=dtype)
+    jm, tm = jbuild(jc), tbuild(tc)
+    jp = jm.init(jax.random.PRNGKey(0))
+    tok, tgt = token_stream(B, S, jc.vocab_size, seed=0)
+    return (jm, tm, jp, {"tokens": jnp.asarray(tok),
+                         "targets": jnp.asarray(tgt)},
+            {"tokens": torch.from_numpy(tok),
+             "targets": torch.from_numpy(tgt)})
+
+
+def _port_params(jp):
+    return lm_params_from_reference(jax.tree_util.tree_map(np.asarray, jp),
+                                    device="cpu")
+
+
+def _ref_noises(ob, key, leaves):
+    """Leaf i's AWGN as the reference draws it: fold_in(key, i)."""
+    return [_t(jchan.draw_noise(jax.random.fold_in(key, i),
+                                (-(-leaf.size // ob.chunk), ob.measure),
+                                ob.noise_var))
+            for i, leaf in enumerate(leaves)]
+
+
+@pytest.fixture(scope="module")
+def f32():
+    return _setup("float32")
+
+
+def test_aggregate_tree_injected(f32):
+    jm, _, jp, jb, _ = f32
+    grads = jax.jit(jax.grad(lambda p: jm.loss_fn(p, jb, remat=False)[0]))(jp)
+    jt = jcfg.TrainConfig(aggregation="obcsaa", **CS)
+    jo = jsteps.obcsaa_config(jt)
+    to = tsteps.obcsaa_config(tcfg.TrainConfig(aggregation="obcsaa", **CS))
+    assert to.spmd_topk and not to.use_kernels and to.decode_k == 128
+    key = jax.random.PRNGKey(5)
+    want = jax.jit(lambda g: jsteps.obcsaa_aggregate_tree(
+        jo, g, (), k_weight=jnp.float32(1), beta_i=jnp.float32(1),
+        b_t=jnp.float32(1), noise_key=key))(grads)
+    phi = _np(jo.phi())
+    leaves = jax.tree_util.tree_leaves(grads)
+    got = tsteps.obcsaa_aggregate_tree(
+        to, _port_params(grads), k_weight=1.0, beta_i=torch.tensor(1.0),
+        b_t=torch.tensor(1.0), noises=_ref_noises(jo, key, leaves),
+        phi=_t(phi))
+    # the compressed signs of every leaf's chunks (rows are independent:
+    # one call for all of them) differ only below the borderline bound
+    chunks = np.concatenate([
+        np.pad(_np(leaf).ravel(), (0, (-leaf.size) % 1024)).reshape(-1, 1024)
+        for leaf in leaves])
+    js, _ = jax.jit(lambda c: job.compress_chunks(jo, c, jnp.asarray(phi)))(
+        jnp.asarray(chunks))
+    ts, _ = tob.compress_chunks(to, _t(chunks), _t(phi))
+    sparse = _np(topk_sparsify_bisect(_t(chunks), 64, iters=40)[0])
+    acc = sparse.astype(np.float64) @ phi.astype(np.float64).T
+    lim = 2 * 1024 * 2.0 ** -24 * np.outer(np.linalg.norm(sparse, axis=1),
+                                           np.linalg.norm(phi, axis=1))
+    assert not ((ts.numpy() != _np(js)) & (np.abs(acc) > lim)).any()
+    for (path, w), g in zip(jax.tree_util.tree_leaves_with_path(want),
+                            tree.leaves(got)):
+        w, g = _np(w).ravel(), g.numpy().ravel()
+        assert g.shape == w.shape and np.isfinite(g).all()
+        nmse = np.sum((g - w) ** 2) / np.sum(w ** 2)
+        overlap = np.sum((g != 0) & (w != 0)) / max(np.sum(w != 0), 1)
+        key_ = jax.tree_util.keystr(path)
+        assert nmse <= 1e-6 and overlap >= 0.99, (key_, nmse, overlap)
+
+
+def _run_steps(agg, setup, n=2):
+    jm, tm, jp, jb, tb = setup
+    mesh = make_host_mesh()
+    jt = jcfg.TrainConfig(aggregation=agg, **CS)
+    tt = tcfg.TrainConfig(aggregation=agg, **CS)
+    jstep = jax.jit(jsteps.make_train_step(jm, jt, mesh))
+    tstep = tsteps.make_train_step(tm, tt)
+    jo = jsteps.obcsaa_config(jt)
+    p, o = jp, jsteps.make_optimizer(jt).init(jp)
+    tp = _port_params(jp)
+    to = tsteps.make_optimizer(tt).init(tp)
+    losses = []
+    for s in range(n):
+        ctx = jsteps.default_round_ctx(mesh, seed=s)
+        tctx = tsteps.default_round_ctx(seed=s, device="cpu")
+        if agg == "obcsaa":
+            tctx["phi"] = _t(jo.phi())
+            tctx["noise"] = _ref_noises(jo, ctx["key"],
+                                        jax.tree_util.tree_leaves(jp))
+        p, o, m = jstep(p, o, jb, ctx)
+        tp, to, tm_ = tstep(tp, to, tb, tctx)
+        losses.append((float(tm_["loss"]), float(m["loss"])))
+    moved = []
+    for (path, a), b, a0 in zip(jax.tree_util.tree_leaves_with_path(p),
+                                tree.leaves(tp),
+                                jax.tree_util.tree_leaves(jp)):
+        a, a0 = _np(a), _np(a0)
+        moved.append((jax.tree_util.keystr(path),
+                      np.linalg.norm(b.numpy() - a)
+                      / np.linalg.norm(a - a0)))
+    return losses, moved
+
+
+def test_mean_steps_match_reference():
+    losses, moved = _run_steps("mean", _setup())
+    for got, want in losses:
+        assert got == pytest.approx(want, rel=2e-4)
+    assert losses[1][0] < losses[0][0]
+    for path, share in moved:
+        assert share <= 3e-2, (path, share)
+
+
+def test_obcsaa_steps_match_reference(f32):
+    losses, moved = _run_steps("obcsaa", f32)
+    assert losses[0][0] == pytest.approx(losses[0][1], rel=1e-5)
+    assert losses[1][0] == pytest.approx(losses[1][1], rel=1e-4)
+    for path, share in moved:
+        assert share <= 1e-4, (path, share)
+
+
+@pytest.mark.parametrize("shape,spec", [
+    ((256, 512), (None, "model")), ((2, 256, 4, 64), (None, None, "model")),
+    ((512,), None), ((3, 5), ("data", None)),
+    ((4, 6, 8), (("data", "model"),)),
+    ((4, 6, 8), (None,)), ((7, 9), ("model",))])
+def test_shard_aligned_perm_exact(shape, spec):
+    assert tsteps._shard_aligned_perm(shape, spec) == \
+        jsteps._shard_aligned_perm(shape, spec)
+
+
+def test_shard_aligned_aggregate_permutes_back():
+    """A leaf chunked along its model-sharded dim decodes to the leaf's
+    own layout: equal to aggregating the permuted leaf and permuting the
+    result back."""
+    to = tsteps.obcsaa_config(tcfg.TrainConfig(aggregation="obcsaa", **CS))
+    rng = np.random.default_rng(0)
+    g = torch.from_numpy(rng.standard_normal((8, 300)).astype(np.float32))
+    phi = to.phi("cpu")
+    kw = dict(k_weight=1.0, beta_i=1.0, b_t=1.0, phi=phi,
+              noises=[torch.zeros((3, 256))])
+    got = tsteps.obcsaa_aggregate_tree(to, {"w": g}, specs=[(None, "model")],
+                                       **kw)["w"]
+    want = tsteps.obcsaa_aggregate_tree(to, {"w": g.T.contiguous()},
+                                        **kw)["w"].T
+    assert got.shape == g.shape and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("optimizer", ["sgd", "adam"])
+def test_checkpoint_across_packages(tmp_path, optimizer):
+    jm, tm, jp, _, _ = _setup("float32")
+    mesh = make_host_mesh()
+    jt = jcfg.TrainConfig(optimizer=optimizer)
+    tt = tcfg.TrainConfig(optimizer=optimizer)
+    jo = jsteps.make_optimizer(jt).init(jp)
+    if optimizer == "adam":
+        jo = dict(jo, t=jnp.int32(7),
+                  m=jax.tree_util.tree_map(lambda x: x + 0.5, jo["m"]))
+    # reference -> port
+    jsteps.save_train_state(str(tmp_path / "j"), 3, jp, jo)
+    tp, to, step = tsteps.restore_train_state(str(tmp_path / "j"), tm, tt,
+                                              "cpu")
+    assert step == 3
+    want = jax.tree_util.tree_leaves({"opt_state": jo, "params": jp})
+    got = tree.leaves({"opt_state": to, "params": tp})
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a.numpy(), _np(b))
+    # port -> reference
+    tp["layers"]["mlp"]["w1"] = tp["layers"]["mlp"]["w1"] * 2.0
+    tsteps.save_train_state(str(tmp_path / "t"), 5, tp, to)
+    rp, ro, rstep = jsteps.restore_train_state(str(tmp_path / "t"), jm, jt,
+                                               mesh)
+    assert rstep == 5
+    for a, b in zip(tree.leaves({"opt_state": to, "params": tp}),
+                    jax.tree_util.tree_leaves({"opt_state": ro,
+                                               "params": rp})):
+        np.testing.assert_array_equal(a.numpy(), _np(b))
+
+
+def test_default_round_ctx():
+    ctx = tsteps.default_round_ctx(seed=4, device="cpu")
+    assert ctx["h"].tolist() == [1.0] and ctx["beta"].tolist() == [1.0]
+    assert float(ctx["b_t"]) == 1.0 and ctx["generator"].initial_seed() == 4
+
+
+def test_cli_smoke_subprocess():
+    """``python -m repro_torch.launch.train --device cpu --smoke --steps
+    2`` exits 0 (the default aggregation is obcsaa)."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    r = subprocess.run([sys.executable, "-m", "repro_torch.launch.train",
+                        "--device", "cpu", "--smoke", "--steps", "2"],
+                       capture_output=True, text=True, env=env, timeout=300)
+    assert r.returncode == 0, r.stderr
+    lines = [ln for ln in r.stdout.splitlines() if ln.startswith("step")]
+    assert len(lines) == 2 and "D=1,312,000" in r.stdout
+
+
+def _final_params(ckpt, steps):
+    tm = tbuild(tcfg.get_smoke_config("gemma2-2b"))
+    got = tsteps.restore_train_state(ckpt, tm, tcfg.TrainConfig(), "cpu")
+    assert got[2] == steps
+    return tree.leaves(got[0])
+
+
+def test_cli_resume_equals_uninterrupted(tmp_path, capsys):
+    base = ["--device", "cpu", "--smoke", "--seq", "64", "--batch", "1"]
+    a, b = str(tmp_path / "a"), str(tmp_path / "b")
+    assert ttrain.main(base + ["--steps", "3", "--ckpt-dir", a]) == 0
+    assert ttrain.main(base + ["--steps", "2", "--ckpt-dir", b]) == 0
+    assert ttrain.main(base + ["--steps", "3", "--ckpt-dir", b,
+                               "--resume"]) == 0
+    assert "resumed from step 2" in capsys.readouterr().out
+    assert all(torch.equal(x, y) for x, y in
+               zip(_final_params(a, 3), _final_params(b, 3)))
+
+
+@pytest.mark.parametrize("argv", [["--zoo-train"], ["--arms", "3"],
+                                  ["--scan-rounds", "4"],
+                                  ["--data", "/nonexistent"],
+                                  ["--error-feedback"]])
+def test_cli_later_flags_exit_nonzero(argv):
+    with pytest.raises(SystemExit) as e:
+        ttrain.main(["--device", "cpu", "--smoke", "--steps", "1"] + argv)
+    assert e.value.code not in (0, None)
+    assert "not ported yet" in str(e.value.code)
+    assert "ROADMAP.md Queue 1" in str(e.value.code)
+
+
+def test_cli_without_card_raises():
+    """No ``--device`` means CUDA; without a card that is an error, never
+    a fall back to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default would run there")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ttrain.main(["--smoke", "--steps", "1"])
+
+
+def test_cli_serve_dispatch(capsys):
+    assert ttrain.main(["--serve", "--device", "cpu", "--cells", "64",
+                        "--ticks", "1"]) == 0
+    assert "tick" in capsys.readouterr().out
+
+
+def test_one_worker_only():
+    cfg = tob.OBCSAAConfig(chunk=1024, measure=256, topk=64)
+    with pytest.raises(NotImplementedError, match="one worker"):
+        tob.shardmap_mac(cfg, torch.ones((1, 256)), torch.ones(1), "data",
+                         k_weight=1.0, beta_i=1.0, b_t=1.0)
