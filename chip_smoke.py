@@ -66,6 +66,19 @@ result line):
             no launch of K1-K7 (the reference's trainer runs no Pallas
             kernel); then ``python -m repro_torch.launch.train --arch
             gemma2-2b --steps 2``
+10. decode  the LM decode path at full width, f32: (10a) gemma2-2b, B = 2,
+            ``make_seeded_prefill`` over a 4,160-token prompt (past the
+            4,096 window) into a 4,176-long cache, 16 decode steps on
+            their own argmax, the 16 decode logits against the full
+            forward's last 16 positions at the reference test's gate
+            (argmax equal, rtol = atol = 2e-2), and the same decode with
+            window 0 beside it; (10b) deepseek-v2-lite-16b (MLA, 64
+            experts top-6 + 2 shared, D = 16,210,324,992), B = 4, prompt
+            32, capacity_factor 8, the same gate and no dropped route;
+            init s, prefill ms, ms per decode step, tokens/s, peak memory
+            and the device-busy share of decode steps; (10c) ``python -m
+            repro_torch.launch.decode_demo --arch gemma2-2b --batch 4
+            --prompt-len 32 --gen 16`` in bf16; no launch of K1-K7
 
 Each path's launch counters are set to 0 just before it and read just
 after; a kernel of the path that was not launched fails the run.
@@ -760,19 +773,20 @@ def median(xs):
     return float(np.median(np.asarray(xs)))
 
 
-def device_busy(fn):
+def device_busy(fn, setup: bool = True):
     """torch.profiler around one ``fn()`` (after a first profiled call
-    that sets CUPTI up). Returns (wall ms, device-busy ms, device events,
-    every event's self device time in ms): the busy time sums the events
+    that sets CUPTI up, unless ``setup`` is false). Returns (wall ms,
+    device-busy ms, device events, every event's self device time in ms): the busy time sums the events
     that ran on the card (kernels, copies, fills). The last number counts
     a kernel twice when an aten op launched it (``aten::bmm`` carries its
     GEMMs' time); it is printed to compare with records that used it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    with profile(activities=acts):
-        fn()
-        torch.cuda.synchronize()
+    if setup:
+        with profile(activities=acts):
+            fn()
+            torch.cuda.synchronize()
     with profile(activities=acts) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2155,6 +2169,218 @@ def run_lm_phase(dev, card: str) -> dict:
     return counts
 
 
+# -- phase 10 -----------------------------------------------------------------
+
+# 10a: gemma2-2b in f32, B = 2, a prompt past the 4,096-token window so the
+# local layers' mask bites; 10b: deepseek-v2-lite-16b in f32 (60.39 GiB),
+# B = 4, capacity_factor 8 as tests/test_decode_consistency.py sets it so
+# that prefill and decode compute the same function; 10c: the decode demo's
+# CLI in the model's own bf16
+DECODE_CELLS = (("10a", "gemma2-2b", 2, 4160, 2_614_222_080),
+                ("10b", "deepseek-v2-lite-16b", 4, 32, 16_210_324_992))
+DECODE_GEN = 16
+
+
+def _decode(model, params, cache, first, start: int, feed=None):
+    """``DECODE_GEN`` steps from ``pos = start``, each on the previous
+    step's argmax (from ``first``) or on ``feed``'s tokens. Returns the
+    logits (B, G, V), the tokens fed (B, G) and each step's host ms
+    (synchronised)."""
+    tok, logits, fed, ms = first, [], [], []
+    for i in range(DECODE_GEN):
+        if feed is not None:
+            tok = feed[:, i:i + 1]
+        fed.append(tok)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, cache = model.decode_step(params, cache, tok, start + i)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        logits.append(out[:, 0])
+        tok = torch.argmax(out[:, -1], dim=-1)[:, None].to(torch.int32)
+    return torch.stack(logits, dim=1), torch.cat(fed, dim=1), ms
+
+
+def run_decode_cell(dev, card: str, label: str, arch: str, B: int, P: int,
+                    D_want: int) -> None:
+    """One full-width model: ``make_seeded_prefill`` over a P-token
+    prompt into a (P + 16)-long cache, 16 decode steps on the argmax of
+    the step before, then the full forward over the same P + 16 tokens;
+    its last 16 positions (the tail alone unembedded) must agree with the
+    16 decode logits at the reference test's gate: argmax equal, rtol =
+    atol = 2e-2."""
+    import dataclasses
+    import gc
+
+    from repro_torch import tree
+    from repro_torch.configs import get_config, scaled
+    from repro_torch.launch.steps import make_seeded_prefill
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.models import transformer
+    from repro_torch.models.layers import unembed
+    from repro_torch.models.registry import build_model
+
+    cfg = scaled(get_config(arch), dtype="float32")
+    if cfg.moe is not None:
+        cfg = dataclasses.replace(
+            cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=8.0))
+    model = build_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    D = sum(p.numel() for p in tree.leaves(params))
+    if D != D_want or D != cfg.param_count():
+        fail(f"{label} {arch}: D = {D:,}, want {D_want:,} = param_count()")
+    drops = []
+    dispatch = moe_lib._dispatch
+
+    def counted(idx, E, capacity):
+        flat, slot, keep = dispatch(idx, E, capacity)
+        drops.append((~keep).sum())
+        return flat, slot, keep
+
+    moe_lib._dispatch = counted
+    try:
+        gen = torch.Generator(device="cpu").manual_seed(0)
+        prompt = torch.randint(0, cfg.vocab_size, (B, P), generator=gen,
+                               dtype=torch.int32).to(dev)
+        total = P + DECODE_GEN
+        seeded = make_seeded_prefill(model, total)
+        prefill_ms = []
+        for _ in range(2):      # cold (the process's first such GEMMs), warm
+            cache = None
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache, offset = seeded(params, {"tokens": prompt})
+            first = torch.argmax(logits[:, -1], dim=-1)[:, None].to(
+                torch.int32)
+            torch.cuda.synchronize()
+            prefill_ms.append((time.perf_counter() - t0) * 1e3)
+            del logits
+        if offset != P:
+            fail(f"{label}: seeded prefill offset {offset} != {P}")
+        dec, fed, step_ms = _decode(model, params, cache, first, P)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+
+        def steps4():
+            # the last four steps again: the same tokens at the same
+            # positions rewrite the same cache rows
+            for i in range(DECODE_GEN - 4, DECODE_GEN):
+                model.decode_step(params, cache, fed[:, i:i + 1], P + i)
+
+        wall, busy, events, _ = device_busy(steps4)
+        top = [("decode, 4 steps", events)]
+        # one more prefill under the profiler (CUPTI is set up by now)
+        wall_p, busy_p, events_p, _ = device_busy(
+            lambda: seeded(params, {"tokens": prompt}), setup=False)
+        top.append(("prefill", events_p))
+        with torch.no_grad():
+            hidden, _, _ = transformer.lm_forward(
+                params, cfg, torch.cat([prompt, fed], dim=1), remat=False,
+                return_hidden=True)
+            full = unembed(hidden[:, P:], embedding=params.get("embedding")
+                           if cfg.tie_embeddings else None,
+                           lm_head=params.get("lm_head"),
+                           final_softcap=cfg.final_logit_softcap)
+        del hidden
+        n_drop = int(torch.stack(drops).sum()) if drops else 0
+    finally:
+        moe_lib._dispatch = dispatch
+    err = float((full - dec).abs().max())
+    same = bool(torch.equal(full.argmax(-1), dec.argmax(-1)))
+    ok = bool(torch.allclose(dec, full, rtol=2e-2, atol=2e-2))
+    if not torch.isfinite(dec).all():
+        fail(f"{label} {arch}: non-finite decode logits")
+    if not (same and ok):
+        fail(f"{label} {arch}: decode != forward over the last "
+             f"{DECODE_GEN} positions (argmax equal {same}, max |diff| "
+             f"{err:.3e}, gate rtol = atol = 2e-2)")
+    log(f"{label} {arch}: D={D:,} f32, B={B}, prompt {P}, cache {total}; "
+        f"init {init_s:.2f} s; prefill {prefill_ms[0]:.1f} ms cold, "
+        f"{prefill_ms[1]:.1f} ms warm; decode ms per "
+        f"step (host clock, synchronised) median {median(step_ms):.2f}, "
+        f"min {min(step_ms):.2f}, max {max(step_ms):.2f} (16 steps: "
+        + ", ".join(f"{x:.2f}" for x in step_ms) + f"); "
+        f"{1e3 * B / median(step_ms):.1f} tokens/s at the median step; "
+        f"peak device memory {peak:.2f} GiB; profiler, 4 decode steps: "
+        f"wall {wall:.1f} ms, device busy {busy:.1f} ms "
+        f"({100 * busy / wall:.1f}%); profiler, one prefill: wall "
+        f"{wall_p:.1f} ms, device busy {busy_p:.1f} ms "
+        f"({100 * busy_p / wall_p:.1f}%); {card}")
+    for what, evs in top:
+        log(f"{label} {arch}: top device events, {what} "
+            f"({sum(e.count for e in evs):,} on the card in all):")
+        for e in sorted(evs, key=lambda e: -e.self_device_time_total)[:6]:
+            log(f"  {e.self_device_time_total / 1e3:9.2f} ms  "
+                f"{e.count:6d}x  {e.key[:90]}")
+    log(f"{label} {arch}: decode = forward over the last {DECODE_GEN} "
+        f"positions: argmax equal, max |diff| {err:.3e} (gate rtol = atol = "
+        f"2e-2)" + (f"; dropped routes {n_drop} (prefill, decode and the "
+                    f"check forward; capacity_factor 8)"
+                    if cfg.moe is not None else ""))
+    if cfg.moe is not None and n_drop:
+        fail(f"{label} {arch}: {n_drop} routes dropped at capacity_factor "
+             "8; prefill and decode then compute different functions")
+    if cfg.attention.window:
+        # the same decode with window = 0: does the window change anything
+        cfg0 = dataclasses.replace(cfg, attention=dataclasses.replace(
+            cfg.attention, window=0))
+        model0 = build_model(cfg0)
+        _, cache0, _ = make_seeded_prefill(model0, total)(
+            params, {"tokens": prompt})
+        dec0, _, _ = _decode(model0, params, cache0, None, P, feed=fed)
+        log(f"{label} {arch}: max |decode logits with window "
+            f"{cfg.attention.window} - with window 0| = "
+            f"{float((dec0 - dec).abs().max()):.3e} (prompt {P} > window)")
+        del cache0, dec0
+    del params, cache, full, dec
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def run_lm_decode_phase(dev, card: str) -> dict:
+    """Phase 10: the LM decode path at full width (10a gemma2-2b, 10b
+    deepseek-v2-lite-16b, ``run_decode_cell``), then 10c the CLI ``python
+    -m repro_torch.launch.decode_demo --arch gemma2-2b --batch 4
+    --prompt-len 32 --gen 16`` as a user starts it. The launch counters
+    of K1-K7 must read 0 over all of it (the reference's decode calls no
+    Pallas kernel). Returns the path's launch counts."""
+    import gc
+
+    from repro_torch.kernels import build
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"lm decode: {torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB still "
+        f"allocated after phases 1-9")
+    build.reset_launch_counts()
+    for cell in DECODE_CELLS:
+        run_decode_cell(dev, card, *cell)
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    r = subprocess.run([sys.executable, "-m", "repro_torch.launch.decode_demo",
+                        "--arch", "gemma2-2b", "--batch", "4", "--prompt-len",
+                        "32", "--gen", "16"], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=600)
+    if r.returncode:
+        fail(f"python -m repro_torch.launch.decode_demo exited "
+             f"{r.returncode}: {r.stderr.strip()[-2000:]}")
+    for line in r.stdout.strip().splitlines():
+        log(f"10c decode_demo CLI: {line}")
+    if "tok/s" not in r.stdout:
+        fail("the decode_demo CLI printed no tokens/s")
+    log(f"10c decode_demo CLI: exit 0 in {time.perf_counter() - t0:.1f} s "
+        f"(bf16, CUDA start-up and init included); {card}")
+    counts = build.launch_counts()
+    # 10c's CLI runs in a process of its own, which these counters miss
+    expect_counts("lm decode (10a, 10b)", counts, {}, 0)
+    log(f"lm decode: phase 10 took {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
 SOURCES = {
     "topk_select": ("src/repro_torch/kernels/csrc/topk_select.cu",
                     "src/repro/kernels/topk_select.py:23"),
@@ -2215,6 +2441,7 @@ def main() -> None:
     run_resume_phase(dev, fig3)
     paths["serve_100k"] = run_serve_phase(dev)
     paths["lm"] = run_lm_phase(dev, card)
+    paths["lm_decode"] = run_lm_decode_phase(dev, card)
     kernels = []
     for name, r in results.items():
         source, replaces = SOURCES[name]

@@ -6,7 +6,10 @@ leaf) into tensors in the same layout (``w1`` stays (784, 64));
 draws — Φ, fades (complex64) and AWGN — into tensors, so a test can feed
 both packages the same numbers. ``lm_params_from_reference`` and
 ``lm_params_to_numpy`` do the same for an LM's nested parameter dict (the
-stacked (L, ...) layer leaves included), leaf for leaf.
+stacked (L, ...) layer leaves included), leaf for leaf, and for a decode
+cache. NumPy has no bfloat16 of its own: a bf16 leaf of the reference
+(``ml_dtypes.bfloat16``) comes across by its bit pattern, and a bf16
+tensor goes back as f32, which holds it exactly.
 """
 from __future__ import annotations
 
@@ -37,15 +40,26 @@ def arrays_from_reference(*arrays, device=None) -> Tuple[torch.Tensor, ...]:
                  for a in arrays)
 
 
+def _tensor(a: np.ndarray) -> torch.Tensor:
+    a = np.array(a, copy=True)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
 def lm_params_from_reference(np_params, device=None):
-    """A nested dict of NumPy arrays (``np.asarray`` of each JAX leaf) ->
-    the same nested dict of tensors on ``device``."""
+    """A nested dict of NumPy arrays (``np.asarray`` of each JAX leaf, a
+    parameter dict or a decode cache) -> the same nested dict of tensors
+    on ``device``."""
     dev = resolve_device(device)
-    return tree.tree_map(
-        lambda a: torch.from_numpy(np.array(a, copy=True)).to(dev),
-        np_params)
+    return tree.tree_map(lambda a: _tensor(a).to(dev), np_params)
 
 
 def lm_params_to_numpy(params):
-    """A nested dict of tensors -> the same nested dict of NumPy arrays."""
-    return tree.tree_map(lambda t: t.detach().cpu().numpy(), params)
+    """A nested dict of tensors -> the same nested dict of NumPy arrays
+    (bf16 leaves as f32)."""
+    def to_numpy(t):
+        t = t.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+    return tree.tree_map(to_numpy, params)

@@ -190,7 +190,7 @@ def _one_worker(group) -> None:
         raise NotImplementedError(
             "the shard-mapped aggregation takes one worker (group=None) in "
             "this slice; more workers need dist/collectives (ROADMAP.md "
-            "Queue 1, item 7)")
+            "Queue 1, item 5)")
 
 
 def _f32(x, device) -> torch.Tensor:

@@ -1,4 +1,5 @@
-"""The train steps of the LM trainer (``mean`` | ``obcsaa``); port of
+"""The train steps of the LM trainer (``mean`` | ``obcsaa``) and the
+serve steps (prefill, decode, seeded prefill); port of
 ``repro/launch/steps.py``.
 
 One card is one FL worker: the reference's worker mesh axes shrink to a
@@ -13,9 +14,9 @@ step and shared by every leaf; leaf i's AWGN is the i-th draw from the
 step's generator (the reference folds i into the step's key). Only one
 leaf's temporaries are alive at a time.
 
-Like the reference's trainer, this path launches none of the port's CUDA
-kernels: ``obcsaa_config`` sets ``spmd_topk`` and leaves ``use_kernels``
-off.
+Like the reference's trainer and decode, these paths launch none of the
+port's CUDA kernels: ``obcsaa_config`` sets ``spmd_topk`` and leaves
+``use_kernels`` off, and the decode path calls no kernel.
 """
 from __future__ import annotations
 
@@ -29,6 +30,7 @@ from repro_torch.configs.base import TrainConfig
 from repro_torch.core.obcsaa import (OBCSAAConfig, shardmap_compress,
                                      shardmap_reconstruct)
 from repro_torch.device import resolve_device
+from repro_torch.models import transformer
 from repro_torch.models.registry import Model
 from repro_torch.optim import Optimizer, make as make_opt
 
@@ -142,7 +144,7 @@ def make_train_step(model: Model, tcfg: TrainConfig) -> Callable:
     if tcfg.cs_shard_aligned:
         raise NotImplementedError(
             "TrainConfig.cs_shard_aligned needs the parameter shardings of "
-            "dist/sharding (ROADMAP.md Queue 1, item 6)")
+            "dist/sharding (ROADMAP.md Queue 1, item 4)")
 
     if tcfg.aggregation == "mean":
         def step(params, opt_state, batch, round_ctx=None):
@@ -191,6 +193,46 @@ def default_round_ctx(seed: int = 0, device=None) -> Dict:
             "beta": torch.ones((1,), dtype=torch.float32, device=dev),
             "b_t": torch.ones((), dtype=torch.float32, device=dev),
             "generator": torch.Generator(device=dev).manual_seed(seed)}
+
+
+# --- serve steps -------------------------------------------------------------
+
+def make_prefill_step(model: Model) -> Callable:
+    def step(params, batch):
+        return model.prefill(params, batch)
+
+    return step
+
+
+def make_decode_step(model: Model) -> Callable:
+    def step(params, cache, tokens, pos):
+        return model.decode_step(params, cache, tokens, pos)
+
+    return step
+
+
+def make_seeded_prefill(model: Model, total_len: int) -> Callable:
+    """Prefill a prompt and seed a ``total_len`` decode cache.
+
+    Returns ``step(params, batch) -> (logits, cache, offset)``: the
+    prompt runs through the full forward once, its per-layer cache seeds
+    land in slots [0, offset) of a fresh cache on the tokens' device,
+    and decoding continues at ``pos = offset + i``."""
+    cfg = model.cfg
+
+    def step(params, batch):
+        if batch.get("image_embeds") is not None:
+            raise NotImplementedError(
+                "an image prefix needs the VLM family (ROADMAP.md Queue 1, "
+                "item 2)")
+        tokens = batch["tokens"]
+        logits, seeds = model.prefill(params, batch)
+        cache = model.init_cache(tokens.shape[0], total_len, tokens.device)
+        cache = transformer.seed_cache_from_prefill(cfg, cache, seeds,
+                                                    start=0)
+        return logits, cache, tokens.shape[1]
+
+    return step
 
 
 # --- trainer checkpointing ---------------------------------------------------

@@ -34,15 +34,15 @@ from repro_torch.models.registry import build_model
 # flag -> (argparse dest, the later slice that ports it)
 LATER_FLAGS = {
     "--zoo-train": ("zoo_train", "engine/zoo_train.py with dist/flat_layout "
-                    "and dist/sharding (ROADMAP.md Queue 1, item 6)"),
+                    "and dist/sharding (ROADMAP.md Queue 1, item 4)"),
     "--arms": ("arms", "engine/zoo_train.py's sweep (ROADMAP.md Queue 1, "
-               "item 6)"),
+               "item 4)"),
     "--error-feedback": ("error_feedback", "engine/zoo_train.py's EF "
-                         "residuals (ROADMAP.md Queue 1, item 6)"),
+                         "residuals (ROADMAP.md Queue 1, item 4)"),
     "--data": ("data", "data/tokens.py with engine/zoo.py (ROADMAP.md "
-               "Queue 1, item 5)"),
+               "Queue 1, item 3)"),
     "--scan-rounds": ("scan_rounds", "the scheduled round contexts and "
-                      "--scan-rounds (ROADMAP.md Queue 1, item 8)"),
+                      "--scan-rounds (ROADMAP.md Queue 1, item 6)"),
 }
 
 

@@ -22,8 +22,9 @@ def he_init(generator: Optional[torch.Generator], shape, fan_in=None,
     JAX ``x @ w`` layout: inputs on the first axis)."""
     fan_in = fan_in if fan_in is not None else shape[0]
     std = math.sqrt(2.0 / max(1, fan_in))
-    return (torch.randn(shape, generator=generator, device=device) * std
-            ).to(dtype)
+    # scaled in place: a full-size leaf is never held twice
+    return torch.randn(shape, generator=generator, device=device
+                       ).mul_(std).to(dtype)
 
 
 def lecun_init(generator: Optional[torch.Generator], shape, fan_in=None,
@@ -31,8 +32,8 @@ def lecun_init(generator: Optional[torch.Generator], shape, fan_in=None,
     """N(0, 1/fan_in) weights."""
     fan_in = fan_in if fan_in is not None else shape[0]
     std = math.sqrt(1.0 / max(1, fan_in))
-    return (torch.randn(shape, generator=generator, device=device) * std
-            ).to(dtype)
+    return torch.randn(shape, generator=generator, device=device
+                       ).mul_(std).to(dtype)
 
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6

@@ -5,11 +5,15 @@
   init(seed, device=None) -> params
   loss_fn(params, batch, remat=...) -> (scalar loss, aux)
   forward(params, batch, remat=...) -> logits
+  prefill(params, batch) -> (logits, cache seeds)
+  init_cache(batch_size, seq_len, device=None) -> cache
+  decode_step(params, cache, tokens, pos) -> (logits, cache)
   input_specs(shape) -> {name: (shape, dtype)}
-and ``prefill``, ``init_cache``, ``decode_step``, which raise
-``NotImplementedError`` until the LM decode path is ported. This slice
-builds the dense GQA decoders and the paper's MLP; the other families
-raise ``NotImplementedError`` naming their ROADMAP item.
+for the dense and MoE decoders (GQA or MLA) and the paper's MLP, which has
+no decode path. SSM, hybrid, VLM and audio models raise
+``NotImplementedError`` naming their ROADMAP item. ``prefill`` and
+``decode_step`` run without autograd; ``decode_step`` writes the cache in
+place.
 """
 from __future__ import annotations
 
@@ -43,11 +47,6 @@ def cross_entropy(logits, targets, mask=None):
     return torch.mean(nll)
 
 
-def _no_decode(*args, **kwargs):
-    raise NotImplementedError(
-        f"not ported yet — {transformer.LATER['decode']}")
-
-
 def _lm_model(cfg: ModelConfig) -> Model:
     transformer.check_supported(cfg)
 
@@ -55,13 +54,13 @@ def _lm_model(cfg: ModelConfig) -> Model:
         return transformer.init_lm(seed, cfg, device)
 
     def forward(params, batch, remat=True, layer_resolver=None):
-        logits, _ = transformer.lm_forward(
+        logits, _, _ = transformer.lm_forward(
             params, cfg, batch["tokens"], remat=remat,
             layer_resolver=layer_resolver)
         return logits
 
     def loss_fn(params, batch, remat=True, layer_resolver=None):
-        hidden, aux = transformer.lm_forward(
+        hidden, aux, _ = transformer.lm_forward(
             params, cfg, batch["tokens"], remat=remat, return_hidden=True,
             layer_resolver=layer_resolver)
         loss = chunked_cross_entropy(
@@ -69,13 +68,27 @@ def _lm_model(cfg: ModelConfig) -> Model:
             embedding=params["embedding"] if cfg.tie_embeddings else None,
             lm_head=params.get("lm_head"),
             final_softcap=cfg.final_logit_softcap)
+        if cfg.moe is not None:
+            loss = loss + cfg.moe.router_aux_loss * aux / cfg.num_layers
         return loss, {"aux": aux}
+
+    @torch.no_grad()
+    def prefill(params, batch):
+        logits, _, caches = transformer.lm_forward(
+            params, cfg, batch["tokens"], remat=False, collect_cache=True)
+        return logits, caches
+
+    def init_cache(batch_size, seq_len, device=None):
+        return transformer.init_lm_cache(cfg, batch_size, seq_len, device)
+
+    def decode_step(params, cache, tokens, pos):
+        return transformer.lm_decode_step(params, cfg, cache, tokens, pos)
 
     def input_specs(shape: InputShape):
         return lm_input_specs(cfg, shape)
 
-    return Model(cfg, init, loss_fn, forward, _no_decode, _no_decode,
-                 _no_decode, input_specs)
+    return Model(cfg, init, loss_fn, forward, prefill, init_cache,
+                 decode_step, input_specs)
 
 
 def _mlp_model(cfg: ModelConfig) -> Model:

@@ -774,3 +774,41 @@ def test_serve_cli_on_card_launches_prefix_eval(cuda, capsys):
                      "--ticks", "3", "--threshold", "0.0"]) == 0
     assert build.launch_counts()["prefix_eval"] == 3
     assert "device=cuda" in capsys.readouterr().out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["gemma2-2b", "deepseek-v2-lite-16b"])
+def test_lm_decode_matches_forward_on_card(cuda, arch):
+    """The LM decode path on the card at smoke size, f32: a seeded
+    prefill of 64 tokens, then 16 decode steps fed the forward's own
+    tokens (80 > gemma2's smoke window of 64, so the local mask bites),
+    against the full forward at the reference test's gate (argmax equal,
+    rtol = atol = 2e-2); none of K1-K7 is launched."""
+    from repro_torch.configs import get_smoke_config, scaled
+    from repro_torch.launch.steps import make_seeded_prefill
+    from repro_torch.models.registry import build_model
+    cfg = scaled(get_smoke_config(arch), dtype="float32")
+    if cfg.moe is not None:
+        cfg = dataclasses.replace(
+            cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=8.0))
+    model = build_model(cfg)
+    build.reset_launch_counts()
+    params = model.init(0, device=cuda)
+    P, G = 64, 16
+    gen = torch.Generator().manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (2, P + G), generator=gen,
+                           dtype=torch.int32).to(cuda)
+    with torch.no_grad():
+        full = model.forward(params, {"tokens": tokens}, remat=False)
+    _, cache, offset = make_seeded_prefill(model, P + G)(
+        params, {"tokens": tokens[:, :P]})
+    assert offset == P
+    outs = []
+    for pos in range(P, P + G):
+        logits, cache = model.decode_step(params, cache,
+                                          tokens[:, pos:pos + 1], pos)
+        outs.append(logits[:, 0])
+    dec, want = torch.stack(outs, dim=1), full[:, P:]
+    assert torch.equal(dec.argmax(-1), want.argmax(-1))
+    torch.testing.assert_close(dec, want, rtol=2e-2, atol=2e-2)
+    assert not any(build.launch_counts().values())
