@@ -79,6 +79,26 @@ result line):
             and the device-busy share of decode steps; (10c) ``python -m
             repro_torch.launch.decode_demo --arch gemma2-2b --batch 4
             --prompt-len 32 --gen 16`` in bf16; no launch of K1-K7
+11. family  the other model families at full width, f32: (11a)
+            mamba2-2.7b, B = 2, a 496-token prompt stepped through
+            ``decode_step`` (an SSM has no prefill seeding) and 16 tokens
+            on their own argmax, all 512 positions against the forward
+            (two SSD chunks of 256) at the reference test's gate; (11b)
+            zamba2-7b, 240 + 16 tokens, the same gate, and the 13
+            shared-block layers' k/v rows against prefill's seeds, the
+            other 68 layers' rows exactly zero; ms per step, tokens/s,
+            forward ms, peak memory and the busy share of 4 steps; (11c)
+            the trainer on mamba2-2.7b (batch 4 x 128): 2 ``mean`` steps,
+            the loss falling, 1 gated ``obcsaa`` step split into stages,
+            then ``python -m repro_torch.launch.train --arch mamba2-2.7b
+            --agg mean --steps 2``; (11d) internvl2-1b,
+            ``make_seeded_prefill`` over 256 image embeddings and a
+            32-token prompt, 16 steps against the forward with the image
+            prefix, then its trainer CLI; (11e) whisper-base, ``encode``
+            over 1,500 frames, ``seed_cross_cache``, 32 steps against
+            ``decode_full``, then its trainer CLI; (11f) ``python -m
+            repro_torch.launch.decode_demo --arch mamba2-2.7b --batch 4
+            --prompt-len 32 --gen 16`` in bf16; no launch of K1-K7
 
 Each path's launch counters are set to 0 just before it and read just
 after; a kernel of the path that was not launched fails the run.
@@ -949,6 +969,24 @@ def expect_counts(path: str, counts: dict, per_call: dict,
              "call)")
     log(f"{path}: launches {({k: v for k, v in counts.items() if v})} = "
         f"{calls} x {per_call}")
+
+
+def run_cli(label, module, args, card) -> str:
+    """``python -m module args`` as a user starts it, from the checkout's
+    ``src``; fails the run on a non-zero exit. Returns its stdout."""
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    r = subprocess.run([sys.executable, "-m", module] + args, cwd=ROOT,
+                       env=env, capture_output=True, text=True, timeout=600)
+    if r.returncode:
+        fail(f"{label}: python -m {module} {' '.join(args)} exited "
+             f"{r.returncode}: {r.stderr.strip()[-2000:]}")
+    for line in r.stdout.strip().splitlines():
+        log(f"{label} CLI: {line}")
+    log(f"{label} CLI: python -m {module} {' '.join(args)}: exit 0 in "
+        f"{time.perf_counter() - t0:.1f} s (start-up and init included); "
+        f"{card}")
+    return r.stdout
 
 
 def run_slice(dev, task: Task):
@@ -1985,8 +2023,8 @@ class StageClock:
 
 
 class LeafGate:
-    """Phase 9's check of one decoded leaf against its gradient, chunk by
-    chunk: finite; at most ``decode_k`` nonzeros; with U = 1 and β = 1
+    """Phase 9's and 11c's check of one decoded leaf against its gradient,
+    chunk by chunk (a block of chunks at a time): finite; at most ``decode_k`` nonzeros; with U = 1 and β = 1
     magnitude tracking rescales a chunk to the norm it transmitted, so
     its norm equals ‖top-κ(g_chunk)‖ (rtol 1e-4), where top-κ keeps every
     entry tied with the κ-th magnitude, as the bisection selects (weight
@@ -2002,10 +2040,19 @@ class LeafGate:
 
     def __call__(self, i, grad, decoded):
         ob = self.ob
+        rows = 1 << 17      # a block of chunks at a time, as the trainer
         pad = (-grad.numel()) % ob.chunk
-        g = torch.nn.functional.pad(grad.reshape(-1).float(), (0, pad))
-        g, o = g.reshape(-1, ob.chunk), decoded.reshape(-1, ob.chunk)
-        name = self.names[i]
+        flat = grad.reshape(-1)
+        out = decoded.reshape(-1, ob.chunk)
+        for r in range(0, out.shape[0], rows):
+            g = flat[r * ob.chunk:(r + rows) * ob.chunk].float()
+            if r + rows >= out.shape[0]:
+                g = torch.nn.functional.pad(g, (0, pad))
+            self.check(self.names[i], g.reshape(-1, ob.chunk),
+                       out[r:r + rows])
+
+    def check(self, name, g, o):
+        ob = self.ob
         if not bool(torch.isfinite(o).all()):
             fail(f"lm obcsaa: decoded {name} is not finite")
         nnz = int((o != 0).sum(-1).max())
@@ -2154,18 +2201,9 @@ def run_lm_phase(dev, card: str) -> dict:
     torch.cuda.empty_cache()
 
     # the CLI as a user starts it: full width, obcsaa, on the card
-    t0 = time.perf_counter()
-    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
-    r = subprocess.run([sys.executable, "-m", "repro_torch.launch.train",
-                        "--arch", LM_ARCH, "--steps", "2"], cwd=ROOT,
-                       env=env, capture_output=True, text=True, timeout=600)
-    if r.returncode:
-        fail(f"python -m repro_torch.launch.train exited {r.returncode}: "
-             f"{r.stderr.strip()[-2000:]}")
-    for line in r.stdout.strip().splitlines():
-        log(f"lm CLI: {line}")
-    log(f"lm CLI: exit 0 in {time.perf_counter() - t0:.1f} s; phase 9 took "
-        f"{time.perf_counter() - t_phase:.1f} s")
+    run_cli("lm", "repro_torch.launch.train", ["--arch", LM_ARCH, "--steps",
+                                               "2"], card)
+    log(f"lm: phase 9 took {time.perf_counter() - t_phase:.1f} s")
     return counts
 
 
@@ -2359,25 +2397,355 @@ def run_lm_decode_phase(dev, card: str) -> dict:
     build.reset_launch_counts()
     for cell in DECODE_CELLS:
         run_decode_cell(dev, card, *cell)
-    t0 = time.perf_counter()
-    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
-    r = subprocess.run([sys.executable, "-m", "repro_torch.launch.decode_demo",
-                        "--arch", "gemma2-2b", "--batch", "4", "--prompt-len",
-                        "32", "--gen", "16"], cwd=ROOT, env=env,
-                       capture_output=True, text=True, timeout=600)
-    if r.returncode:
-        fail(f"python -m repro_torch.launch.decode_demo exited "
-             f"{r.returncode}: {r.stderr.strip()[-2000:]}")
-    for line in r.stdout.strip().splitlines():
-        log(f"10c decode_demo CLI: {line}")
-    if "tok/s" not in r.stdout:
+    out = run_cli("10c decode_demo", "repro_torch.launch.decode_demo",
+                  ["--arch", "gemma2-2b", "--batch", "4", "--prompt-len", "32",
+                   "--gen", "16"], card)
+    if "tok/s" not in out:
         fail("the decode_demo CLI printed no tokens/s")
-    log(f"10c decode_demo CLI: exit 0 in {time.perf_counter() - t0:.1f} s "
-        f"(bf16, CUDA start-up and init included); {card}")
     counts = build.launch_counts()
     # 10c's CLI runs in a process of its own, which these counters miss
     expect_counts("lm decode (10a, 10b)", counts, {}, 0)
     log(f"lm decode: phase 10 took {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
+# -- phase 11 -----------------------------------------------------------------
+
+# 11a mamba2-2.7b: a 496-token prompt stepped through decode_step (the SSM
+# families have no prefill seeding) plus 16 tokens on their own argmax: 512
+# positions, two SSD chunks of 256 in the forward it is held against; 11b
+# zamba2-7b: 240 + 16, the 13 shared-block layers' k/v rows against
+# prefill's seeds. f32 weights and compute, TF32 off.
+FAMILY_DECODE = (("11a", "mamba2-2.7b", 2, 496, 2_996_753_920),
+                 ("11b", "zamba2-7b", 2, 240, 6_673_653_584))
+# 11c: the trainer's CLI defaults (as phase 9) on mamba2-2.7b
+SSM_TRAIN_ARCH = "mamba2-2.7b"
+
+
+def _gate(label, full, dec):
+    """The reference test's gate (tests/test_decode_consistency.py):
+    argmax equal, rtol = atol = 2e-2. Returns the max |diff|."""
+    if not (torch.isfinite(dec).all() and torch.isfinite(full).all()):
+        fail(f"{label}: non-finite logits")
+    err = float((full - dec).abs().max())
+    same = bool(torch.equal(full.argmax(-1), dec.argmax(-1)))
+    if not (same and torch.allclose(dec, full, rtol=2e-2, atol=2e-2)):
+        fail(f"{label}: decode != forward (argmax equal {same}, max |diff| "
+             f"{err:.3e}, gate rtol = atol = 2e-2)")
+    return err
+
+
+def _full_width(arch, label, D_want, dev):
+    """(cfg in f32, model, params from seed 0, init s)."""
+    from repro_torch import tree
+    from repro_torch.configs import get_config, scaled
+    from repro_torch.models.registry import build_model
+
+    cfg = scaled(get_config(arch), dtype="float32")
+    model = build_model(cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = model.init(0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    D = sum(p.numel() for p in tree.leaves(params))
+    if D != D_want:
+        fail(f"{label} {arch}: D = {D:,}, want {D_want:,}")
+    return cfg, model, params, init_s
+
+
+def _steps(model, params, cache, tokens, start, prompt_len, B):
+    """Step every token of ``tokens`` (B, T) through ``decode_step`` from
+    ``pos = start``; past ``prompt_len`` each token is the argmax of the
+    step before, written into ``tokens``. Returns (logits (B, T, V), each
+    generated step's host ms, synchronised)."""
+    logits, ms = [], []
+    for i in range(tokens.shape[1]):
+        if i >= max(prompt_len, 1):
+            tokens[:, i] = torch.argmax(logits[-1], dim=-1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, cache = model.decode_step(params, cache, tokens[:, i:i + 1],
+                                       start + i)
+        torch.cuda.synchronize()
+        if i >= prompt_len:
+            ms.append((time.perf_counter() - t0) * 1e3)
+        logits.append(out[:, 0])
+    return torch.stack(logits, dim=1), ms
+
+
+def _busy(label, card, fn, what):
+    wall, busy, events, _ = device_busy(fn)
+    log(f"{label}: profiler, {what}: wall {wall:.1f} ms, device busy "
+        f"{busy:.1f} ms ({100 * busy / wall:.1f}%), "
+        f"{sum(e.count for e in events):,} events on the card; {card}")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:5]:
+        log(f"  {e.self_device_time_total / 1e3:9.2f} ms  {e.count:6d}x  "
+            f"{e.key[:90]}")
+
+
+def run_recurrent_decode(dev, card, label, arch, B, P, D_want) -> None:
+    """11a/11b: a P-token prompt stepped through ``decode_step`` from an
+    empty cache, then ``DECODE_GEN`` tokens on their own argmax; every
+    position's decode logits against ``prefill``'s (the full forward,
+    which also returns the cache seeds) at the reference test's gate. For
+    the hybrid, each shared-block layer's k/v cache rows against
+    prefill's seeds (the same gate), and every other layer's rows exactly
+    zero."""
+    import gc
+
+    from repro_torch.models.transformer import layer_flags
+
+    torch.cuda.reset_peak_memory_stats()
+    cfg, model, params, init_s = _full_width(arch, label, D_want, dev)
+    total = P + DECODE_GEN
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    tokens = torch.randint(0, cfg.vocab_size, (B, total), generator=gen,
+                           dtype=torch.int32).to(dev)
+    cache = model.init_cache(B, total, dev)
+    t0 = time.perf_counter()
+    dec, step_ms = _steps(model, params, cache, tokens, 0, P, B)
+    steps_s = time.perf_counter() - t0
+    fwd_ms = []
+    for _ in range(2):          # cold, warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        full, seeds = model.prefill(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        fwd_ms.append((time.perf_counter() - t0) * 1e3)
+    err = _gate(f"{label} {arch}", full, dec)
+    kv = ""
+    if cfg.family == "hybrid":
+        attn = layer_flags(cfg)["apply_attn"].to(dev)
+        errs = []
+        for name, seed in zip(("k", "v"), seeds[2:]):
+            if bool(cache[name][~attn].any()) or bool(seed[~attn].any()):
+                fail(f"{label}: {name} rows of a layer without attention "
+                     "are not zero")
+            got, want = cache[name][attn], seed[attn]
+            errs.append(float((got - want).abs().max()))
+            if not torch.allclose(got, want, rtol=2e-2, atol=2e-2):
+                fail(f"{label}: decoded {name} rows off prefill's seeds by "
+                     f"up to {errs[-1]:.3e} (gate rtol = atol = 2e-2)")
+        kv = (f"; k/v cache rows of the {int(attn.sum())} shared-block "
+              f"layers against prefill's seeds: max |diff| {errs[0]:.3e} / "
+              f"{errs[1]:.3e}, the other {int((~attn).sum())} layers' rows "
+              f"all zero")
+    del full, seeds
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"{label} {arch}: D={int(D_want):,} f32, B={B}, {P} prompt + "
+        f"{DECODE_GEN} generated tokens stepped in {steps_s:.1f} s; init "
+        f"{init_s:.2f} s; decode ms per generated step (host clock, "
+        f"synchronised) median {median(step_ms):.2f}, min "
+        f"{min(step_ms):.2f}, max {max(step_ms):.2f}; "
+        f"{1e3 * B / median(step_ms):.1f} tokens/s at the median; forward "
+        f"(prefill) over {total} tokens {fwd_ms[0]:.1f} ms cold, "
+        f"{fwd_ms[1]:.1f} warm; peak device memory {peak:.2f} GiB; "
+        f"decode = forward over all {total} positions: argmax equal, max "
+        f"|diff| {err:.3e} (gate rtol = atol = 2e-2){kv}; {card}")
+
+    def steps4():
+        # the state moves on: timing only, after every check
+        for i in range(total - 4, total):
+            model.decode_step(params, cache, tokens[:, i:i + 1], i)
+
+    _busy(f"{label} {arch}", card, steps4, "4 decode steps")
+    del params, cache, dec
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def run_ssm_trainer(dev, card) -> None:
+    """11c: the trainer at mamba2-2.7b's full width (D = 2,996,753,920),
+    batch 4 x 128, the CLI's defaults: 2 ``mean`` steps, the loss falling;
+    1 ``obcsaa`` step (BIHT 10) whose every decoded leaf passes
+    ``LeafGate``, its stages split by CUDA events; peak memory."""
+    import gc
+
+    from repro_torch import tree
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.launch.train import make_batch
+    from repro_torch.models.registry import build_model
+
+    cfg = get_config(SSM_TRAIN_ARCH)
+    model = build_model(cfg)
+    batch = make_batch(cfg, LM_BATCH, LM_SEQ, device=dev)
+    for agg, n in (("mean", 2), ("obcsaa", 1)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        tcfg = TrainConfig(aggregation=agg, **LM_TRAIN)
+        params = model.init(0, device=dev)
+        paths = tree.flatten_with_paths(params)[0]
+        D = sum(p.numel() for _, p in paths)
+        opt_state = steps_lib.make_optimizer(tcfg).init(params)
+        step = steps_lib.make_train_step(model, tcfg)
+        gate = None
+        if agg == "obcsaa":
+            ob = steps_lib.obcsaa_config(tcfg)
+            gate = LeafGate(ob, [p for p, _ in paths])
+        clock = StageClock(gate)
+        losses, secs = [], []
+        torch.cuda.reset_peak_memory_stats()
+        for t in range(n):
+            ctx = steps_lib.default_round_ctx(seed=t, device=dev)
+            ctx["hook"] = clock
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            clock.start()
+            params, opt_state, m = step(params, opt_state, batch, ctx)
+            losses.append(float(m["loss"]))
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        if not all(np.isfinite(losses)):
+            fail(f"11c {agg}: a loss is not finite: {losses}")
+        if agg == "mean" and not losses[1] < losses[0]:
+            fail(f"11c mean: the loss does not fall: {losses}")
+        msg = (f"11c {SSM_TRAIN_ARCH} {agg}: D={D:,}, batch {LM_BATCH} x "
+               f"{LM_SEQ}; losses " + ", ".join(f"{x:.4f}" for x in losses)
+               + "; s per step (host clock, synchronised) "
+               + ", ".join(f"{x:.3f}" for x in secs)
+               + f"; peak device memory {peak:.2f} GiB")
+        if agg == "obcsaa":
+            st = clock.stages()
+            msg += (f"; gated: {gate.chunks:,} decoded chunks finite, at "
+                    f"most {gate.max_nnz} nonzeros (decode_k "
+                    f"{ob.decode_k}), norms = ‖top-κ(g)‖ within "
+                    f"{gate.max_rel:.2e}; device ms: forward+backward "
+                    f"{st['backward']:.1f}, compression "
+                    f"{st['compress']:.1f}, decode {st['decode']:.1f} (the "
+                    f"gate's checks outside), update {st['update']:.1f}")
+        log(msg + f"; {card}")
+        del params, opt_state, step, clock, gate
+    del batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def run_vlm_decode(dev, card) -> None:
+    """11d: internvl2-1b at full width in f32: ``make_seeded_prefill``
+    over 256 image embeddings (random, seed 0) and a 32-token prompt,
+    then 16 decode steps on their own argmax, held against the forward
+    with the image prefix over the same text (its last 16 positions)."""
+    import gc
+
+    from repro_torch.launch.steps import make_seeded_prefill
+
+    torch.cuda.reset_peak_memory_stats()
+    cfg, model, params, init_s = _full_width("internvl2-1b", "11d",
+                                             493_982_720, dev)
+    B, P, N = 2, 32, cfg.num_image_tokens
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    img = torch.randn((B, N, cfg.d_model), generator=gen).to(dev)
+    tokens = torch.randint(0, cfg.vocab_size, (B, P + DECODE_GEN),
+                           generator=gen, dtype=torch.int32).to(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache, off = make_seeded_prefill(model, N + P + DECODE_GEN)(
+        params, {"tokens": tokens[:, :P], "image_embeds": img})
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    if off != N + P:
+        fail(f"11d: seeded prefill offset {off} != {N + P}")
+    tokens[:, P] = torch.argmax(logits[:, -1], dim=-1)
+    dec, step_ms = _steps(model, params, cache, tokens[:, P:], off, 0, B)
+    with torch.no_grad():
+        full = model.forward(params, {"tokens": tokens, "image_embeds": img},
+                             remat=False)[:, N + P:]
+    err = _gate("11d internvl2-1b", full, dec)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"11d internvl2-1b: D=493,982,720 f32, B={B}, {N} image embeddings "
+        f"+ {P} prompt tokens (offset {off}); init {init_s:.2f} s; seeded "
+        f"prefill {prefill_ms:.1f} ms (cold); decode ms per step median "
+        f"{median(step_ms):.2f}, min {min(step_ms):.2f}, max "
+        f"{max(step_ms):.2f}; peak device memory {peak:.2f} GiB; decode = "
+        f"forward with the image prefix over the last {DECODE_GEN} "
+        f"positions: argmax equal, max |diff| {err:.3e}; {card}")
+    del params, cache, full, dec, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def run_encdec_decode(dev, card) -> None:
+    """11e: whisper-base at full width in f32, B = 2: ``encode`` over
+    1,500 random frames (seed 0), ``seed_cross_cache``, 32 decode steps
+    (a random first token, then each step's argmax), held against
+    ``decode_full`` over the same tokens."""
+    import gc
+
+    from repro_torch.models import encdec
+
+    torch.cuda.reset_peak_memory_stats()
+    cfg, model, params, init_s = _full_width("whisper-base", "11e",
+                                             72_708_608, dev)
+    B, T = 2, 32
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    frames = torch.randn((B, cfg.encoder_seq_len, cfg.d_model),
+                         generator=gen).to(dev)
+    tokens = torch.randint(0, cfg.vocab_size, (B, T), generator=gen,
+                           dtype=torch.int32).to(dev)
+    enc_ms = []
+    for _ in range(2):          # cold, warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            enc = encdec.encode(params, cfg, frames)
+        torch.cuda.synchronize()
+        enc_ms.append((time.perf_counter() - t0) * 1e3)
+    cache = encdec.seed_cross_cache(params, cfg,
+                                    model.init_cache(B, T, dev), enc)
+    dec, step_ms = _steps(model, params, cache, tokens, 0, 1, B)
+    with torch.no_grad():
+        full = encdec.decode_full(params, cfg, tokens, enc, remat=False)
+    err = _gate("11e whisper-base", full, dec)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"11e whisper-base: D=72,708,608 f32, B={B}, {cfg.encoder_seq_len} "
+        f"frames; init {init_s:.2f} s; encode {enc_ms[0]:.1f} ms cold, "
+        f"{enc_ms[1]:.1f} warm; decode ms per step median "
+        f"{median(step_ms):.2f}, min {min(step_ms):.2f}, max "
+        f"{max(step_ms):.2f}; peak device memory {peak:.2f} GiB; decode = "
+        f"decode_full over {T} positions: argmax equal, max |diff| "
+        f"{err:.3e}; {card}")
+    del params, cache, full, dec, enc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def run_families_phase(dev, card: str) -> dict:
+    """Phase 11: the SSM, hybrid, VLM and encoder-decoder families at
+    full width (11a-11e above), each path's CLI as a user starts it, and
+    11f ``python -m repro_torch.launch.decode_demo --arch mamba2-2.7b``
+    in bf16. The launch counters of K1-K7 must read 0 (no reference path
+    of these families reaches a Pallas kernel). Returns the counts."""
+    import gc
+
+    from repro_torch.kernels import build
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    build.reset_launch_counts()
+    for cell in FAMILY_DECODE:
+        run_recurrent_decode(dev, card, *cell)
+    run_ssm_trainer(dev, card)
+    run_cli("11c", "repro_torch.launch.train",
+            ["--arch", SSM_TRAIN_ARCH, "--agg", "mean", "--steps", "2"], card)
+    run_vlm_decode(dev, card)
+    run_cli("11d", "repro_torch.launch.train",
+            ["--arch", "internvl2-1b", "--steps", "2"], card)
+    run_encdec_decode(dev, card)
+    run_cli("11e", "repro_torch.launch.train",
+            ["--arch", "whisper-base", "--steps", "2"], card)
+    out = run_cli("11f", "repro_torch.launch.decode_demo",
+                  ["--arch", "mamba2-2.7b", "--batch", "4", "--prompt-len",
+                   "32", "--gen", "16"], card)
+    if "tok/s" not in out:
+        fail("11f: the decode_demo CLI printed no tokens/s")
+    counts = build.launch_counts()
+    # the CLIs run in processes of their own, which these counters miss
+    expect_counts("families (11a-11e)", counts, {}, 0)
+    log(f"families: phase 11 took {time.perf_counter() - t_phase:.1f} s")
     return counts
 
 
@@ -2442,6 +2810,7 @@ def main() -> None:
     paths["serve_100k"] = run_serve_phase(dev)
     paths["lm"] = run_lm_phase(dev, card)
     paths["lm_decode"] = run_lm_decode_phase(dev, card)
+    paths["families"] = run_families_phase(dev, card)
     kernels = []
     for name, r in results.items():
         source, replaces = SOURCES[name]

@@ -1,7 +1,8 @@
-"""Batched decode demo: the prompt stepped into the KV cache, then greedy
-or temperature decoding; port of ``repro/launch/decode_demo.py``.
+"""Batched decode demo: the prompt stepped into the cache (KV rows, or
+an SSM's recurrent state), then greedy or temperature decoding; port of
+``repro/launch/decode_demo.py``.
 
-    python -m repro_torch.launch.decode_demo --arch gemma2-2b --batch 4 \
+    python -m repro_torch.launch.decode_demo --arch mamba2-2.7b --batch 4 \
         --prompt-len 32 --gen 16
     PYTHONPATH=src python -m repro_torch.launch.decode_demo --device cpu \
         --smoke --arch deepseek-v2-lite-16b

@@ -12,7 +12,8 @@ flattened row-major, zero-padded to a whole number of chunks, compressed
 hard threshold) and cast back to the leaf's dtype. Φ is drawn once per
 step and shared by every leaf; leaf i's AWGN is the i-th draw from the
 step's generator (the reference folds i into the step's key). Only one
-leaf's temporaries are alive at a time.
+leaf's temporaries are alive at a time, and a large leaf's only for a
+block of its chunks (``BLOCK_ROWS``).
 
 Like the reference's trainer and decode, these paths launch none of the
 port's CUDA kernels: ``obcsaa_config`` sets ``spmd_topk`` and leaves
@@ -27,6 +28,7 @@ import torch
 
 from repro_torch import checkpoint, tree
 from repro_torch.configs.base import TrainConfig
+from repro_torch.core import channel as chan
 from repro_torch.core.obcsaa import (OBCSAAConfig, shardmap_compress,
                                      shardmap_reconstruct)
 from repro_torch.device import resolve_device
@@ -63,15 +65,24 @@ def _shard_aligned_perm(leaf_shape, spec, model_axis="model"):
     return None
 
 
+#: Chunk rows compressed or decoded at a time. A leaf's temporaries (the
+#: bisection's per-pass counts, the BIHT iterate and its update) grow with
+#: the rows in flight, several times the rows' own size, so a multi-GB leaf
+#: (mamba2-2.7b's stacked in_proj is 8.1 GB in f32) goes through in blocks.
+#: Rows are independent and the leaf's AWGN is drawn whole, so the blocks
+#: change no draw.
+BLOCK_ROWS = 1 << 17
+
+
 def _aggregate_leaf(ob: OBCSAAConfig, leaf: torch.Tensor, phi, *, k_weight,
                     beta_i, b_t, generator=None, noise=None,
                     wire_dtype=torch.float32, perm=None, hook=None,
                     index: int = 0) -> torch.Tensor:
-    """Compress one gradient leaf on this worker, superpose, decode.
-    ``hook(stage, index, grad, decoded)``, when given, is called after
-    the compression ("compress") and after the decode ("decode", with the
-    leaf and its decoded chunks, flat and padded, before the cut back to
-    the leaf's size)."""
+    """Compress one gradient leaf on this worker, superpose, decode, in
+    blocks of ``BLOCK_ROWS`` chunks. ``hook(stage, index, grad,
+    decoded)``, when given, is called after the compression ("compress")
+    and after the decode ("decode", with the leaf and its decoded chunks,
+    flat and padded, before the cut back to the leaf's size)."""
     leaf_t = leaf.permute(perm) if perm is not None else leaf
     flat = leaf_t.reshape(-1).to(torch.float32)
     D = flat.shape[0]
@@ -79,14 +90,25 @@ def _aggregate_leaf(ob: OBCSAAConfig, leaf: torch.Tensor, phi, *, k_weight,
     if rem:
         flat = torch.nn.functional.pad(flat, (0, rem))
     chunks = flat.reshape(-1, ob.chunk)
-    y, ksum, mag_sum = shardmap_compress(ob, chunks, k_weight=k_weight,
-                                         beta_i=beta_i, b_t=b_t, phi=phi,
-                                         wire_dtype=wire_dtype)
+    n = chunks.shape[0]
+    starts = range(0, n, BLOCK_ROWS)
+    sent = [shardmap_compress(ob, chunks[r:r + BLOCK_ROWS], k_weight=k_weight,
+                              beta_i=beta_i, b_t=b_t, phi=phi,
+                              wire_dtype=wire_dtype) for r in starts]
     del flat, chunks
     if hook is not None:
         hook("compress", index, None, None)
-    ghat = shardmap_reconstruct(ob, y, ksum, mag_sum, b_t=b_t, phi=phi,
-                                generator=generator, noise=noise)
+    if noise is None:
+        noise = chan.draw_noise(generator, (n, ob.measure), ob.noise_var,
+                                device=leaf.device)
+    ghat = torch.empty((n, ob.chunk), dtype=torch.float32,
+                       device=leaf.device)
+    for r in starts:
+        y, ksum, mag_sum = sent.pop(0)
+        ghat[r:r + BLOCK_ROWS] = shardmap_reconstruct(
+            ob, y, ksum, mag_sum, b_t=b_t, phi=phi,
+            noise=noise[r:r + BLOCK_ROWS]).reshape(-1, ob.chunk)
+    ghat = ghat.reshape(-1)
     out = ghat[:D].reshape(leaf_t.shape).to(leaf.dtype)
     if perm is not None:
         out = out.permute(tuple(int(i) for i in np.argsort(perm)))
@@ -212,25 +234,27 @@ def make_decode_step(model: Model) -> Callable:
 
 
 def make_seeded_prefill(model: Model, total_len: int) -> Callable:
-    """Prefill a prompt and seed a ``total_len`` decode cache.
+    """Prefill a prompt prefix and seed a ``total_len`` decode cache.
 
     Returns ``step(params, batch) -> (logits, cache, offset)``: the
-    prompt runs through the full forward once, its per-layer cache seeds
-    land in slots [0, offset) of a fresh cache on the tokens' device,
-    and decoding continues at ``pos = offset + i``."""
+    prefix (a VLM's ``image_embeds``, then any prompt tokens; the tokens
+    may be zero-length) runs through the full forward once, its per-layer
+    cache seeds land in slots [0, offset) of a fresh cache on the tokens'
+    device, and decoding continues at ``pos = offset + i``. Decode steps
+    are text-only, so an image enters through the cache. The SSM, hybrid
+    and audio families have no positional seeds and raise
+    (``transformer.seed_cache_from_prefill``), as in the reference."""
     cfg = model.cfg
 
     def step(params, batch):
-        if batch.get("image_embeds") is not None:
-            raise NotImplementedError(
-                "an image prefix needs the VLM family (ROADMAP.md Queue 1, "
-                "item 2)")
         tokens = batch["tokens"]
         logits, seeds = model.prefill(params, batch)
+        img = batch.get("image_embeds")
+        offset = tokens.shape[1] + (img.shape[1] if img is not None else 0)
         cache = model.init_cache(tokens.shape[0], total_len, tokens.device)
         cache = transformer.seed_cache_from_prefill(cfg, cache, seeds,
                                                     start=0)
-        return logits, cache, tokens.shape[1]
+        return logits, cache, offset
 
     return step
 

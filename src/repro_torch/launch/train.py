@@ -1,13 +1,16 @@
 """The LM trainer on one card; port of ``repro/launch/train.py``.
 
     python -m repro_torch.launch.train --arch gemma2-2b --steps 2
+    python -m repro_torch.launch.train --arch mamba2-2.7b --agg mean
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu --smoke \\
-        --steps 2 --agg obcsaa
+        --steps 2 --agg obcsaa --arch whisper-base
 
-One card is one FL worker. Each step takes the gradient of the LM loss on
-fixed synthetic token streams and, under ``--agg obcsaa`` (the default),
-sends it through the 1-bit CS uplink leaf by leaf and decodes it
-(``launch/steps.py``). It runs on CUDA unless ``--device`` says otherwise;
+Every LM architecture in ``configs/`` trains: dense, MoE, SSM, hybrid,
+VLM (behind stub image embeddings) and the audio encoder-decoder (on stub
+frames). One card is one FL worker. Each step takes the gradient of the
+LM loss on fixed synthetic token streams and, under ``--agg obcsaa`` (the
+default), sends it through the 1-bit CS uplink leaf by leaf and decodes
+it (``launch/steps.py``). It runs on CUDA unless ``--device`` says otherwise;
 without a card it raises rather than fall back to the CPU.
 
 ``--serve`` hands the remaining arguments to the scheduling service
@@ -47,10 +50,19 @@ LATER_FLAGS = {
 
 
 def make_batch(cfg, B, S, rng_seed=0, device=None):
+    """Synthetic token streams; a VLM's stub image embeddings and an
+    audio model's stub frames are the reference's constant 0.01 in bf16."""
     tokens, targets = token_stream(B, S, cfg.vocab_size, seed=rng_seed)
     dev = resolve_device(device)
-    return {"tokens": torch.from_numpy(tokens).to(dev),
-            "targets": torch.from_numpy(targets).to(dev)}
+    batch = {"tokens": torch.from_numpy(tokens).to(dev),
+             "targets": torch.from_numpy(targets).to(dev)}
+    stub = {"vlm": ("image_embeds", cfg.num_image_tokens),
+            "audio": ("frames", cfg.encoder_seq_len)}.get(cfg.family)
+    if stub is not None:
+        name, n = stub
+        batch[name] = 0.01 * torch.ones((B, n, cfg.d_model),
+                                        dtype=torch.bfloat16, device=dev)
+    return batch
 
 
 def build_parser() -> argparse.ArgumentParser:

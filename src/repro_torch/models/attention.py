@@ -12,7 +12,8 @@ Decode attends one query over the KV cache. The new K/V (or MLA latent)
 row is written into the cache **in place** at ``pos``, as the reference's
 donated cache buffer is, and the cache tensors are returned. MLA decodes
 with the absorbed-latent scores against the cached ``ckv``/``kr``.
-Cross-attention (``cross=True``, whisper) belongs to a later slice.
+Cross-attention (whisper's decoder) attends over the encoder's K/V,
+without RoPE, in ``gqa_forward(kv=...)`` and ``gqa_decode(cross=True)``.
 """
 from __future__ import annotations
 
@@ -127,19 +128,26 @@ def blockwise_attention(q, k, v, q_positions, k_positions, *, scale,
     return torch.cat(outs, dim=1)
 
 
-def gqa_forward(p, x, a: AttentionConfig, *, positions,
-                is_global: Optional[bool] = None):
-    """Causal self-attention with RoPE. x: (B, S, d). Returns (out,
-    (k, v)); k/v seed a decode cache."""
+def gqa_forward(p, x, a: AttentionConfig, *, positions, causal=True,
+                is_global: Optional[bool] = None, use_rope=True, kv=None,
+                kv_positions=None):
+    """Self-attention over x (B, S, d), or cross-attention from x to
+    ``kv`` (B, S_kv, d), the encoder's output, at ``kv_positions``.
+    With ``use_rope`` RoPE rotates q, and k unless it comes from ``kv``.
+    Returns (out, (k, v)); k/v seed a decode cache."""
     hd = p["wq"].shape[-1]
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(x.dtype))
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"].to(x.dtype))
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"].to(x.dtype))
-    q = apply_rope(q, positions, a.rope_theta)
-    k = apply_rope(k, positions, a.rope_theta)
+    src = kv if kv is not None else x
+    k = torch.einsum("bsd,dhk->bshk", src, p["wk"].to(x.dtype))
+    v = torch.einsum("bsd,dhk->bshk", src, p["wv"].to(x.dtype))
+    k_pos = kv_positions if kv_positions is not None else positions
+    if use_rope:
+        q = apply_rope(q, positions, a.rope_theta)
+        if kv is None:
+            k = apply_rope(k, k_pos, a.rope_theta)
     window = a.window if a.window else None
     out = blockwise_attention(
-        q, k, v, positions, positions, scale=1.0 / math.sqrt(hd),
+        q, k, v, positions, k_pos, scale=1.0 / math.sqrt(hd), causal=causal,
         window=window, is_global=is_global, cap=a.logit_softcap)
     out = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype))
     return out, (k, v)
@@ -183,34 +191,35 @@ def decode_attention_sharded(q, k, v, pos: int, *, scale, window=None,
 
 
 def gqa_decode(p, x, a: AttentionConfig, *, cache_k, cache_v, pos: int,
-               is_global: Optional[bool] = None, cross: bool = False,
-               sharded_cache_chunks: int = 0):
-    """x: (B, 1, d); cache_k/v: (B, S, KV, hd), written in place at
-    ``pos``. Returns (out, cache_k, cache_v)."""
-    if cross:
-        raise NotImplementedError(
-            "cross-attention (whisper) is not ported yet — VLM and enc-dec: "
-            "ROADMAP.md Queue 1, item 2")
+               is_global: Optional[bool] = None, use_rope: bool = True,
+               cross: bool = False, sharded_cache_chunks: int = 0):
+    """x: (B, 1, d); cache_k/v: (B, S, KV, hd). Self-attention writes the
+    new row into the cache in place at ``pos`` and attends causally;
+    ``cross=True`` attends over the whole given cache (the encoder's K/V)
+    and writes nothing. Returns (out, cache_k, cache_v)."""
     hd = p["wq"].shape[-1]
     S = cache_k.shape[1]
     q_pos = torch.full((1,), pos, dtype=torch.int32, device=x.device)
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(x.dtype))
-    knew = torch.einsum("bsd,dhk->bshk", x, p["wk"].to(x.dtype))
-    vnew = torch.einsum("bsd,dhk->bshk", x, p["wv"].to(x.dtype))
-    q = apply_rope(q, q_pos, a.rope_theta)
-    knew = apply_rope(knew, q_pos, a.rope_theta)
-    cache_k[:, pos:pos + 1] = knew.to(cache_k.dtype)
-    cache_v[:, pos:pos + 1] = vnew.to(cache_v.dtype)
+    if use_rope:
+        q = apply_rope(q, q_pos, a.rope_theta)
+    if not cross:
+        knew = torch.einsum("bsd,dhk->bshk", x, p["wk"].to(x.dtype))
+        vnew = torch.einsum("bsd,dhk->bshk", x, p["wv"].to(x.dtype))
+        if use_rope:
+            knew = apply_rope(knew, q_pos, a.rope_theta)
+        cache_k[:, pos:pos + 1] = knew.to(cache_k.dtype)
+        cache_v[:, pos:pos + 1] = vnew.to(cache_v.dtype)
     window = a.window if a.window else None
     kw = dict(scale=1.0 / math.sqrt(hd), window=window, is_global=is_global,
               cap=a.logit_softcap)
-    if sharded_cache_chunks:
+    if sharded_cache_chunks and not cross:
         out = decode_attention_sharded(q, cache_k, cache_v, pos,
                                        n_chunks=sharded_cache_chunks, **kw)
     else:
         k_pos = torch.arange(S, dtype=torch.int32, device=x.device)
-        out = _block_attend(q, cache_k, cache_v, q_pos, k_pos, causal=True,
-                            **kw)
+        out = _block_attend(q, cache_k, cache_v, q_pos, k_pos,
+                            causal=not cross, **kw)
     out = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype))
     return out, cache_k, cache_v
 

@@ -9,9 +9,10 @@
   init_cache(batch_size, seq_len, device=None) -> cache
   decode_step(params, cache, tokens, pos) -> (logits, cache)
   input_specs(shape) -> {name: (shape, dtype)}
-for the dense and MoE decoders (GQA or MLA) and the paper's MLP, which has
-no decode path. SSM, hybrid, VLM and audio models raise
-``NotImplementedError`` naming their ROADMAP item. ``prefill`` and
+for every decoder family (dense, MoE, SSM, hybrid, VLM; ``transformer``),
+the encoder-decoder (audio; ``encdec``) and the paper's MLP, which has no
+decode path. A VLM batch carries ``image_embeds`` (B, N, d) before its
+text, an audio batch ``frames`` (B, S_enc, d). ``prefill`` and
 ``decode_step`` run without autograd; ``decode_step`` writes the cache in
 place.
 """
@@ -21,8 +22,8 @@ from typing import Any, Callable, Dict, NamedTuple
 
 import torch
 
-from repro_torch.configs.base import InputShape, ModelConfig
-from repro_torch.models import transformer
+from repro_torch.configs.base import InputShape, ModelConfig, dtype_of
+from repro_torch.models import encdec, transformer
 from repro_torch.models.layers import chunked_cross_entropy
 from repro_torch.models.mlp_mnist import (init_mlp_mnist, mlp_mnist_logits,
                                           mlp_mnist_loss)
@@ -48,26 +49,35 @@ def cross_entropy(logits, targets, mask=None):
 
 
 def _lm_model(cfg: ModelConfig) -> Model:
-    transformer.check_supported(cfg)
+    is_vlm = cfg.family == "vlm"
 
     def init(seed, device=None):
         return transformer.init_lm(seed, cfg, device)
 
     def forward(params, batch, remat=True, layer_resolver=None):
         logits, _, _ = transformer.lm_forward(
-            params, cfg, batch["tokens"], remat=remat,
+            params, cfg, batch["tokens"],
+            image_embeds=batch.get("image_embeds"), remat=remat,
             layer_resolver=layer_resolver)
         return logits
 
     def loss_fn(params, batch, remat=True, layer_resolver=None):
         hidden, aux, _ = transformer.lm_forward(
-            params, cfg, batch["tokens"], remat=remat, return_hidden=True,
-            layer_resolver=layer_resolver)
+            params, cfg, batch["tokens"],
+            image_embeds=batch.get("image_embeds"), remat=remat,
+            return_hidden=True, layer_resolver=layer_resolver)
+        tgt, mask = batch["targets"], None
+        if is_vlm:      # the image positions carry no LM loss
+            n_img = cfg.num_image_tokens
+            tgt = torch.nn.functional.pad(tgt, (n_img, 0))
+            mask = torch.ones(tgt.shape, dtype=torch.float32,
+                              device=tgt.device)
+            mask[:, :n_img] = 0.0
         loss = chunked_cross_entropy(
-            hidden, batch["targets"],
+            hidden, tgt,
             embedding=params["embedding"] if cfg.tie_embeddings else None,
             lm_head=params.get("lm_head"),
-            final_softcap=cfg.final_logit_softcap)
+            final_softcap=cfg.final_logit_softcap, mask=mask)
         if cfg.moe is not None:
             loss = loss + cfg.moe.router_aux_loss * aux / cfg.num_layers
         return loss, {"aux": aux}
@@ -75,7 +85,9 @@ def _lm_model(cfg: ModelConfig) -> Model:
     @torch.no_grad()
     def prefill(params, batch):
         logits, _, caches = transformer.lm_forward(
-            params, cfg, batch["tokens"], remat=False, collect_cache=True)
+            params, cfg, batch["tokens"],
+            image_embeds=batch.get("image_embeds"), remat=False,
+            collect_cache=True)
         return logits, caches
 
     def init_cache(batch_size, seq_len, device=None):
@@ -83,6 +95,52 @@ def _lm_model(cfg: ModelConfig) -> Model:
 
     def decode_step(params, cache, tokens, pos):
         return transformer.lm_decode_step(params, cfg, cache, tokens, pos)
+
+    def input_specs(shape: InputShape):
+        return lm_input_specs(cfg, shape)
+
+    return Model(cfg, init, loss_fn, forward, prefill, init_cache,
+                 decode_step, input_specs)
+
+
+def _encdec_model(cfg: ModelConfig) -> Model:
+    def init(seed, device=None):
+        return encdec.init_encdec(seed, cfg, device)
+
+    def forward(params, batch, remat=True, layer_resolver=None):
+        enc = encdec.encode(params, cfg, batch["frames"],
+                            layer_resolver=layer_resolver)
+        return encdec.decode_full(params, cfg, batch["tokens"], enc,
+                                  remat=remat, layer_resolver=layer_resolver)
+
+    def loss_fn(params, batch, remat=True, layer_resolver=None):
+        enc = encdec.encode(params, cfg, batch["frames"],
+                            layer_resolver=layer_resolver)
+        hidden = encdec.decode_full(params, cfg, batch["tokens"], enc,
+                                    remat=remat, return_hidden=True,
+                                    layer_resolver=layer_resolver)
+        return chunked_cross_entropy(hidden, batch["targets"],
+                                     embedding=params["embedding"]), {}
+
+    @torch.no_grad()
+    def prefill(params, batch):
+        """(logits, a decode cache as long as the tokens, its cross K/V
+        seeded from the encoder)."""
+        frames = batch["frames"]
+        enc = encdec.encode(params, cfg, frames)
+        cache = encdec.init_encdec_cache(cfg, frames.shape[0],
+                                         batch["tokens"].shape[1],
+                                         frames.device)
+        cache = encdec.seed_cross_cache(params, cfg, cache, enc)
+        logits = encdec.decode_full(params, cfg, batch["tokens"], enc,
+                                    remat=False)
+        return logits, cache
+
+    def init_cache(batch_size, seq_len, device=None):
+        return encdec.init_encdec_cache(cfg, batch_size, seq_len, device)
+
+    def decode_step(params, cache, tokens, pos):
+        return encdec.encdec_decode_step(params, cfg, cache, tokens, pos)
 
     def input_specs(shape: InputShape):
         return lm_input_specs(cfg, shape)
@@ -117,14 +175,26 @@ def _mlp_model(cfg: ModelConfig) -> Model:
 def lm_input_specs(cfg: ModelConfig, shape: InputShape) -> Dict[str, Any]:
     """(shape, dtype) of every model input, allocating nothing."""
     B, S = shape.global_batch, shape.seq_len
+    dtype = dtype_of(cfg)
+    tok = torch.int32
     if shape.kind in ("train", "prefill"):
-        return {"tokens": ((B, S), torch.int32),
-                "targets": ((B, S), torch.int32)}
+        if cfg.family == "audio":
+            return {"frames": ((B, cfg.encoder_seq_len, cfg.d_model), dtype),
+                    "tokens": ((B, S), tok), "targets": ((B, S), tok)}
+        if cfg.family == "vlm":
+            s_text = S - cfg.num_image_tokens
+            return {"image_embeds": ((B, cfg.num_image_tokens, cfg.d_model),
+                                     dtype),
+                    "tokens": ((B, s_text), tok),
+                    "targets": ((B, s_text), tok)}
+        return {"tokens": ((B, S), tok), "targets": ((B, S), tok)}
     # decode: one new token against a seq_len cache
-    return {"tokens": ((B, 1), torch.int32)}
+    return {"tokens": ((B, 1), tok)}
 
 
 def build_model(cfg: ModelConfig) -> Model:
     if cfg.family == "mlp":
         return _mlp_model(cfg)
+    if cfg.family == "audio":
+        return _encdec_model(cfg)
     return _lm_model(cfg)

@@ -1,4 +1,4 @@
-"""Decoder-only LM, the attention families (dense and MoE, GQA or MLA);
+"""Decoder-only LM of every decoder family (dense, MoE, SSM, hybrid, VLM);
 port of ``repro/models/transformer.py``.
 
 Parameters are a nested dict of tensors, the per-layer ones **stacked**
@@ -10,12 +10,21 @@ loop over layer slices (``unbind``: one gradient ``stack`` per leaf in the
 backward pass, not a full-size scatter per layer); ``remat_wrap`` maps the
 reference's ``jax.checkpoint`` policies onto ``torch.utils.checkpoint``.
 
-Decode keeps a KV cache stacked over layers, (L, B, S, KV, hd) ``k``/``v``
-for GQA and (L, B, S, r) ``ckv`` / (L, B, S, rd) ``kr`` for MLA.
-``lm_decode_step`` writes each layer's new row into it in place (the
-reference donates the buffer) and returns it. SSM, hybrid, VLM and audio
-models belong to later slices (``ROADMAP.md`` Queue 1) and raise
-``NotImplementedError``.
+The attention families' layer is attention (GQA or MLA) plus an MLP or an
+MoE. An SSM layer is a Mamba2 block (``models/ssm.py``); the hybrid
+(zamba2) adds one weight-tied attention + MLP block, ``params
+["shared_block"]``, after every ``hybrid_attn_every``-th Mamba2 layer (the
+``apply_attn`` flag; a Python branch where the reference has ``lax.cond``).
+Its gradient sums over every application. A VLM prepends the image
+embeddings plus ``params["img_pos"]`` to the text.
+
+Decode keeps a cache stacked over layers: (L, B, S, KV, hd) ``k``/``v``
+for GQA, (L, B, S, r) ``ckv`` / (L, B, S, rd) ``kr`` for MLA, (L, B, W − 1,
+conv_dim) ``conv`` in the model's dtype and (L, B, h, p, n) f32 ``ssm``
+for the SSM families, the hybrid with ``k``/``v`` over all L layers (only
+the attention layers write theirs). ``lm_decode_step`` writes each
+layer's new state into it in place (the reference donates the buffer) and
+returns it.
 """
 from __future__ import annotations
 
@@ -32,34 +41,26 @@ from repro_torch.configs.base import ModelConfig, dtype_of
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_lib
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import (embed, he_init, init_embedding,
                                        init_mlp, mlp, rmsnorm, unembed)
 
-LATER = {
-    "ssm": "SSM and hybrid (mamba2, zamba2): ROADMAP.md Queue 1, item 1",
-    "hybrid": "SSM and hybrid (mamba2, zamba2): ROADMAP.md Queue 1, item 1",
-    "vlm": "VLM and enc-dec (internvl2, whisper): ROADMAP.md Queue 1, item 2",
-    "audio": "VLM and enc-dec (internvl2, whisper): ROADMAP.md Queue 1, "
-             "item 2",
-}
-
-
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` naming the ROADMAP item for a model
-    this port cannot build yet: anything but a dense or MoE decoder."""
-    if cfg.family not in ("dense", "moe") or cfg.attention is None:
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported yet — "
-            f"{LATER.get(cfg.family, 'ROADMAP.md Queue 1')}")
+ATTN_FAMILIES = ("dense", "vlm", "moe")
 
 
 # --- init --------------------------------------------------------------------
 
 def _init_layers(generator, cfg: ModelConfig, device, dtype):
     """The stacked (L, ...) per-layer parameters, in the reference's leaf
-    names: attention (GQA or MLA), then the MLP or the MoE."""
-    check_supported(cfg)
+    names: attention (GQA or MLA), then the MLP or the MoE; or a Mamba2
+    block."""
     L, d, a = cfg.num_layers, cfg.d_model, cfg.attention
+    if cfg.family in ("ssm", "hybrid"):
+        return {"ssm_norm": torch.zeros((L, d), dtype=dtype, device=device),
+                "ssm": ssm_lib.init_mamba2(generator, d, cfg.ssm, lead=(L,),
+                                           device=device, dtype=dtype)}
+    if cfg.family not in ATTN_FAMILIES:
+        raise ValueError(cfg.family)
     init_attn = attn.init_mla if a.use_mla else attn.init_gqa
     p = {"attn_norm": torch.zeros((L, d), dtype=dtype, device=device),
          "attn": init_attn(generator, d, a, lead=(L,), device=device,
@@ -75,10 +76,22 @@ def _init_layers(generator, cfg: ModelConfig, device, dtype):
     return p
 
 
+def _init_shared_attn_block(generator, cfg: ModelConfig, device, dtype):
+    """zamba2's weight-tied attention + MLP block (one copy, no L axis)."""
+    d = cfg.d_model
+    return {"attn_norm": torch.zeros((d,), dtype=dtype, device=device),
+            "attn": attn.init_gqa(generator, d, cfg.attention, device=device,
+                                  dtype=dtype),
+            "ffn_norm": torch.zeros((d,), dtype=dtype, device=device),
+            "mlp": init_mlp(generator, d, cfg.d_ff, cfg.gated_mlp,
+                            device=device, dtype=dtype)}
+
+
 def layer_flags(cfg: ModelConfig) -> Dict[str, torch.Tensor]:
     """Per-layer flags (CPU bool tensors of length L): layer i is global
     iff i % period == period − 1; with no period every layer is global
-    unless the attention has a window."""
+    unless the attention has a window. The hybrid's shared block follows
+    layer i iff i % hybrid_attn_every == hybrid_attn_every − 1."""
     L = cfg.num_layers
     idx = torch.arange(L)
     if cfg.local_global_period:
@@ -113,6 +126,14 @@ def init_lm(seed: int, cfg: ModelConfig, device=None):
         params["lm_head"] = he_init(gen, (cfg.d_model, cfg.vocab_size),
                                     fan_in=cfg.d_model, device=dev,
                                     dtype=dtype)
+    if cfg.family == "hybrid":
+        params["shared_block"] = _init_shared_attn_block(gen, cfg, dev,
+                                                         dtype)
+    if cfg.family == "vlm":
+        # the stub projector's position marker (the frontend is external)
+        params["img_pos"] = torch.randn(
+            (cfg.num_image_tokens, cfg.d_model), generator=gen, device=dev
+        ).mul_(0.02).to(dtype)
     return params
 
 
@@ -126,11 +147,42 @@ def _layer_slices(stacked):
 
 # --- layer application -------------------------------------------------------
 
-def _apply_layer_full(lp, x, cfg: ModelConfig, is_global: bool, positions):
-    """Full-sequence (train/prefill) layer. Returns (x, cache_seed, aux):
-    the seed is (k, v) for GQA or (c_kv, k_rope) for MLA, aux the MoE
-    load-balance loss (0 for a dense layer)."""
+def _shared_block(sb, x, cfg: ModelConfig, positions):
+    """The hybrid's weight-tied attention + MLP block over x. Returns
+    (x, (k, v))."""
     eps = cfg.norm_eps
+    h = rmsnorm(x, sb["attn_norm"], eps)
+    o, kv = attn.gqa_forward(sb["attn"], h, cfg.attention,
+                             positions=positions)
+    x = x + o
+    h = rmsnorm(x, sb["ffn_norm"], eps)
+    return x + mlp(sb["mlp"], h, cfg.gated_mlp), kv
+
+
+def _apply_layer_full(lp, x, cfg: ModelConfig, is_global: bool,
+                      apply_attn: bool, positions, shared_block):
+    """Full-sequence (train/prefill) layer. Returns (x, cache_seed, aux):
+    the seed is (k, v) for GQA, (c_kv, k_rope) for MLA, (conv, ssm) for
+    an SSM layer and (conv, ssm, k, v) for a hybrid one (zero k/v where
+    the shared block does not follow); aux is the MoE load-balance loss
+    (0 for every other layer)."""
+    eps = cfg.norm_eps
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.family in ("ssm", "hybrid"):
+        h = rmsnorm(x, lp["ssm_norm"], eps)
+        o, seed = ssm_lib.mamba2_forward(lp["ssm"], h, cfg.ssm, eps=eps)
+        x = x + o
+        if cfg.family == "hybrid":
+            if apply_attn:
+                x, kv = _shared_block(shared_block, x, cfg, positions)
+            else:
+                B, S = x.shape[0], x.shape[1]
+                z = torch.zeros((B, S, cfg.attention.num_kv_heads,
+                                 cfg.head_dim), dtype=x.dtype,
+                                device=x.device)
+                kv = (z, z)
+            seed = seed + kv
+        return x, seed, aux
     h = rmsnorm(x, lp["attn_norm"], eps)
     if cfg.attention.use_mla:
         o, seed = attn.mla_forward(lp["attn"], h, cfg.attention,
@@ -145,7 +197,6 @@ def _apply_layer_full(lp, x, cfg: ModelConfig, is_global: bool, positions):
                                      gated=cfg.gated_mlp)
     else:
         o = mlp(lp["mlp"], h, cfg.gated_mlp)
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return x + o, seed, aux
 
 
@@ -187,37 +238,44 @@ def remat_wrap(body, remat):
                              context_fn=_save_dots(remat == "dots"))
 
 
-def lm_forward(params, cfg: ModelConfig, tokens, *, remat=True,
-               collect_cache=False, return_hidden=False,
+def lm_forward(params, cfg: ModelConfig, tokens, *, image_embeds=None,
+               remat=True, collect_cache=False, return_hidden=False,
                layer_resolver=None):
-    """tokens: (B, S). Returns (logits_or_hidden, aux, caches): aux is
-    the MoE load-balance loss summed over the layers (0 for a dense
-    model); with ``collect_cache`` caches is the tuple of each cache
-    seed stacked over layers, ((L, B, S, KV, hd) k and v, or (L, B, S, r)
-    c_kv and (L, B, S, rd) k_rope), else None.
+    """tokens: (B, S_text). Returns (logits_or_hidden, aux, caches): aux
+    is the MoE load-balance loss summed over the layers (0 for the other
+    families); with ``collect_cache`` caches is the tuple of each layer's
+    cache seed stacked over layers (``_apply_layer_full``), else None.
 
-    ``return_hidden=True`` skips the unembed (the chunked-CE training
-    path). ``layer_resolver`` maps a layer's parameter slice to the form
-    the block consumes, inside the remat boundary."""
-    check_supported(cfg)
+    For a VLM, ``image_embeds`` (B, N, d) plus ``img_pos`` are prepended
+    (N + S_text positions in all). ``return_hidden=True`` skips the
+    unembed (the chunked-CE training path). ``layer_resolver`` maps a
+    layer's parameter slice to the form the block consumes, inside the
+    remat boundary."""
     dtype = dtype_of(cfg)
     x = embed(params["embedding"], tokens, dtype) * math.sqrt(cfg.d_model)
+    if cfg.family == "vlm":
+        img = image_embeds.to(dtype) + params["img_pos"].to(dtype)[None]
+        x = torch.cat([img, x], dim=1)
     S = x.shape[1]
     positions = torch.arange(S, dtype=torch.int32, device=x.device)
-    is_global = layer_flags(cfg)["is_global"].tolist()
+    flags = layer_flags(cfg)
+    is_global = flags["is_global"].tolist()
+    apply_attn = flags["apply_attn"].tolist()
+    shared_block = params.get("shared_block")
     layer = _layer_slices(params["layers"])
 
-    def body(x, lp, glob):
+    def body(x, lp, glob, with_attn):
         if layer_resolver is not None:
             lp = layer_resolver(lp)
-        x, seed, aux = _apply_layer_full(lp, x, cfg, glob, positions)
+        x, seed, aux = _apply_layer_full(lp, x, cfg, glob, with_attn,
+                                         positions, shared_block)
         return x, (seed if collect_cache else None), aux
 
     body_fn = remat_wrap(body, remat)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     seeds = []
     for i in range(cfg.num_layers):
-        x, seed, aux_i = body_fn(x, layer(i), is_global[i])
+        x, seed, aux_i = body_fn(x, layer(i), is_global[i], apply_attn[i])
         aux = aux + aux_i
         seeds.append(seed)
     caches = (tuple(torch.stack(leaf) for leaf in zip(*seeds))
@@ -236,17 +294,23 @@ def lm_forward(params, cfg: ModelConfig, tokens, *, remat=True,
 
 def init_lm_cache(cfg: ModelConfig, batch: int, seq_len: int, device=None):
     """Zero cache, stacked over layers (leading L axis), in the model's
-    dtype."""
-    check_supported(cfg)
+    dtype; the SSM state in f32."""
     dev = resolve_device(device)
     L, a, dtype = cfg.num_layers, cfg.attention, dtype_of(cfg)
-    if a.use_mla:
-        shapes = {"ckv": (L, batch, seq_len, a.kv_lora_rank),
-                  "kr": (L, batch, seq_len, a.qk_rope_dim)}
-    else:
+    shapes = {}
+    if cfg.family in ("ssm", "hybrid"):
+        s = cfg.ssm
+        _, n_heads, conv_dim = ssm_lib.ssm_dims(cfg.d_model, s)
+        shapes["conv"] = (L, batch, s.conv_width - 1, conv_dim)
+        shapes["ssm"] = (L, batch, n_heads, s.head_dim, s.d_state)
+    if a is not None and a.use_mla:
+        shapes["ckv"] = (L, batch, seq_len, a.kv_lora_rank)
+        shapes["kr"] = (L, batch, seq_len, a.qk_rope_dim)
+    elif cfg.family != "ssm":
         kv = (L, batch, seq_len, a.num_kv_heads, cfg.head_dim)
-        shapes = {"k": kv, "v": kv}
-    return {name: torch.zeros(shape, dtype=dtype, device=dev)
+        shapes["k"] = shapes["v"] = kv
+    return {name: torch.zeros(shape, dtype=torch.float32 if name == "ssm"
+                              else dtype, device=dev)
             for name, shape in shapes.items()}
 
 
@@ -259,8 +323,13 @@ def seed_cache_from_prefill(cfg: ModelConfig, cache, seeds, *,
     returns. The forward already applies RoPE to K at the absolute
     positions 0..T−1, the values ``gqa_decode`` would have written token
     by token, so seeding the first T slots and decoding from
-    ``pos = start + T`` reproduces the full forward."""
-    check_supported(cfg)
+    ``pos = start + T`` reproduces the full forward. The SSM families
+    carry a recurrent state with no positional slot, and raise."""
+    if cfg.family not in ATTN_FAMILIES:
+        raise NotImplementedError(
+            f"prefill cache seeding is attention-only; family "
+            f"{cfg.family!r} carries recurrent state that has no positional "
+            "slot to seed")
     names = ("ckv", "kr") if cfg.attention.use_mla else ("k", "v")
     for name, seed in zip(names, seeds):
         T = seed.shape[2]
@@ -271,19 +340,38 @@ def seed_cache_from_prefill(cfg: ModelConfig, cache, seeds, *,
 @torch.no_grad()
 def lm_decode_step(params, cfg: ModelConfig, cache, tokens, pos):
     """tokens: (B, 1); pos: int (or a 0-d tensor). Returns (logits,
-    cache): logits (B, 1, V) f32; every layer's new K/V (or latent) row
-    is written into the cache at ``pos``, in place."""
-    check_supported(cfg)
+    cache): logits (B, 1, V) f32; every layer's new K/V (or latent) row is
+    written into the cache at ``pos``, and an SSM layer's conv and ssm
+    state over its old one, in place."""
     pos = int(pos)
     eps = cfg.norm_eps
     a = cfg.attention
     x = embed(params["embedding"], tokens, dtype_of(cfg)) * \
         math.sqrt(cfg.d_model)
-    is_global = layer_flags(cfg)["is_global"].tolist()
+    flags = layer_flags(cfg)
+    is_global = flags["is_global"].tolist()
+    apply_attn = flags["apply_attn"].tolist()
+    sb = params.get("shared_block")
     layer = _layer_slices(params["layers"])
     cache_l = _layer_slices(cache)
     for i in range(cfg.num_layers):
         lp, c = layer(i), cache_l(i)
+        if cfg.family in ("ssm", "hybrid"):
+            h = rmsnorm(x, lp["ssm_norm"], eps)
+            o, (conv, ssm) = ssm_lib.mamba2_decode(
+                lp["ssm"], h, cfg.ssm, conv_state=c["conv"],
+                ssm_state=c["ssm"], eps=eps)
+            x = x + o
+            c["conv"].copy_(conv)
+            c["ssm"].copy_(ssm)
+            if apply_attn[i]:
+                h = rmsnorm(x, sb["attn_norm"], eps)
+                o, _, _ = attn.gqa_decode(sb["attn"], h, a, cache_k=c["k"],
+                                          cache_v=c["v"], pos=pos)
+                x = x + o
+                h = rmsnorm(x, sb["ffn_norm"], eps)
+                x = x + mlp(sb["mlp"], h, cfg.gated_mlp)
+            continue
         h = rmsnorm(x, lp["attn_norm"], eps)
         if a.use_mla:
             o, _, _ = attn.mla_decode(lp["attn"], h, a, cache_ckv=c["ckv"],

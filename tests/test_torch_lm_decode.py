@@ -1,8 +1,12 @@
 """The port's LM decode path (``repro_torch.models``: GQA decode, the
-flash-decoding split, MLA, MoE, the KV cache, prefill and ``decode_step``;
-``repro_torch.launch.decode_demo``) against ``repro`` on the same NumPy
-inputs; the reference's weights and caches go in through
-``repro_torch.convert``.
+flash-decoding split, MLA, MoE, the KV cache, the SSM and hybrid caches,
+the VLM's image prefix, the encoder-decoder's cross cache, prefill and
+``decode_step``; ``repro_torch.launch.decode_demo``) against ``repro`` on
+the same NumPy inputs; the reference's weights and caches go in through
+``repro_torch.convert``. The SSM, hybrid and audio families have no
+prefill seeding in either package: their reference caches are built by
+stepping the prompt through ``decode_step`` (audio: after
+``seed_cross_cache``).
 
 Tolerances:
 - exact: ``_route``'s expert indices against ``jax.lax.top_k`` (bf16
@@ -19,7 +23,8 @@ Tolerances:
 - decode ≡ forward within the port: the reference test's gate
   (``tests/test_decode_consistency.py``): argmax equal, rtol = atol =
   2e-2, in f32 with ``capacity_factor = 8`` so no route is dropped in
-  either.
+  either; the hybrid's decoded k/v rows against its prefill seeds within
+  1e-5 of their max, and exactly zero on the layers without attention.
 """
 import dataclasses
 import os
@@ -36,6 +41,7 @@ import torch
 from repro import configs as jcfg
 from repro.launch.steps import make_seeded_prefill as jseeded_prefill
 from repro.models import attention as jattn
+from repro.models import encdec as jenc
 from repro.models import moe as jmoe
 from repro.models.registry import build_model as jbuild
 from repro_torch import configs as tcfg
@@ -44,12 +50,16 @@ from repro_torch.convert import lm_params_from_reference, lm_params_to_numpy
 from repro_torch.launch.decode_demo import generate
 from repro_torch.launch.steps import make_seeded_prefill
 from repro_torch.models import attention as tattn
+from repro_torch.models import encdec as tenc
 from repro_torch.models import moe as tmoe
 from repro_torch.models import transformer as ttr
 from repro_torch.models.registry import build_model as tbuild
 
 LM_ARCHS = ["starcoder2-15b", "gemma2-2b", "gemma3-27b", "minicpm3-4b",
             "mixtral-8x22b", "deepseek-v2-lite-16b"]
+RECURRENT = ["mamba2-2.7b", "zamba2-7b"]
+RECURRENT_FAMILIES = ("ssm", "hybrid")
+NEW_ARCHS = RECURRENT + ["internvl2-1b", "whisper-base"]
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
@@ -236,14 +246,6 @@ def test_decode_attention_sharded(n_chunks, window, is_global):
                                    atol=1e-5)
 
 
-def test_gqa_decode_cross_raises():
-    p, x, ck, cv = _gqa_inputs(seed=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tattn.gqa_decode({k: _t(v) for k, v in p.items()}, _t(x),
-                         tcfg.AttentionConfig(), cache_k=_t(ck),
-                         cache_v=_t(cv), pos=0, cross=True)
-
-
 @pytest.mark.parametrize("arch", ["minicpm3-4b", "deepseek-v2-lite-16b"])
 def test_mla_matches_reference(arch):
     """``mla_forward`` (materialised K) and ``mla_decode`` (absorbed
@@ -284,7 +286,7 @@ def test_mla_matches_reference(arch):
 
 # --- the cache, prefill and decode_step --------------------------------------
 
-@pytest.mark.parametrize("arch", LM_ARCHS)
+@pytest.mark.parametrize("arch", LM_ARCHS + NEW_ARCHS)
 def test_init_lm_cache_leaves(arch):
     """Leaf names, shapes, dtypes and order equal the reference's, at
     smoke size and (on the meta device) at full width."""
@@ -313,103 +315,217 @@ def _pair(arch, dtype="float32", **cfg_kw):
     return jm, tm, jp, tp
 
 
-@pytest.mark.parametrize("arch", LM_ARCHS)
-def test_prefill_and_seeded_cache(arch):
-    """``prefill``'s logits and stacked seeds, then the seeded cache and
-    its offset, against the reference's, in f32."""
-    jm, tm, jp, tp = _pair(arch)
-    tok = _rng(2).integers(0, tm.cfg.vocab_size, (2, 12)).astype(np.int32)
-    jlogits, jseeds = jax.jit(jm.prefill)(jp, {"tokens": jnp.asarray(tok)})
-    tlogits, tseeds = tm.prefill(tp, {"tokens": _t(tok)})
-    _close_to_max(tlogits, jlogits, 1e-5, "logits")
-    assert len(tseeds) == len(jseeds) == 2
-    for got, want in zip(tseeds, jseeds):
-        _close_to_max(got, want, 1e-5, "seed")
-    _, jcache, joff = jseeded_prefill(jm, 20)(jp, {"tokens":
-                                                   jnp.asarray(tok)})
-    _, tcache, toff = make_seeded_prefill(tm, 20)(tp, {"tokens": _t(tok)})
-    assert toff == joff == 12
+def _stub(cfg, B, seed):
+    """A VLM's image embeddings or an audio model's frames (random f32
+    NumPy; each package casts them to the model's dtype)."""
+    rng = _rng(seed + 100)
+    n = {"vlm": cfg.num_image_tokens, "audio": cfg.encoder_seq_len}.get(
+        cfg.family)
+    if n is None:
+        return {}
+    name = "image_embeds" if cfg.family == "vlm" else "frames"
+    return {name: (rng.standard_normal((B, n, cfg.d_model)) * 0.5
+                   ).astype(np.float32)}
+
+
+def _batches(batch):
+    return ({k: jnp.asarray(v) for k, v in batch.items()},
+            {k: _t(v) for k, v in batch.items()})
+
+
+def _check_cache(tcache, jcache, tol):
     jl = jax.tree_util.tree_leaves_with_path(jcache)
     tl = tree.flatten_with_paths(lm_params_to_numpy(tcache))[0]
     assert [jax.tree_util.keystr(p) for p, _ in jl] == [p for p, _ in tl]
     for (path, want), (_, got) in zip(jl, tl):
-        _close_to_max(got, want, 1e-5, path)
-        assert not np.asarray(got)[:, :, 12:].any()          # unseeded
+        _close_to_max(got, want, tol, jax.tree_util.keystr(path))
+    return [got for _, got in tl]
 
 
-DECODE_CASES = ([(a, "float32", 0) for a in LM_ARCHS]
-                + [(a, "bfloat16", 0) for a in LM_ARCHS]
+@pytest.mark.parametrize("arch", LM_ARCHS + ["internvl2-1b"])
+def test_prefill_and_seeded_cache(arch):
+    """``prefill``'s logits and stacked seeds, then the seeded cache and
+    its offset (the image's N positions, then the prompt's), against the
+    reference's, in f32."""
+    jm, tm, jp, tp = _pair(arch)
+    tok = _rng(2).integers(0, tm.cfg.vocab_size, (2, 12)).astype(np.int32)
+    jb, tb = _batches({"tokens": tok, **_stub(tm.cfg, 2, seed=2)})
+    off = 12 + (tm.cfg.num_image_tokens if "image_embeds" in tb else 0)
+    jlogits, jseeds = jax.jit(jm.prefill)(jp, jb)
+    tlogits, tseeds = tm.prefill(tp, tb)
+    _close_to_max(tlogits, jlogits, 1e-5, "logits")
+    assert len(tseeds) == len(jseeds) == 2
+    for got, want in zip(tseeds, jseeds):
+        _close_to_max(got, want, 1e-5, "seed")
+    _, jcache, joff = jseeded_prefill(jm, off + 8)(jp, jb)
+    _, tcache, toff = make_seeded_prefill(tm, off + 8)(tp, tb)
+    assert toff == joff == off
+    for got in _check_cache(tcache, jcache, 1e-5):
+        assert not got[:, :, off:].any()                    # unseeded
+
+
+def test_seeded_prefill_image_only():
+    """A VLM prefix with no prompt tokens: the cache holds the N image
+    positions, the offset is N, and decoding the text from there matches
+    the reference's (f32, 1e-5 of the max)."""
+    jm, tm, jp, tp = _pair("internvl2-1b")
+    N = tm.cfg.num_image_tokens
+    img = _stub(tm.cfg, 2, seed=3)["image_embeds"]
+    tok = _rng(3).integers(0, tm.cfg.vocab_size, (2, 4)).astype(np.int32)
+    empty = np.zeros((2, 0), np.int32)
+    jb, tb = _batches({"tokens": empty, "image_embeds": img})
+    jlogits, jcache, joff = jseeded_prefill(jm, N + 4)(jp, jb)
+    tlogits, tcache, toff = make_seeded_prefill(tm, N + 4)(tp, tb)
+    assert toff == joff == N
+    _close_to_max(tlogits, jlogits, 1e-5, "logits")
+    _check_cache(tcache, jcache, 1e-5)
+    jdec = jax.jit(jm.decode_step)
+    for i in range(4):
+        t = tok[:, i:i + 1]
+        jl, jcache = jdec(jp, jcache, jnp.asarray(t), jnp.int32(N + i))
+        tl, tcache = tm.decode_step(tp, tcache, _t(t), N + i)
+        _close_to_max(tl, jl, 1e-5, f"logits at {N + i}")
+    _check_cache(tcache, jcache, 1e-5)
+
+
+@pytest.mark.parametrize("arch", RECURRENT + ["whisper-base"])
+def test_prefill_recurrent_families(arch):
+    """The SSM and hybrid prefill's stacked seeds ((conv, ssm) and
+    (conv, ssm, k, v)) and the audio prefill's cache against the
+    reference's (f32, 1e-5 of the max); ``make_seeded_prefill`` refuses
+    all three in both packages: their state has no positional slot."""
+    jm, tm, jp, tp = _pair(arch)
+    tok = _rng(4).integers(0, tm.cfg.vocab_size, (2, 12)).astype(np.int32)
+    jb, tb = _batches({"tokens": tok, **_stub(tm.cfg, 2, seed=4)})
+    jlogits, jseeds = jax.jit(jm.prefill)(jp, jb)
+    tlogits, tseeds = tm.prefill(tp, tb)
+    _close_to_max(tlogits, jlogits, 1e-5, "logits")
+    if arch == "whisper-base":
+        _check_cache(tseeds, jseeds, 1e-5)
+    else:
+        assert len(tseeds) == len(jseeds) == (2 if arch == RECURRENT[0]
+                                               else 4)
+        for got, want in zip(tseeds, jseeds):
+            assert got.dtype == (torch.float32 if got.ndim == 5
+                                 and got.shape[2] != 12 else got.dtype)
+            _close_to_max(got, want, 1e-5, "seed")
+    with pytest.raises(NotImplementedError, match="positional"):
+        jseeded_prefill(jm, 20)(jp, jb)
+    with pytest.raises(NotImplementedError, match="positional"):
+        make_seeded_prefill(tm, 20)(tp, tb)
+
+
+DECODE_CASES = ([(a, "float32", 0) for a in LM_ARCHS + NEW_ARCHS]
+                + [(a, "bfloat16", 0) for a in LM_ARCHS + NEW_ARCHS]
                 + [("gemma2-2b", "float32", 4), ("mixtral-8x22b",
                                                  "float32", 4)])
 
 
+def _reference_cache(jm, jp, tok, P, total, stub):
+    """The reference's cache after a P-token prompt, and the position
+    decoding continues at: seeded from a prefill for the attention
+    families (a VLM's image first); stepped token by token for the SSM,
+    hybrid and audio families (audio after ``seed_cross_cache``)."""
+    cfg = jm.cfg
+    if cfg.family in ("dense", "moe", "vlm"):
+        jb, _ = _batches({"tokens": tok[:, :P], **stub})
+        _, cache, off = jseeded_prefill(jm, total)(jp, jb)
+        return cache, off
+    cache = jm.init_cache(tok.shape[0], total)
+    if cfg.family == "audio":
+        cache = jenc.seed_cross_cache(
+            jp, cfg, cache, jenc.encode(jp, cfg, jnp.asarray(stub["frames"])))
+    jdec = jax.jit(jm.decode_step)
+    for pos in range(P):
+        _, cache = jdec(jp, cache, jnp.asarray(tok[:, pos:pos + 1]),
+                        jnp.int32(pos))
+    return cache, P
+
+
 @pytest.mark.parametrize("arch,dtype,chunks", DECODE_CASES)
 def test_decode_steps_match_reference(arch, dtype, chunks):
-    """The reference seeds its cache from an 8-token prefill; the port
-    takes that cache and the weights through ``convert`` and both decode
-    6 more tokens step by step. f32: logits and every cache leaf within
-    1e-5 of their max; bf16: logits within 3e-2 of their max."""
+    """The reference builds its cache from an 8-token prompt
+    (``_reference_cache``); the port takes that cache and the weights
+    through ``convert`` and both decode 6 more tokens step by step. f32:
+    logits and every cache leaf within 1e-5 of their max; bf16: logits
+    within 3e-2 of their max."""
     kw = {"decode_sharded_chunks": chunks} if chunks else {}
     jm, tm, jp, tp = _pair(arch, dtype, **kw)
     P, G = 8, 6
     tok = _rng(3).integers(0, tm.cfg.vocab_size, (2, P + G)).astype(np.int32)
-    _, jcache, _ = jseeded_prefill(jm, P + G)(
-        jp, {"tokens": jnp.asarray(tok[:, :P])})
+    stub = _stub(tm.cfg, 2, seed=3)
+    n_img = tm.cfg.num_image_tokens if tm.cfg.family == "vlm" else 0
+    jcache, off = _reference_cache(jm, jp, tok, P, n_img + P + G, stub)
+    assert off == n_img + P
     tcache = lm_params_from_reference(
         jax.tree_util.tree_map(np.asarray, jcache), device="cpu")
     jdec = jax.jit(jm.decode_step)
     tol = 1e-5 if dtype == "float32" else 3e-2
     for i in range(G):
-        pos = P + i
-        jlogits, jcache = jdec(jp, jcache, jnp.asarray(tok[:, pos:pos + 1]),
-                               jnp.int32(pos))
-        tlogits, tcache = tm.decode_step(tp, tcache, _t(tok[:, pos:pos + 1]),
-                                         pos)
+        pos, t = off + i, tok[:, P + i:P + i + 1]
+        jlogits, jcache = jdec(jp, jcache, jnp.asarray(t), jnp.int32(pos))
+        tlogits, tcache = tm.decode_step(tp, tcache, _t(t), pos)
         assert tlogits.shape == (2, 1, tm.cfg.vocab_size)
         _close_to_max(tlogits, jlogits, tol, f"logits at {pos}")
         if dtype == "float32":
             for name, want in jcache.items():
                 _close_to_max(tcache[name], want, tol, f"{name} at {pos}")
+    if "ssm" in tcache:     # the state stays f32 in a bf16 model too
+        assert tcache["ssm"].dtype == torch.float32
 
 
-@pytest.mark.parametrize("arch", LM_ARCHS)
+@pytest.mark.parametrize("arch", LM_ARCHS + NEW_ARCHS)
 def test_decode_matches_forward(arch):
     """The port's own decode ≡ forward, mirroring
     tests/test_decode_consistency.py: f32, ``capacity_factor = 8`` (no
-    drop in either), B = 2, S = 16, every token stepped from an empty
-    cache against the full forward's logits."""
+    drop in either), B = 2, S = 16 text tokens stepped from an empty cache
+    against the full forward's logits. The VLM's cache is seeded from its
+    image alone (zero prompt tokens) and its forward sliced to the text;
+    the audio decoder is stepped from the seeded cross cache against
+    ``decode_full``. The SSM smoke models run S = 48: two SSD chunks of
+    32, halved to 16 (48 % 32 ≠ 0), so the inter-chunk recurrence is
+    used. The hybrid's decoded k/v rows equal its prefill seeds."""
     cfg = tcfg.scaled(tcfg.get_smoke_config(arch), dtype="float32")
     if cfg.moe is not None:
         cfg = dataclasses.replace(
             cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=8.0))
     model = tbuild(cfg)
     params = model.init(0, device="cpu")
-    B, S = 2, 16
+    B = 2
+    S = 48 if cfg.family in RECURRENT_FAMILIES else 16
     tokens = _t(_rng(1).integers(0, cfg.vocab_size, (B, S)).astype(np.int32))
+    stub = {k: _t(v) for k, v in _stub(cfg, B, seed=1).items()}
     with torch.no_grad():
-        full = model.forward(params, {"tokens": tokens}, remat=False)
-    cache = model.init_cache(B, S, "cpu")
+        full = model.forward(params, {"tokens": tokens, **stub}, remat=False)
+    start = 0
+    if cfg.family == "vlm":
+        start = cfg.num_image_tokens
+        full = full[:, start:]
+        _, cache, off = make_seeded_prefill(model, start + S)(
+            params, {"tokens": tokens[:, :0], **stub})
+        assert off == start
+    elif cfg.family == "audio":
+        cache = tenc.seed_cross_cache(
+            params, cfg, model.init_cache(B, S, "cpu"),
+            tenc.encode(params, cfg, stub["frames"]))
+    else:
+        cache = model.init_cache(B, S, "cpu")
     outs = []
     for pos in range(S):
         logits, cache = model.decode_step(params, cache,
-                                          tokens[:, pos:pos + 1], pos)
+                                          tokens[:, pos:pos + 1], start + pos)
         outs.append(logits[:, 0])
     a, d = full.numpy(), torch.stack(outs, dim=1).numpy()
     np.testing.assert_array_equal(a.argmax(-1), d.argmax(-1))
     np.testing.assert_allclose(a, d, rtol=2e-2, atol=2e-2)
-
-
-def test_other_families_raise():
-    for arch in ("mamba2-2.7b", "zamba2-7b", "internvl2-1b",
-                 "whisper-base"):
-        cfg = tcfg.get_smoke_config(arch)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ttr.init_lm_cache(cfg, 1, 8, "cpu")
-    _, tm, _, tp = _pair("gemma2-2b")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_seeded_prefill(tm, 8)(
-            tp, {"tokens": torch.zeros(1, 2, dtype=torch.int32),
-                 "image_embeds": torch.zeros(1)})
+    if cfg.family == "hybrid":
+        _, seeds = model.prefill(params, {"tokens": tokens})
+        attn = ttr.layer_flags(cfg)["apply_attn"]
+        assert attn.any() and not attn.all()
+        for name, seed in zip(("k", "v"), seeds[2:]):
+            _close_to_max(cache[name][attn], seed[attn], 1e-5, name)
+            assert not cache[name][~attn].any()
+            assert not seed[~attn].any()
 
 
 # --- the decode demo ---------------------------------------------------------
@@ -434,7 +550,8 @@ def _reference_loop(jm, jp, prompts, gen):
     return np.asarray(jnp.concatenate(out, axis=1))
 
 
-@pytest.mark.parametrize("arch", ["gemma2-2b", "deepseek-v2-lite-16b"])
+@pytest.mark.parametrize("arch", ["gemma2-2b", "deepseek-v2-lite-16b",
+                                  "mamba2-2.7b", "zamba2-7b"])
 def test_generate_matches_reference_loop(arch):
     jm, tm, jp, tp = _pair(arch)
     prompts = _rng(0).integers(0, tm.cfg.vocab_size, (3, 6)).astype(np.int32)
@@ -461,6 +578,15 @@ def test_decode_demo_cli_subprocess():
     assert r.returncode == 0, r.stderr
     assert "generated 3 tokens x batch 2" in r.stdout
     assert "tok/s" in r.stdout
+
+
+def test_decode_demo_cli_recurrent(capsys):
+    """The demo's CLI on the SSM smoke model, in process."""
+    from repro_torch.launch.decode_demo import main
+    main(["--device", "cpu", "--smoke", "--arch", "mamba2-2.7b",
+          "--batch", "2", "--prompt-len", "5", "--gen", "3"])
+    out = capsys.readouterr().out
+    assert "mamba2-smoke on cpu: generated 3 tokens x batch 2" in out
 
 
 def test_serve_shim_warns():

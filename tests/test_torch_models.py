@@ -1,6 +1,9 @@
-"""The port's configs and LMs (dense and MoE, GQA and MLA;
-``repro_torch.configs``, ``repro_torch.models``) against ``repro`` on the
-same NumPy inputs: the reference's weights go in through ``repro_torch.convert``.
+"""The port's configs and models (dense and MoE, GQA and MLA, SSM, the
+hybrid with its shared block, the VLM's image prefix, the audio
+encoder-decoder; ``repro_torch.configs``, ``repro_torch.models``) against
+``repro`` on the same NumPy inputs: the reference's weights go in through
+``repro_torch.convert``, and a VLM's image embeddings or an audio model's
+frames are the same random NumPy arrays in both.
 
 Tolerances:
 - exact: every config field and ``param_count``, the leaf names, shapes
@@ -10,10 +13,16 @@ Tolerances:
 - elementwise layers in f32: rtol 1e-6 (rmsnorm, softcap, RoPE, gelu).
 - the model in f32 (``scaled(cfg, dtype="float32")``): loss rtol 1e-5,
   logits max-abs ≤ 1e-5·max|logits|, every gradient leaf max-abs ≤
-  1e-4·max|g| (f32 sums in another order; about 2e-6 seen).
+  1e-4·max|g| (f32 sums in another order; about 2e-6 seen, 1.04e-5 on
+  zamba2's ``A_log``, whose gradient sums products of decays over every
+  position and chunk).
 - the model in its own bf16: loss rtol 1e-3, logits ≤ 3e-2·max|logits|,
   every gradient leaf ≤ 5e-2·max|g| (bf16 keeps 8 bits: one rounding of
-  an activation is 4e-3 relative; up to 2.5e-2 seen on the leaves).
+  an activation is 4e-3 relative; up to 3.8e-2 seen on the leaves),
+  except the SSM's per-head ``A_log``, ``D`` and ``dt_bias``: ≤ 1e-1.
+  Each of their gradients is one sum over every (batch, position, head
+  dim) of bf16 products that largely cancel, rounded in another order in
+  each package (6.7e-2 seen on zamba2's ``D``).
 - the MoE models (mixtral, deepseek) in bf16: loss rtol 5e-3 and at least
   97% of the routes (token, rank → expert) equal in every layer. Their
   router logits are bf16, so one rounding can flip a near-tied route;
@@ -50,9 +59,11 @@ from repro_torch.models import transformer as ttr
 from repro_torch.models.registry import build_model as tbuild
 
 LM_ARCHS = ["gemma2-2b", "gemma3-27b", "starcoder2-15b", "minicpm3-4b",
-            "mixtral-8x22b", "deepseek-v2-lite-16b"]
-NOT_PORTED = ["mamba2-2.7b", "zamba2-7b", "internvl2-1b", "whisper-base"]
-B, S = 2, 128        # S > the smoke window of 64, so the local mask bites
+            "mixtral-8x22b", "deepseek-v2-lite-16b", "mamba2-2.7b",
+            "zamba2-7b", "internvl2-1b", "whisper-base"]
+# S > the smoke window of 64, so the local mask bites; S = 128 runs four
+# SSD chunks of 32 in the SSM smoke models
+B, S = 2, 128
 
 
 def _t(a):
@@ -96,16 +107,21 @@ def test_train_config_and_shapes_equal():
 
 @pytest.mark.parametrize("arch", LM_ARCHS + ["mnist-mlp"])
 def test_leaves_match_reference(arch):
-    """Leaf paths, shapes and order equal the reference's init, and their
-    sizes sum to ``param_count`` — at smoke size and, on the meta device,
-    at full width. (``param_count`` has no MLP branch in either package:
-    the MLP's leaves sum to the paper's D = 50,890 instead.)"""
+    """Leaf paths, shapes and order equal the reference's init (the
+    top-level ``shared_block``, ``img_pos``, ``enc_layers``, ``enc_norm``
+    and ``pos_embedding`` included), at smoke size and, on the meta
+    device, at full width; for the attention families their sizes sum to
+    ``param_count``. (``param_count`` is the reference's analytic count:
+    it has no MLP branch, so the MLP's leaves sum to the paper's D =
+    50,890, and it does not match the reference's own init for the SSM,
+    hybrid, VLM and audio families, e.g. it leaves out ``conv_b``.)"""
     for get in (tcfg.get_smoke_config, tcfg.get_config):
         cfg = get(arch)
         params = tbuild(cfg).init(0, device="meta")
         leaves = tree.flatten_with_paths(params)[0]
-        assert sum(p.numel() for _, p in leaves) == (
-            50890 if cfg.family == "mlp" else cfg.param_count())
+        if cfg.family in ("dense", "moe", "mlp"):
+            assert sum(p.numel() for _, p in leaves) == (
+                50890 if cfg.family == "mlp" else cfg.param_count())
         jcfg_ = (jcfg.get_smoke_config if get is tcfg.get_smoke_config
                  else jcfg.get_config)(arch)
         jshapes = jax.eval_shape(jbuild(jcfg_).init, jax.random.PRNGKey(0))
@@ -214,13 +230,30 @@ def _pair(arch, dtype):
     tp = lm_params_from_reference(jax.tree_util.tree_map(np.asarray, jp),
                                   device="cpu")
     tok, tgt = token_stream(B, S, jc.vocab_size, seed=1)
-    jb = {"tokens": jnp.asarray(tok), "targets": jnp.asarray(tgt)}
-    tb = {"tokens": torch.from_numpy(tok), "targets": torch.from_numpy(tgt)}
+    batch = {"tokens": tok, "targets": tgt}
+    batch.update(stub_inputs(jc, B, seed=1))
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+    tb = {k: torch.from_numpy(v) for k, v in batch.items()}
     return jm, tm, jp, tp, jb, tb
+
+
+def stub_inputs(cfg, batch, seed):
+    """A VLM's image embeddings or an audio model's frames, random f32."""
+    rng = np.random.default_rng(seed + 100)
+    if cfg.family == "vlm":
+        return {"image_embeds": (rng.standard_normal(
+            (batch, cfg.num_image_tokens, cfg.d_model)) * 0.5
+        ).astype(np.float32)}
+    if cfg.family == "audio":
+        return {"frames": (rng.standard_normal(
+            (batch, cfg.encoder_seq_len, cfg.d_model)) * 0.5
+        ).astype(np.float32)}
+    return {}
 
 
 TOL = {"float32": dict(loss=1e-5, logits=1e-5, grad=1e-4),
        "bfloat16": dict(loss=1e-3, logits=3e-2, grad=5e-2)}
+SSM_SCALARS_BF16 = 1e-1     # A_log, D, dt_bias: see the module's head
 MOE_BF16 = dict(loss=5e-3, routes=0.97)
 
 
@@ -277,21 +310,30 @@ def test_lm_matches_reference(arch, dtype, monkeypatch):
     jl = jax.tree_util.tree_leaves_with_path(jgrads)
     tl = tree.flatten_with_paths(tgrads)[0]
     assert [jax.tree_util.keystr(p) for p, _ in jl] == [p for p, _ in tl]
-    for (path, want), (_, got) in zip(jl, tl):
+    for (path, want), (key, got) in zip(jl, tl):
         want = np.asarray(want)
         err = np.abs(got.numpy() - want).max()
-        assert err <= tol["grad"] * np.abs(want).max(), (path, err)
+        bound = tol["grad"]
+        if dtype == "bfloat16" and key.endswith(
+                ("['A_log']", "['D']", "['dt_bias']")):
+            bound = SSM_SCALARS_BF16
+        assert err <= bound * np.abs(want).max(), (path, err)
 
 
-@pytest.mark.parametrize("arch", ["gemma2-2b", "starcoder2-15b"])
+@pytest.mark.parametrize("arch", ["gemma2-2b", "starcoder2-15b",
+                                  "mamba2-2.7b", "zamba2-7b",
+                                  "whisper-base"])
 def test_remat_bitwise(arch):
     """Remat changes what is held, never a number: the loss and every
-    gradient leaf are bit for bit equal under the four policies."""
+    gradient leaf (zamba2's weight-tied ``shared_block`` included) are
+    bit for bit equal under the four policies."""
     tm = tbuild(tcfg.get_smoke_config(arch))
     params = tm.init(0, device="cpu")
     tok, tgt = token_stream(B, S, tm.cfg.vocab_size, seed=2)
     batch = {"tokens": torch.from_numpy(tok),
              "targets": torch.from_numpy(tgt)}
+    batch.update({k: torch.from_numpy(v)
+                  for k, v in stub_inputs(tm.cfg, B, seed=2).items()})
     base = None
     for policy in ("off", "full", "dots", "dots_no_batch"):
         loss, grads = loss_and_grads(tm, TrainConfig(remat_policy=policy),
@@ -340,10 +382,53 @@ def test_mnist_mlp_model():
     assert tm.forward(tp, {"x": _t(x)}).shape == (16, 10)
 
 
-@pytest.mark.parametrize("arch", NOT_PORTED)
-def test_build_model_raises_for_later_families(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tbuild(tcfg.get_smoke_config(arch))
+@pytest.mark.parametrize("arch", list(jcfg.ARCH_MODULES))
+def test_build_model_every_config(arch):
+    """Every config builds, full width on the meta device, with the
+    reference's input specs."""
+    from repro_torch.models.registry import lm_input_specs
+    cfg = tcfg.get_config(arch)
+    m = tbuild(cfg)
+    assert tree.leaves(m.init(0, device="meta"))
+    if cfg.family == "mlp":
+        return
+    jc = jcfg.get_config(arch)
+    for shape in tcfg.INPUT_SHAPES.values():
+        got = lm_input_specs(cfg, shape)
+        want = jbuild(jc).input_specs(jcfg.INPUT_SHAPES[shape.name])
+        assert list(got) == list(want)
+        for k, (shp, dt) in got.items():
+            assert shp == want[k].shape
+            assert str(dt).split(".")[-1] == str(want[k].dtype)
+
+
+@pytest.mark.parametrize("remat", ["off", "full"])
+def test_shared_block_gradient_sums_applications(remat):
+    """zamba2 with its shared block after each of 3 layers: the block's
+    gradient is the sum over its three applications, against the
+    reference's (f32, 1e-4 of each leaf's max as above)."""
+    over = dict(num_layers=3, hybrid_attn_every=1, dtype="float32")
+    jc = jcfg.scaled(jcfg.get_smoke_config("zamba2-7b"), **over)
+    tc = tcfg.scaled(tcfg.get_smoke_config("zamba2-7b"), **over)
+    assert ttr.layer_flags(tc)["apply_attn"].tolist() == [True] * 3
+    jm, tm = jbuild(jc), tbuild(tc)
+    jp = jm.init(jax.random.PRNGKey(1))
+    tp = lm_params_from_reference(jax.tree_util.tree_map(np.asarray, jp),
+                                  device="cpu")
+    tok, tgt = token_stream(B, 64, jc.vocab_size, seed=3)
+    jloss, jg = jax.value_and_grad(lambda p: jm.loss_fn(
+        p, {"tokens": tok, "targets": tgt}, remat=remat == "full")[0])(jp)
+    tloss, tg = loss_and_grads(tm, TrainConfig(remat_policy=remat), tp,
+                               {"tokens": torch.from_numpy(tok),
+                                "targets": torch.from_numpy(tgt)})
+    assert float(tloss) == pytest.approx(float(jloss), rel=1e-5)
+    want = jax.tree_util.tree_leaves_with_path(jg["shared_block"])
+    got = tree.flatten_with_paths(tg["shared_block"])[0]
+    assert len(got) == len(want) == 9
+    for (path, w), (_, g) in zip(want, got):
+        w = np.asarray(w)
+        assert np.abs(w).max() > 0
+        assert np.abs(g.numpy() - w).max() <= 1e-4 * np.abs(w).max(), path
 
 
 def test_decode_path_raises():
