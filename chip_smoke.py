@@ -65,7 +65,7 @@ result line):
             events, the largest leaves' ms, a profiled step, peak memory;
             no launch of K1-K7 (the reference's trainer runs no Pallas
             kernel); then ``python -m repro_torch.launch.train --arch
-            gemma2-2b --steps 2``
+            gemma2-2b --steps 1``
 10. decode  the LM decode path at full width, f32: (10a) gemma2-2b, B = 2,
             ``make_seeded_prefill`` over a 4,160-token prompt (past the
             4,096 window) into a 4,176-long cache, 16 decode steps on
@@ -99,6 +99,24 @@ result line):
             ``decode_full``, then its trainer CLI; (11f) ``python -m
             repro_torch.launch.decode_demo --arch mamba2-2.7b --batch 4
             --prompt-len 32 --gen 16`` in bf16; no launch of K1-K7
+12. zoo     the zoo round (``engine/zoo.py``, ``engine/zoo_train.py``) at
+            gemma2-2b's full width with benchmarks/zoo_bench.py's >=1B
+            geometry (D_c = 16,384, S_c = 32, κ_c = 8, IHT 2, packed): K1-K4
+            against their plain versions at that geometry, with times;
+            (12a) the surrogate round on the logical 4 x 2 mesh with
+            ``greedy_batched`` through K7 and K1-K4 on: a warm-up and two
+            timed rounds split into stages by CUDA events, the launches,
+            then the plain round from the same parameters and draws: the
+            MAC's magnitude sums equal, its lane sums equal but on
+            borderline lanes, ĝ by NMSE and support overlap, the
+            parameters within a share of their movement; a profiled
+            round's busy share, peak memory; (12b) zoo_bench's real-
+            gradient row: 2 x 4, batch 1 x 32, SGD, bf16, remat full, two
+            rounds (loss and budget finite, the master moved,
+            params_from_master ∘ chunk_params the identity on the seed-0
+            init); (12c) ``python -m repro_torch.launch.train --zoo-train
+            --smoke`` with Adam, EF and token shards: resume ≡
+            uninterrupted bit for bit, then ``--arms 3``
 
 Each path's launch counters are set to 0 just before it and read just
 after; a kernel of the path that was not launched fails the run.
@@ -2086,7 +2104,7 @@ def run_lm_phase(dev, card: str) -> dict:
     events, one under the profiler; the launch counters of K1-K7 must
     read 0 over all of it (the reference's trainer calls no Pallas
     kernel). Then ``python -m repro_torch.launch.train --arch gemma2-2b
-    --steps 2`` as a user starts it. Returns the path's launch counts."""
+    --steps 1`` as a user starts it. Returns the path's launch counts."""
     import gc
 
     from repro_torch import tree
@@ -2180,7 +2198,13 @@ def run_lm_phase(dev, card: str) -> dict:
                 ctx = steps_lib.default_round_ctx(seed=4, device=dev)
                 params, opt_state, _ = step(params, opt_state, batch, ctx)
 
-            wall, busy, events, _ = device_busy(one_step)
+            # CUPTI is set up by an empty profile, not by a whole step
+            with torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA]):
+                torch.zeros(1, device=dev).add_(1)
+                torch.cuda.synchronize()
+            wall, busy, events, _ = device_busy(one_step, setup=False)
             log(f"lm obcsaa, profiler, one step: wall {wall:.1f} ms, device "
                 f"busy {busy:.1f} ms ({100 * busy / wall:.1f}%)")
             for e in sorted(events,
@@ -2202,7 +2226,7 @@ def run_lm_phase(dev, card: str) -> dict:
 
     # the CLI as a user starts it: full width, obcsaa, on the card
     run_cli("lm", "repro_torch.launch.train", ["--arch", LM_ARCH, "--steps",
-                                               "2"], card)
+                                               "1"], card)
     log(f"lm: phase 9 took {time.perf_counter() - t_phase:.1f} s")
     return counts
 
@@ -2749,6 +2773,455 @@ def run_families_phase(dev, card: str) -> dict:
     return counts
 
 
+# -- phase 12 -----------------------------------------------------------------
+
+# benchmarks/zoo_bench.py's >=1B geometry (FULL_OB, :220-222): D_c = 16,384
+# (K1's MAX_D), S_c = 32 (one packed word a chunk), κ_c = 8, IHT 2 (decode
+# k = 16); its rounds' σ², P^Max and lr
+ZOO_OB = dict(chunk=16384, measure=32, topk=8, biht_iters=2,
+              recon_alg="iht", spmd_topk=True, packed=True, bisect_iters=10)
+ZOO_KEY, ZOO_NV, ZOO_PMAX, ZOO_LR = 0, 1e-4, 10.0, 0.05
+# 12a, the kernel round against the plain round from the same parameters
+# and draws: ĝ's NMSE, its support overlap, and the parameters' distance
+# as a share of their movement (first card run: 4.7e-06, 0.999998,
+# 2.2e-03). A chunk parts where K3/K4 and the plain GEMMs round a near tie
+# of the decode's threshold apart; at most 1% of the chunks may
+ZOO_GHAT_NMSE, ZOO_SUPPORT, ZOO_PARAM_TOL = 1e-4, 0.999, 1e-2
+ZOO_ROWS = 4096          # the zoo's block of chunk rows (BLOCK_BYTES / 4 D_c)
+
+
+class ZooClock:
+    """The zoo round's hook: an event where each piece of a stage ends and
+    one where the next begins, so what the hook does between them (a copy
+    of the MAC sums) is outside every interval. ``stages()`` sums device
+    ms per stage."""
+
+    def __init__(self, keep_mac: bool = False):
+        self.keep_mac, self.mac, self.marks = keep_mac, None, []
+        self.mem = []       # (stage, allocated, peak so far) at each mark
+
+    @staticmethod
+    def _event():
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        return e
+
+    def start(self):
+        self.marks = [("start", None, self._event())]
+
+    def __call__(self, stage, **info):
+        end = self._event()
+        if self.keep_mac and stage == "mac":
+            self.mac = (info["y_sum"].clone(), info["mag_sum"].clone())
+        self.mem.append((stage, torch.cuda.memory_allocated(),
+                         torch.cuda.max_memory_allocated()))
+        self.marks.append((stage, end, self._event()))
+
+    def stages(self) -> dict:
+        torch.cuda.synchronize()
+        out = {}
+        for prev, (stage, end, _) in zip(self.marks, self.marks[1:]):
+            out[stage] = out.get(stage, 0.0) + prev[2].elapsed_time(end)
+        return out
+
+
+def zoo_counts(zr) -> dict:
+    """K1-K4 launches of one zoo round with the kernels: per compression
+    block one K1 and one K2 (pack); per decode block ``biht_iters`` IHT
+    iterations of K3, K4 and K1."""
+    nc = zr.U * zr.n_model * -(-zr.n_half // zr.block_rows)
+    nd = zr.U * zr.n_model * -(-zr.n_local // zr.block_rows)
+    it = zr.ob.biht_iters
+    return {"topk_select": nc + it * nd, "cs_project": nc,
+            "cs_project_resid": it * nd, "backproject": it * nd}
+
+
+def check_zoo_kernels(dev, results) -> None:
+    """K1-K4 against their plain versions at the zoo's shapes: a block of
+    4,096 chunk rows of D_c = 16,384, S_c = 32, κ = 8 (compression) and
+    decode k = 16. K1's values and masks exact, K2's packed signs equal
+    but on borderline lanes, K3 and K4 to rtol = atol = 1e-5. Times:
+    back-to-back calls between CUDA events (a call moves 0.3-0.6 GB, so
+    the host's launch cost is hidden)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.backproject import backproject_plain
+    from repro_torch.kernels.cs_project import project, project_plain
+    from repro_torch.kernels.sign import unpack_bits
+    from repro_torch.kernels.topk_select import topk_select_plain
+
+    n, d, s = ZOO_ROWS, ZOO_OB["chunk"], ZOO_OB["measure"]
+    kappa, k_dec = ZOO_OB["topk"], min(4 * ZOO_OB["topk"], s // 2)
+    gen = torch.Generator(device=dev).manual_seed(12)
+    phi = torch.randn(s, d, generator=gen, device=dev) / s ** 0.5
+    g = torch.randn(n, d, generator=gen, device=dev) * 0.025
+    for k in (kappa, k_dec):
+        got, want = ops.topk_select(g, k), topk_select_plain(g, k)
+        if not (torch.equal(got[0], want[0])
+                and torch.equal(got[1], want[1])):
+            fail(f"zoo K1 at ({n}, {d}), k = {k}: values or masks differ "
+                 "from the plain version")
+    sparse = ops.topk_select(g, kappa)[0]
+    flips, hard = sign_flips(
+        phi, sparse, unpack_bits(ops.cs_project_pack(phi, sparse),
+                                 torch.float32),
+        unpack_bits(project_plain(phi, sparse, mode="pack"), torch.float32))
+    if hard:
+        fail(f"zoo K2 pack at S = {s}: {hard} non-borderline sign flips")
+    x = ops.topk_select(g, k_dec)[0]
+    y = torch.randn(n, s, generator=gen, device=dev)
+    r = torch.randn(n, s, generator=gen, device=dev)
+    e3 = close(project(phi, x, mode="residual", y=y),
+               project_plain(phi, x, mode="residual", y=y))
+    e4 = close(ops.backproject(x, r, phi, 0.5),
+               backproject_plain(x, r, phi, 0.5))
+    nb, pb = n * d * 4, s * d * 4
+    rows = {
+        "topk_select": (lambda: ops.topk_select(g, kappa),
+                        lambda: topk_select_plain(g, kappa),
+                        lambda: torch.topk(g.abs(), kappa, dim=-1),
+                        bound(2 * nb + n * d, 0), 0.0),
+        "cs_project": (lambda: ops.cs_project_pack(phi, sparse),
+                       lambda: project_plain(phi, sparse, mode="pack"),
+                       lambda: sparse @ phi.T,
+                       bound(nb + pb + 4 * n, 2 * n * d * s), 0.0),
+        "cs_project_resid": (lambda: project(phi, x, mode="residual", y=y),
+                             lambda: project_plain(phi, x, mode="residual",
+                                                   y=y),
+                             lambda: torch.addmm(y, x, phi.T, alpha=-1),
+                             bound(nb + pb + 8 * n * s, 2 * n * d * s), e3),
+        "backproject": (lambda: ops.backproject(x, r, phi, 0.5),
+                        lambda: backproject_plain(x, r, phi, 0.5),
+                        lambda: torch.addmm(x, r, phi, alpha=0.5),
+                        bound(2 * nb + pb + 4 * n * s, 2 * n * d * s), e4),
+    }
+    for name, (fn, plain, lib, bnd, err) in rows.items():
+        ms, pms, lms = (call_ms(f, reps=10) for f in (fn, plain, lib))
+        results[name].update({"ms_zoo": ms, "plain_ms_zoo": pms,
+                              "library_ms_zoo": lms, "bound_ms_zoo": bnd[0],
+                              "max_abs_err_zoo": err})
+        log(f"zoo kernels: {name} at ({n}, {d}), S = {s}: {ms:.3f} ms, "
+            f"plain {pms:.3f}, library {lms:.3f}, bound {bnd[0]:.3f} "
+            f"({bnd[1]}), max abs err {err:.2e}")
+    log(f"zoo kernels: K1 exact at k = {kappa}, {k_dec}; K2 {flips} "
+        f"borderline flips of {n * s} lanes; K3 {e3:.2e}, K4 {e4:.2e}")
+
+
+def _zoo_log_round(label, card, secs, clocks, launches):
+    for i, (s, clk) in enumerate(zip(secs, clocks)):
+        st = clk.stages()
+        log(f"{label}: round {i}: {s:.3f} s host clock; device ms "
+            + ", ".join(f"{k} {v:.1f}" for k, v in st.items())
+            + f" (sum {sum(st.values()):.1f}); {card}")
+    log(f"{label}: launches per round {launches}")
+
+
+def _zoo_borderline_lanes(zr, before, rows, t):
+    """(rows, S_c) bool: lanes of those chunk rows where some scheduled
+    worker's projection is borderline (``sign_flips``' bound) on the
+    round's surrogate gradient."""
+    from repro_torch.engine.zoo import _M32, _hash_u01
+    from repro_torch.kernels.topk_select import topk_select_plain
+
+    dc = zr.ob.chunk
+    phi = zr.phi.double()
+    pn = torch.linalg.vector_norm(phi, dim=1)
+    cols = torch.arange(dc, dtype=torch.int64, device=before.device)
+    idx = (rows[:, None].to(torch.int64) * dc + cols[None]) & _M32
+    out = torch.zeros((rows.numel(), zr.ob.measure), dtype=torch.bool,
+                      device=before.device)
+    for u in range(zr.U):
+        c = zr.grad_scale * (_hash_u01(idx, u, t) - 0.5)
+        g = torch.where(idx < zr.D, before[rows] - c,
+                        torch.zeros_like(c))
+        x = topk_select_plain(g, zr.ob.topk)[0].double()
+        acc = x @ phi.T
+        lim = 2 * dc * 2.0 ** -24 * torch.linalg.vector_norm(
+            x, dim=1)[:, None] * pn[None]
+        out |= acc.abs() <= lim
+    return out
+
+
+def _zoo_compare(before, pk, pp):
+    """ĝ of the kernel round against the plain round through the
+    parameters' movement Δ = p − p_before = −lr·ĝ, a block at a time:
+    (NMSE, support overlap, ‖pk − pp‖ / ‖Δ_plain‖, chunks parted: those
+    whose Δ differs by more than 1e-4 of the chunk's own norm)."""
+    num = den = inter = supp = 0.0
+    parted = 0
+    for a in range(0, before.shape[0], ZOO_ROWS):
+        b0 = before[a:a + ZOO_ROWS]
+        dk, dp = pk[a:a + ZOO_ROWS] - b0, pp[a:a + ZOO_ROWS] - b0
+        err = torch.linalg.vector_norm((dk - dp).double(), dim=1)
+        nrm = torch.linalg.vector_norm(dp.double(), dim=1)
+        num += float(torch.sum(err ** 2))
+        den += float(torch.sum(nrm ** 2))
+        parted += int((err > 1e-4 * nrm).sum())
+        inter += float(((dk != 0) & (dp != 0)).sum())
+        supp += float((dp != 0).sum())
+    nmse = num / max(den, 1e-30)
+    return nmse, inter / max(supp, 1.0), nmse ** 0.5, parted
+
+
+def run_zoo_surrogate(dev, card) -> dict:
+    """12a: the surrogate round at gemma2-2b's full width on the logical
+    4 x 2 mesh, K1-K4 and K7 on; held against the plain round. Returns
+    the kernel rounds' launch counts."""
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+    from repro_torch.core.obcsaa import OBCSAAConfig
+    from repro_torch.engine.zoo import build_zoo_round
+    from repro_torch.kernels import build
+    from repro_torch.kernels.topk_select import N_BISECT
+    from repro_torch.launch.mesh import make_zoo_mesh
+    from repro_torch.models.registry import build_model
+    from repro_torch.sched import SchedConfig
+
+    shapes = build_model(get_config("gemma2-2b")).init(0, device="meta")
+    D = sum(p.numel() for p in tree.leaves(shapes))
+    if D != LM_D:
+        fail(f"12a: gemma2-2b has D = {D:,}, want {LM_D:,}")
+    mesh = make_zoo_mesh(4, 2)
+    zr = build_zoo_round(OBCSAAConfig(**ZOO_OB, use_kernels=True), D, mesh,
+                         scheduler="greedy_batched",
+                         sched_cfg=SchedConfig(use_kernel=True), device=dev)
+    per_round = {**zoo_counts(zr), "prefix_eval": 1}
+    log(f"12a: D = {D:,}, D_pad = {zr.n_chunks:,} x {zr.ob.chunk:,}, mesh "
+        f"{zr.U} x {zr.n_model} (n_half {zr.n_half:,}, n_local "
+        f"{zr.n_local:,}); the reference's block / block_dec {zr.block} / "
+        f"{zr.block_dec}, the port's blocks {zr.block_rows} rows")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = torch.zeros((zr.n_chunks, zr.ob.chunk), device=dev)
+    params.view(-1)[:D].normal_(0.0, 0.02, generator=gen)
+    args = (ZOO_KEY, ZOO_NV, ZOO_PMAX, ZOO_LR)
+    t0 = time.perf_counter()
+    zr.round_gen(params, 0, *args)                          # warm-up
+    torch.cuda.synchronize()
+    log(f"12a: warm-up round {time.perf_counter() - t0:.3f} s")
+    dr = zr.draws(ZOO_KEY)(2)
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launch_counts()
+    secs, clocks, stats = [], [], []
+    for t in (1, 2):
+        if t == 2:
+            before = params.clone()
+        clk = ZooClock(keep_mac=t == 2)
+        torch.cuda.synchronize()
+        clk.start()
+        t0 = time.perf_counter()
+        _, st = zr.round_gen(params, t, *args, draws=dr if t == 2 else None,
+                             hook=clk)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        clocks.append(clk)
+        stats.append(st)
+        if t == 1:
+            peak_round = torch.cuda.max_memory_allocated()
+    counts = build.launch_counts()
+    expect_counts("12a zoo kernel rounds", counts, per_round, 2)
+    _zoo_log_round("12a", card, secs, clocks, per_round)
+    for st in stats:
+        if not (bool(torch.isfinite(st.ghat_norm)) and float(st.ghat_norm)
+                > 0 and all(bool(torch.isfinite(x).all())
+                            for x in st.budget)):
+            fail("12a: ĝ's norm or a budget term is not finite and positive")
+    log(f"12a: |M_t| = {int(stats[1].n_scheduled)}, b_t = "
+        f"{float(stats[1].b_t):.4f}, ‖ĝ‖ = {float(stats[1].ghat_norm):.4f}; "
+        f"peak memory of a round {peak_round / 2**30:.2f} GiB")
+    # the plain path from the same parameters and draws
+    zp = build_zoo_round(OBCSAAConfig(**{**ZOO_OB, "bisect_iters": N_BISECT}),
+                         D, mesh, scheduler="greedy_batched",
+                         sched_cfg=SchedConfig(), device=dev)
+    plain = before.clone()
+    clk = ZooClock(keep_mac=True)
+    build.reset_launch_counts()
+    torch.cuda.synchronize()
+    clk.start()
+    t0 = time.perf_counter()
+    _, stp = zp.round_gen(plain, 2, *args, draws=dr, hook=clk)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    expect_counts("12a zoo plain round", build.launch_counts(), {}, 0)
+    _zoo_log_round("12a plain", card, [plain_s], [clk], {})
+    (yk, mk), (yp, mp) = clocks[1].mac, clk.mac
+    if not torch.equal(mk, mp):
+        fail("12a: the MAC's magnitude sums differ: K1 and the 32-step "
+             "bisection selected different entries")
+    diff = yk != yp
+    rows = diff.any(dim=1).nonzero()[:, 0]
+    lanes = int(diff.sum())
+    if lanes:
+        border = _zoo_borderline_lanes(zr, before, rows, 2)
+        hard = int((diff[rows] & ~border).sum())
+        if hard:
+            fail(f"12a: {hard} MAC lanes differ where no worker's sign is "
+                 "borderline")
+    nmse, overlap, pdist, parted = _zoo_compare(before, params, plain)
+    log(f"12a kernel vs plain: MAC sums equal but on {lanes} borderline "
+        f"lanes of {yk.numel():,} ({rows.numel()} chunks); magnitude sums "
+        f"equal; ĝ NMSE {nmse:.3e} (gate {ZOO_GHAT_NMSE:g}), support "
+        f"overlap {overlap:.6f} (gate {ZOO_SUPPORT:g}), ‖Δp‖ {pdist:.3e} "
+        f"of the movement (gate {ZOO_PARAM_TOL:g}), {parted} of "
+        f"{zr.n_chunks:,} chunks parted by more than 1e-4 of their norm "
+        f"(gate 1%); ‖ĝ‖ {float(stats[1].ghat_norm):.6f} / "
+        f"{float(stp.ghat_norm):.6f}")
+    if nmse > ZOO_GHAT_NMSE or overlap < ZOO_SUPPORT \
+            or pdist > ZOO_PARAM_TOL or parted > zr.n_chunks // 100:
+        fail("12a: the kernel round parts from the plain round beyond "
+             "its gates")
+    del before, plain
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]):
+        torch.zeros(1, device=dev).add_(1)       # sets CUPTI up
+        torch.cuda.synchronize()
+    wall, busy, events, _ = device_busy(
+        lambda: zr.round_gen(params, 3, *args), setup=False)
+    log(f"12a: profiler, one kernel round: wall {wall:.1f} ms, device "
+        f"busy {busy:.1f} ms ({100 * busy / wall:.1f}%), "
+        f"{sum(e.count for e in events):,} events on the card; {card}")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:6]:
+        log(f"  {e.self_device_time_total / 1e3:9.2f} ms  {e.count:6d}x  "
+            f"{e.key[:90]}")
+    log(f"12a: peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+        f" GiB with the comparison's two copies; plain round "
+        f"{plain_s:.3f} s")
+    return counts
+
+
+def run_zoo_train_full(dev, card) -> dict:
+    """12b: benchmarks/zoo_bench.py's >=1B real-gradient row
+    (``_train_full_rows``): gemma2-2b on the logical 2 x 4 mesh, batch 1 x
+    32, SGD, bf16 compute, remat full, K1-K4 on; two rounds. Returns
+    their launch counts."""
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+    from repro_torch.core.obcsaa import OBCSAAConfig
+    from repro_torch.engine.zoo_train import build_zoo_train_round
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import make_zoo_mesh
+    from repro_torch.models.registry import build_model
+
+    cfg = get_config("gemma2-2b")
+    model = build_model(cfg)
+    zr = build_zoo_train_round(
+        model, make_zoo_mesh(2, 4), OBCSAAConfig(**ZOO_OB, use_kernels=True),
+        compute_dtype=torch.bfloat16, remat="full", optimizer="sgd",
+        device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = model.init(0, device=dev)
+    master = zr.chunk_params(params)
+    back = zr.params_from_master(master)
+    same = all(torch.equal(a, b) for a, b in zip(tree.leaves(params),
+                                                  tree.leaves(back)))
+    torch.cuda.synchronize()
+    if not same:
+        fail("12b: params_from_master(chunk_params(init)) != init")
+    del params, back
+    log(f"12b: D = {zr.D:,} in {zr.n_chunks:,} chunks, mesh {zr.U} x "
+        f"{zr.n_model}; init + chunk_params + params_from_master "
+        f"{time.perf_counter() - t0:.1f} s, the round trip bit for bit")
+    rng = np.random.default_rng(0)
+    tok = rng.integers(0, cfg.vocab_size, (zr.U, 1, 32)).astype(np.int32)
+    batch = zr.shard_batch({"tokens": tok,
+                            "targets": np.roll(tok, -1, -1)})
+    state = zr.init_state(master)
+    per_round = zoo_counts(zr)
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launch_counts()
+    secs, clocks = [], []
+    for t in range(2):
+        digest = float(state.master.sum(dtype=torch.float64))
+        clk = ZooClock()
+        torch.cuda.synchronize()
+        clk.start()
+        t0 = time.perf_counter()
+        state, st = zr.round_train(state, batch, t, ZOO_KEY, ZOO_NV,
+                                   ZOO_PMAX, ZOO_LR, hook=clk)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        clocks.append(clk)
+        if not bool(torch.isfinite(st.loss)):
+            fail(f"12b: round {t} loss is not finite")
+        if not all(bool(torch.isfinite(x).all()) for x in st.budget):
+            fail(f"12b: round {t}: a budget term is not finite")
+        if float(state.master.sum(dtype=torch.float64)) == digest:
+            fail(f"12b: round {t} left the master where it was")
+        log(f"12b: round {t}: loss {float(st.loss):.4f}, b_t "
+            f"{float(st.b_t):.4f}, ‖ĝ‖ {float(st.ghat_norm):.4f}")
+    counts = build.launch_counts()
+    expect_counts("12b zoo-train rounds", counts, per_round, 2)
+    _zoo_log_round("12b", card, secs, clocks, per_round)
+    bw = clocks[-1].stages().get("backward", 0.0)
+    log(f"12b: per-worker backward {bw / zr.U:.1f} ms (device); peak "
+        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    first = {}
+    for stage, alloc, peak in clocks[0].mem:
+        first.setdefault(stage, (alloc, peak))
+    log("12b: round 0's memory where a stage first ends (allocated / peak "
+        "so far, GiB): " + ", ".join(
+            f"{k} {a / 2**30:.2f} / {p / 2**30:.2f}"
+            for k, (a, p) in first.items()))
+    return counts
+
+
+def _ckpt_arrays(path):
+    with np.load(os.path.join(path, "arrays.npz")) as f:
+        return {k: f[k] for k in f.files}
+
+
+def run_zoo_cli(card) -> None:
+    """12c: ``python -m repro_torch.launch.train --zoo-train --smoke``
+    with Adam, EF and token shards from ``write_token_shards``: 3 rounds
+    uninterrupted, then 2 + ``--resume`` to 3 (the checkpoints equal bit
+    for bit), then ``--arms 3``."""
+    import tempfile
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data.tokens import write_token_shards
+
+    vocab = get_smoke_config("gemma2-2b").vocab_size
+    rng = np.random.default_rng(0)
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        data = write_token_shards(os.path.join(tmp, "tok"), [
+            rng.integers(0, vocab, n) for n in (4096, 3000, 5000)])
+        base = ["--zoo-train", "--smoke", "--arch", "gemma2-2b",
+                "--optimizer", "adam", "--error-feedback", "--data", data,
+                "--batch", "2", "--seq", "32"]
+        a, b = os.path.join(tmp, "a"), os.path.join(tmp, "b")
+        run_cli("12c", "repro_torch.launch.train",
+                base + ["--steps", "3", "--ckpt-dir", a], card)
+        run_cli("12c", "repro_torch.launch.train",
+                base + ["--steps", "2", "--ckpt-dir", b], card)
+        out = run_cli("12c", "repro_torch.launch.train",
+                      base + ["--steps", "3", "--ckpt-dir", b, "--resume"],
+                      card)
+        if "resumed zoo-train at round 2" not in out:
+            fail("12c: --resume did not resume at round 2")
+        x, y = (_ckpt_arrays(os.path.join(p, "step_00000003"))
+                for p in (a, b))
+        if x.keys() != y.keys() or not all(np.array_equal(x[k], y[k])
+                                           for k in x):
+            fail("12c: resumed != uninterrupted")
+        out = run_cli("12c", "repro_torch.launch.train",
+                      base + ["--steps", "2", "--arms", "3"], card)
+        if sum(ln.startswith("arm ") for ln in out.splitlines()) != 3:
+            fail("12c: --arms 3 did not report 3 arms")
+    log(f"12c: resume ≡ uninterrupted bit for bit in all {len(x)} leaves")
+
+
+def run_zoo_phase(dev, card: str, results: dict) -> dict:
+    """Phase 12, the zoo. Returns {path: launch counts}."""
+    t_phase = time.perf_counter()
+    check_zoo_kernels(dev, results)
+    paths = {"zoo_surrogate": run_zoo_surrogate(dev, card)}
+    torch.cuda.empty_cache()
+    paths["zoo_train"] = run_zoo_train_full(dev, card)
+    torch.cuda.empty_cache()
+    run_zoo_cli(card)
+    log(f"zoo: phase 12 took {time.perf_counter() - t_phase:.1f} s")
+    return paths
+
+
 SOURCES = {
     "topk_select": ("src/repro_torch/kernels/csrc/topk_select.cu",
                     "src/repro/kernels/topk_select.py:23"),
@@ -2811,6 +3284,7 @@ def main() -> None:
     paths["lm"] = run_lm_phase(dev, card)
     paths["lm_decode"] = run_lm_decode_phase(dev, card)
     paths["families"] = run_families_phase(dev, card)
+    paths.update(run_zoo_phase(dev, card, results))
     kernels = []
     for name, r in results.items():
         source, replaces = SOURCES[name]
@@ -2826,6 +3300,7 @@ def main() -> None:
             "launches_by_path": {p: c[name] for p, c in paths.items()
                                  if c[name]},
             "launch_floor_ms": r["launch_floor_ms"],
+            **{k: v for k, v in r.items() if k.endswith("_zoo")},
             **({"ms_compress_n130": r["ms_compress"],
                 "cold_ms_compress_n130": r["cold_ms_compress"]}
                if "ms_compress" in r else {}),

@@ -15,6 +15,12 @@ step's generator (the reference folds i into the step's key). Only one
 leaf's temporaries are alive at a time, and a large leaf's only for a
 block of its chunks (``BLOCK_ROWS``).
 
+With ``TrainConfig.cs_shard_aligned`` a leaf is chunked along its
+model-sharded dim first: the specs are ``dist.sharding``'s on the step's
+logical mesh (``launch.mesh``), and on a 1 x 1 mesh no dim is sharded.
+``make_zoo_train_round`` builds the zoo's real-backward round
+(``engine/zoo_train.py``) from the same TrainConfig.
+
 Like the reference's trainer and decode, these paths launch none of the
 port's CUDA kernels: ``obcsaa_config`` sets ``spmd_topk`` and leaves
 ``use_kernels`` off, and the decode path calls no kernel.
@@ -32,6 +38,8 @@ from repro_torch.core import channel as chan
 from repro_torch.core.obcsaa import (OBCSAAConfig, shardmap_compress,
                                      shardmap_reconstruct)
 from repro_torch.device import resolve_device
+from repro_torch.dist.sharding import infer_param_specs
+from repro_torch.launch.mesh import ZooMesh, make_host_mesh
 from repro_torch.models import transformer
 from repro_torch.models.registry import Model
 from repro_torch.optim import Optimizer, make as make_opt
@@ -156,17 +164,23 @@ def loss_and_grads(model: Model, tcfg: TrainConfig, params, batch):
     return loss.detach(), tree.unflatten(treedef, list(grads))
 
 
-def make_train_step(model: Model, tcfg: TrainConfig) -> Callable:
+def make_train_step(model: Model, tcfg: TrainConfig,
+                    mesh: Optional[ZooMesh] = None) -> Callable:
     """Returns ``step(params, opt_state, batch, round_ctx) -> (params,
     opt_state, metrics)``. ``round_ctx`` is ``default_round_ctx``'s dict;
     it may also hold ``phi``, ``noise`` (one AWGN tensor per leaf) and
     ``hook`` (``_aggregate_leaf``'s, also called with "backward" after the
-    gradient and "update" after the optimizer step)."""
+    gradient and "update" after the optimizer step).
+
+    With ``tcfg.cs_shard_aligned`` each leaf is chunked along its
+    model-sharded dim first: the specs are ``infer_param_sharding``'s on
+    ``mesh`` (default ``make_host_mesh()``; on a 1 x 1 mesh no leaf is
+    sharded and every permutation is None)."""
     opt = make_optimizer(tcfg)
+    grad_specs = None
     if tcfg.cs_shard_aligned:
-        raise NotImplementedError(
-            "TrainConfig.cs_shard_aligned needs the parameter shardings of "
-            "dist/sharding (ROADMAP.md Queue 1, item 4)")
+        grad_specs = infer_param_specs(model.init(0, device="meta"),
+                                       mesh or make_host_mesh())
 
     if tcfg.aggregation == "mean":
         def step(params, opt_state, batch, round_ctx=None):
@@ -196,7 +210,7 @@ def make_train_step(model: Model, tcfg: TrainConfig) -> Callable:
                 ob, grads, k_weight=1.0, beta_i=round_ctx["beta"][0],
                 b_t=round_ctx["b_t"], generator=round_ctx.get("generator"),
                 noises=round_ctx.get("noise"), phi=round_ctx.get("phi"),
-                wire_dtype=wire_dtype, hook=hook)
+                wire_dtype=wire_dtype, specs=grad_specs, hook=hook)
             del grads
             params, opt_state = opt.update(ghat, opt_state, params,
                                            tcfg.learning_rate)
@@ -215,6 +229,22 @@ def default_round_ctx(seed: int = 0, device=None) -> Dict:
             "beta": torch.ones((1,), dtype=torch.float32, device=dev),
             "b_t": torch.ones((), dtype=torch.float32, device=dev),
             "generator": torch.Generator(device=dev).manual_seed(seed)}
+
+
+# --- zoo-scale real-gradient rounds ------------------------------------------
+
+def make_zoo_train_round(model: Model, tcfg: TrainConfig, mesh, **kw):
+    """The real-backward zoo round (``engine.zoo_train.ZooTrainRound``)
+    for (model, tcfg, mesh), built from the same TrainConfig knobs the
+    per-leaf train step reads: ``obcsaa_config(tcfg)`` for the wire
+    geometry, ``tcfg.remat_mode``, the optimizer and error feedback.
+    Extra kwargs (``scheduler``, ``compute_dtype``, ``device``, ...) pass
+    through."""
+    from repro_torch.engine.zoo_train import ZooTrainRound
+    kw.setdefault("remat", tcfg.remat_mode)
+    kw.setdefault("optimizer", tcfg.optimizer)
+    kw.setdefault("error_feedback", tcfg.error_feedback)
+    return ZooTrainRound(model, mesh, obcsaa_config(tcfg), **kw)
 
 
 # --- serve steps -------------------------------------------------------------

@@ -13,10 +13,20 @@ default), sends it through the 1-bit CS uplink leaf by leaf and decodes
 it (``launch/steps.py``). It runs on CUDA unless ``--device`` says otherwise;
 without a card it raises rather than fall back to the CPU.
 
+``--zoo-train`` trains through the chunked zoo round instead
+(``engine/zoo_train.py``, ``run_zoo_train``): the master as the
+flat-shard (n_chunks, D_c) tensor, every worker of the logical mesh
+``make_host_mesh()`` (one card: 1 x 1) taking a real backward pass,
+with ``--optimizer``, ``--error-feedback``, checkpoints with
+``--resume``, real token shards with ``--data`` and an N-arm σ² × lr
+sweep with ``--arms``:
+
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
+        --zoo-train --smoke --steps 2 --optimizer adam --error-feedback
+
 ``--serve`` hands the remaining arguments to the scheduling service
-(``repro_torch.serve.cli``). ``--zoo-train``, ``--arms``,
-``--scan-rounds``, ``--data`` and ``--error-feedback`` belong to later
-slices and exit non-zero naming them.
+(``repro_torch.serve.cli``). ``--scan-rounds`` belongs to a later slice
+and exits non-zero naming it.
 """
 from __future__ import annotations
 
@@ -25,6 +35,7 @@ import sys
 import time
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 
 from repro_torch import tree
@@ -32,18 +43,11 @@ from repro_torch.configs import TrainConfig, get_config, get_smoke_config
 from repro_torch.data.synthetic import token_stream
 from repro_torch.device import resolve_device
 from repro_torch.launch import steps as steps_lib
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models.registry import build_model
 
 # flag -> (argparse dest, the later slice that ports it)
 LATER_FLAGS = {
-    "--zoo-train": ("zoo_train", "engine/zoo_train.py with dist/flat_layout "
-                    "and dist/sharding (ROADMAP.md Queue 1, item 4)"),
-    "--arms": ("arms", "engine/zoo_train.py's sweep (ROADMAP.md Queue 1, "
-               "item 4)"),
-    "--error-feedback": ("error_feedback", "engine/zoo_train.py's EF "
-                         "residuals (ROADMAP.md Queue 1, item 4)"),
-    "--data": ("data", "data/tokens.py with engine/zoo.py (ROADMAP.md "
-               "Queue 1, item 3)"),
     "--scan-rounds": ("scan_rounds", "the scheduled round contexts and "
                       "--scan-rounds (ROADMAP.md Queue 1, item 6)"),
 }
@@ -63,6 +67,107 @@ def make_batch(cfg, B, S, rng_seed=0, device=None):
         batch[name] = 0.01 * torch.ones((B, n, cfg.d_model),
                                         dtype=torch.bfloat16, device=dev)
     return batch
+
+
+def make_zoo_batch(cfg, U, B, S, rng_seed=0, device=None):
+    """(U, B, ...)-stacked per-worker batches for the zoo round: each of
+    the mesh's U FL workers trains on its own token stream (seed
+    ``rng_seed * 1000 + u``, as the reference)."""
+    per = [make_batch(cfg, B, S, rng_seed=rng_seed * 1000 + u,
+                      device=device) for u in range(U)]
+    return {k: torch.stack([p[k] for p in per]) for k in per[0]}
+
+
+def run_zoo_train(args, cfg, tcfg, model, mesh, device) -> int:
+    """--zoo-train: real backward passes through the chunked
+    (n_chunks, D_c) round (``engine.zoo_train``).
+
+    The carry is the full ZooTrainState (master, optimizer moments, EF
+    residuals), so --ckpt-dir/--resume continue bit for bit. With --data
+    every round samples a fresh (U, B, S) batch from the token shards,
+    keyed by the absolute round index (no iterator state)."""
+    zr = steps_lib.make_zoo_train_round(model, tcfg, mesh, device=device)
+    print(f"zoo-train: D={zr.D:,} n_chunks={zr.n_chunks} "
+          f"({zr.n_model} model x {zr.U} workers x {zr.n_local} local), "
+          f"optimizer={zr.optimizer_name} ef={zr.error_feedback} "
+          f"remat={tcfg.remat_mode} on {device}", flush=True)
+    master = zr.chunk_params(model.init(0, device=device))
+    key, data_key = 1, 2
+    shards = None
+    if args.data:
+        from repro_torch.data.tokens import TokenShards
+        shards = TokenShards.open(args.data)
+        print(f"data: {len(shards.names)} token shards, "
+              f"{shards.total_tokens:,} tokens from {args.data}",
+              flush=True)
+
+    def zoo_batch(t):
+        if shards is not None:
+            return zr.shard_batch(shards.sample_zoo_batch(
+                data_key, t, zr.U, args.batch, args.seq))
+        return make_zoo_batch(cfg, zr.U, args.batch, args.seq,
+                              device=device)
+
+    if args.arms > 1:
+        A = args.arms
+        arms = {"noise_var": np.float32(tcfg.noise_var)
+                * np.logspace(0, 2, A, dtype=np.float32),
+                "p_max": np.full((A,), tcfg.p_max, np.float32),
+                "lr": np.float32(args.lr)
+                * np.logspace(0, -1, A, dtype=np.float32)}
+        states = zr.init_sweep_state(
+            master[None].expand((A,) + tuple(master.shape)).clone())
+        del master
+        t_start = 0
+        if args.resume:
+            got = zr.restore_state(args.ckpt_dir, arms=A)
+            if got is not None:
+                states, t_start = got
+                print(f"resumed sweep at round {t_start}", flush=True)
+        batch = zoo_batch(t_start)   # sweeps run one fixed batch
+        t0 = time.perf_counter()
+        states, stats = zr.run_sweep(states, batch, arms,
+                                     args.steps - t_start, key=key,
+                                     t0=t_start)
+        dt = time.perf_counter() - t0
+        losses = stats.loss                      # (rounds, A)
+        for a in range(A):
+            print(f"arm {a}: noise_var={arms['noise_var'][a]:.2e} "
+                  f"lr={arms['lr'][a]:.3f} "
+                  f"loss {losses[0, a]:.4f} -> {losses[-1, a]:.4f}",
+                  flush=True)
+        print(f"{A} arms x {args.steps - t_start} rounds ({dt:.2f}s)",
+              flush=True)
+        if args.ckpt_dir:
+            path = zr.save_state(args.ckpt_dir, args.steps, states,
+                                 t_next=args.steps)
+            print(f"saved checkpoint: {path}", flush=True)
+        return 0
+    state = zr.init_state(master)
+    t_start = 0
+    if args.resume:
+        got = zr.restore_state(args.ckpt_dir)
+        if got is not None:
+            state, t_start = got
+            print(f"resumed zoo-train at round {t_start}", flush=True)
+    batch = None
+    for t in range(t_start, args.steps):
+        if shards is not None or batch is None:
+            batch = zoo_batch(t)
+        t0 = time.perf_counter()
+        state, st = zr.round_train(state, batch, t, key, tcfg.noise_var,
+                                   tcfg.p_max, args.lr)
+        print(f"round {t:4d} loss={float(st.loss):.4f} "
+              f"b_t={float(st.b_t):.4f} "
+              f"({time.perf_counter() - t0:.2f}s)", flush=True)
+        if args.ckpt_dir and args.ckpt_every \
+                and (t + 1) % args.ckpt_every == 0:
+            zr.save_state(args.ckpt_dir, t + 1, state, t_next=t + 1)
+    if args.ckpt_dir:
+        path = zr.save_state(args.ckpt_dir, args.steps, state,
+                             t_next=args.steps)
+        print(f"saved checkpoint: {path}", flush=True)
+    return 0
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -94,10 +199,22 @@ def build_parser() -> argparse.ArgumentParser:
                          "the result matches an uninterrupted run")
     ap.add_argument("--device", default=None,
                     help="torch device (default: CUDA; 'cpu' runs there)")
-    ap.add_argument("--zoo-train", action="store_true", default=None)
-    ap.add_argument("--arms", type=int, default=None)
-    ap.add_argument("--error-feedback", action="store_true", default=None)
-    ap.add_argument("--data", default=None)
+    ap.add_argument("--zoo-train", action="store_true",
+                    help="train through the chunked zoo round with real "
+                         "backward passes (engine.zoo_train): the master "
+                         "as the flat-shard (n_chunks, D_c) tensor, "
+                         "gradients into the packed 1-bit uplink")
+    ap.add_argument("--arms", type=int, default=1,
+                    help="with --zoo-train: an N-arm noise_var x lr grid "
+                         "(ZooTrainRound.run_sweep)")
+    ap.add_argument("--error-feedback", action="store_true",
+                    help="per-worker EF residual over the 1-bit uplink; "
+                         "needs --agg obcsaa")
+    ap.add_argument("--data", default=None,
+                    help="token-shard directory (data.tokens.TokenShards): "
+                         "with --zoo-train each round samples a fresh "
+                         "per-worker batch keyed by the absolute round "
+                         "index; default: fixed synthetic streams")
     ap.add_argument("--scan-rounds", type=int, default=None)
     return ap
 
@@ -118,10 +235,15 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     dev = resolve_device(args.device)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     tcfg = TrainConfig(aggregation=args.agg, optimizer=args.optimizer,
-                       learning_rate=args.lr, cs_chunk=args.cs_chunk,
+                       learning_rate=args.lr,
+                       error_feedback=args.error_feedback,
+                       cs_chunk=args.cs_chunk,
                        cs_measure=args.cs_measure, cs_topk=args.cs_topk,
-                       biht_iters=10, remat_policy=args.remat_policy)
+                       biht_iters=10, cs_packed=args.zoo_train,
+                       remat_policy=args.remat_policy)
     model = build_model(cfg)
+    if args.zoo_train:
+        return run_zoo_train(args, cfg, tcfg, model, make_host_mesh(), dev)
     params = model.init(0, device=dev)
     opt_state = steps_lib.make_optimizer(tcfg).init(params)
     D = sum(p.numel() for p in tree.leaves(params))

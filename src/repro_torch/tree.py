@@ -14,14 +14,19 @@ def _is_namedtuple(x) -> bool:
     return isinstance(x, tuple) and hasattr(x, "_fields")
 
 
-def _children(node) -> List[Tuple[str, Any]]:
-    """(key path piece, child) of an inner node, as ``jax.tree_util.keystr``
-    writes the piece: ``['k']``, ``[i]`` or ``.field``."""
+def _keyed_children(node) -> List[Tuple[Any, str, Any]]:
+    """(key, key path piece, child) of an inner node: the dict key, field
+    name or index, and the piece as ``jax.tree_util.keystr`` writes it:
+    ``['k']``, ``.field`` or ``[i]``."""
     if isinstance(node, dict):
-        return [(f"[{k!r}]", node[k]) for k in sorted(node)]
+        return [(k, f"[{k!r}]", node[k]) for k in sorted(node)]
     if _is_namedtuple(node):
-        return [(f".{f}", v) for f, v in zip(node._fields, node)]
-    return [(f"[{i}]", v) for i, v in enumerate(node)]
+        return [(f, f".{f}", v) for f, v in zip(node._fields, node)]
+    return [(i, f"[{i}]", v) for i, v in enumerate(node)]
+
+
+def _children(node) -> List[Tuple[str, Any]]:
+    return [(piece, v) for _, piece, v in _keyed_children(node)]
 
 
 def _is_node(x) -> bool:
@@ -46,6 +51,25 @@ def flatten_with_paths(tree) -> Tuple[List[Tuple[str, Any]], Any]:
 
     treedef = walk(tree, "")
     return out, treedef
+
+
+def flatten_with_keys(tree) -> List[Tuple[Tuple[Any, ...], Any]]:
+    """[(keys, leaf)] in walk order: ``keys`` is the tuple of dict keys,
+    field names and indices from the root to the leaf (what a JAX key
+    path's entries hold)."""
+    out: List[Tuple[Tuple[Any, ...], Any]] = []
+
+    def walk(node, keys):
+        if node is None:
+            return
+        if not _is_node(node):
+            out.append((keys, node))
+            return
+        for k, _, v in _keyed_children(node):
+            walk(v, keys + (k,))
+
+    walk(tree, ())
+    return out
 
 
 def flatten(tree) -> Tuple[List[Any], Any]:

@@ -27,6 +27,11 @@ graphs cut at ADMM's loop and polish tests (``control.py``), and it too
 equals the eager round (the reference's while loop) bit for bit, as the
 captured solve equals the eager solve and the compacted fleet solver the
 in-round one, lane by lane (multipliers compared by bit pattern).
+
+At the zoo's geometry (D_c = 16,384, S_c = 32) K1-K4 hold the same
+bounds, and a zoo round with the kernels holds the plain round (its
+bisection run for K1's 32 steps): magnitude sums exact, MAC lane sums
+equal but on borderline lanes, the parameters' movement chunk by chunk.
 """
 import dataclasses
 
@@ -812,3 +817,106 @@ def test_lm_decode_matches_forward_on_card(cuda, arch):
     assert torch.equal(dec.argmax(-1), want.argmax(-1))
     torch.testing.assert_close(dec, want, rtol=2e-2, atol=2e-2)
     assert not any(build.launch_counts().values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [4096, 19])
+def test_kernels_at_zoo_geometry(cuda, n):
+    """K1-K4 at the zoo's chunk geometry (``benchmarks/zoo_bench.py``'s
+    FULL_OB: D_c = 16,384 = K1's MAX_D, S_c = 32, narrower than K2's tile;
+    κ = 8, decode k = 16), a full block of rows and a ragged one: K1
+    exact, K2's packed signs only on borderline lanes, K3 and K4 to
+    rtol = atol = 1e-5."""
+    from repro_torch.kernels.cs_project import project_plain
+    from repro_torch.kernels.sign import unpack_bits
+    from repro_torch.kernels.topk_select import topk_select_plain
+    d, s = 16384, 32
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    phi = torch.randn(s, d, generator=gen, device=cuda) / s ** 0.5
+    g = torch.randn(n, d, generator=gen, device=cuda) * 0.025
+    for k in (8, 16):
+        gv, gm = ops.topk_select(g, k)
+        wv, wm = topk_select_plain(g, k)
+        assert torch.equal(gm, wm) and torch.equal(gv, wv)
+    sparse = ops.topk_select(g, 8)[0]
+    got = unpack_bits(ops.cs_project_pack(phi, sparse), torch.float32)
+    want = unpack_bits(project_plain(phi, sparse, mode="pack"),
+                       torch.float32)
+    assert _hard_flips(phi, sparse, got, want) == 0
+    x = ops.topk_select(g, 16)[0]
+    y = torch.randn(n, s, generator=gen, device=cuda)
+    _close(project(phi, x, mode="residual", y=y),
+           project_plain(phi, x, mode="residual", y=y))
+    _close(ops.backproject(x, y, phi, 0.5),
+           x + 0.5 * (y @ phi))
+
+
+@pytest.mark.cuda
+def test_zoo_round_kernels_against_plain(cuda):
+    """One surrogate zoo round at D = 16,000 on the logical 4 x 2 mesh
+    (``tests/test_zoo.py``'s ZOO_OB), K1-K4 and K7 on, against the plain
+    path from the same parameters and draws (its bisection run for K1's
+    32 steps, so both select the same top-κ): magnitude sums exact, MAC
+    lane sums equal but where a worker's sign is borderline, the
+    parameters' movement within 1e-4 of itself but for at most one of
+    the 64 chunks."""
+    from repro_torch.core.obcsaa import OBCSAAConfig
+    from repro_torch.engine.zoo import build_zoo_round
+    from repro_torch.kernels.topk_select import N_BISECT
+    from repro_torch.launch.mesh import make_zoo_mesh
+    ob = dict(chunk=256, measure=64, topk=16, biht_iters=3,
+              recon_alg="iht", spmd_topk=True, packed=True)
+    mesh = make_zoo_mesh(4, 2)
+    kw = dict(scheduler="greedy_batched", device=cuda)
+    zk = build_zoo_round(OBCSAAConfig(**ob, use_kernels=True), 16000, mesh,
+                         sched_cfg=SchedConfig(use_kernel=True), **kw)
+    zp = build_zoo_round(OBCSAAConfig(**ob, bisect_iters=N_BISECT), 16000,
+                         mesh, sched_cfg=SchedConfig(), **kw)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    p0 = zk.chunk_params(torch.randn(16000, generator=gen, device=cuda))
+    dr = zk.draws(7)(0)
+    macs, outs = [], []
+    for zr in (zk, zp):
+        p = p0.clone()
+
+        def hook(stage, **info):
+            if stage == "mac":
+                macs.append((info["y_sum"].clone(), info["mag_sum"].clone()))
+
+        build.reset_launch_counts()
+        zr.round_gen(p, 0, 7, 1e-4, 10.0, 0.1, draws=dr, hook=hook)
+        counts = build.launch_counts()
+        outs.append(p - p0)
+        if zr is zk:
+            assert all(counts[k] for k in ("topk_select", "cs_project",
+                                           "cs_project_resid",
+                                           "backproject", "prefix_eval"))
+        else:
+            assert not any(counts.values())
+    (yk, mk), (yp, mp) = macs
+    assert torch.equal(mk, mp)
+    diff = yk != yp
+    if bool(diff.any()):
+        border = torch.zeros_like(diff)
+        for u in range(4):
+            g = zk._surrogate_grads(p0, 0, u, 0)
+            border |= _hard_flips_mask(zk.phi, ops.topk_select(g, 16)[0])
+        assert not bool((diff & ~border).any())
+    dk, dp = outs
+    err = torch.linalg.vector_norm(dk - dp, dim=1)
+    parted = err > 1e-4 * torch.linalg.vector_norm(dp, dim=1)
+    assert int(parted.sum()) <= 1
+    assert float(torch.linalg.vector_norm(err[~parted])) <= \
+        1e-4 * float(torch.linalg.vector_norm(dp))
+
+
+def _hard_flips_mask(phi, x):
+    """(n, S) bool: lanes whose projection is within the f32 reorder
+    bound."""
+    d = x.shape[1]
+    acc = x.double() @ phi.double().T
+    lim = 2 * d * 2.0 ** -24 * (torch.linalg.vector_norm(x.double(), dim=1)
+                                [:, None]
+                                * torch.linalg.vector_norm(phi.double(),
+                                                           dim=1)[None])
+    return acc.abs() <= lim
