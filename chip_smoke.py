@@ -117,6 +117,32 @@ result line):
             init); (12c) ``python -m repro_torch.launch.train --zoo-train
             --smoke`` with Adam, EF and token shards: resume ≡
             uninterrupted bit for bit, then ``--arms 3``
+13. fed.    the federation over processes at internvl2-1b's full width
+            (D = 493,982,720), U = 4 ranks sharing the card over gloo
+            (NCCL refuses two ranks on one device): (13a) the collectives
+            in 4 ranks (``chip_smoke.py --federation-rank``):
+            ``psum_bits_mac`` at the zoo's geometry against the einsum
+            of the symbols bit for bit, f32 ``psum``/``pmean``, the
+            gathers and their backward passes, an NCCL group of one
+            against ``group=None``, the bytes counter; (13b) ``python -m
+            torch.distributed.run --standalone --nproc-per-node 4 -m
+            repro_torch.launch.train --arch internvl2-1b --steps 2``
+            (``obcsaa``, batch 4 x 128, one sequence a worker): s per
+            step, the all-reduce's and the broadcast's share from CUDA
+            events, peak memory per rank, the ranks' parameters bit-
+            identical; each step again with the 4 workers in turn in
+            this process from the process group's parameters before it:
+            ĝ by NMSE and support, the parameters within 1e-4 of their
+            movement; beside it the witness: the two paths' parameters
+            after step 0 in ulps, and the in-turn step 1 from both
+            carries; (13c) ``--scan-rounds 2 --steps 4`` with the
+            greedy-scheduled span, and a run of ``--steps 2`` that stops
+            at step 2 then ``--resume``s to 4: equal to the uninterrupted
+            run bit for bit at steps 2 and 4; (13d) an NCCL world of one
+            through the same CLI, one step, equal to the single-process
+            step bit for bit; no launch of K1-K7 in this process. The
+            runs whose times are not reported share the card with
+            others (13c's stopped and resumed runs, 13d)
 
 Each path's launch counters are set to 0 just before it and read just
 after; a kernel of the path that was not launched fails the run.
@@ -127,6 +153,7 @@ the script exits 1.
 """
 from __future__ import annotations
 
+import atexit
 import contextlib
 import io
 import json
@@ -989,22 +1016,74 @@ def expect_counts(path: str, counts: dict, per_call: dict,
         f"{calls} x {per_call}")
 
 
+# the CLIs started and not yet finished: stopped when the script exits
+_STARTED: list = []
+
+
+def _stop_started() -> None:
+    """Stop every CLI still running (its whole process group: torchrun's
+    ranks too)."""
+    import signal
+    for h in _STARTED:
+        p = h["proc"]
+        if p.poll() is None:
+            os.killpg(p.pid, signal.SIGTERM)
+            try:
+                p.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                os.killpg(p.pid, signal.SIGKILL)
+                p.wait()
+
+
+atexit.register(_stop_started)
+
+
+def start_cli(label, module, args) -> dict:
+    """Start ``python -m module args`` as a user starts it, from the
+    checkout's ``src``, its output into files (so that two CLIs may run
+    at once); ``finish_cli`` waits for it."""
+    import tempfile
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    out, err = (tempfile.TemporaryFile("w+") for _ in range(2))
+    proc = subprocess.Popen([sys.executable, "-m", module] + args, cwd=ROOT,
+                            env=env, stdout=out, stderr=err, text=True,
+                            start_new_session=True)
+    h = {"label": label, "module": module, "args": args, "proc": proc,
+         "out": out, "err": err, "t0": time.perf_counter()}
+    _STARTED.append(h)
+    return h
+
+
+def finish_cli(h, card) -> str:
+    """Wait for a ``start_cli``; fails the run on a non-zero exit or
+    after 600 s. Returns its stdout."""
+    label, module, args = h["label"], h["module"], " ".join(h["args"])
+    try:
+        code = h["proc"].wait(timeout=max(1.0, 600 - (time.perf_counter()
+                                                      - h["t0"])))
+    except subprocess.TimeoutExpired:
+        fail(f"{label}: python -m {module} {args} ran past 600 s")
+    secs = time.perf_counter() - h["t0"]
+    _STARTED.remove(h)
+    for f in (h["out"], h["err"]):
+        f.seek(0)
+    out, err = h["out"].read(), h["err"].read()
+    h["out"].close()
+    h["err"].close()
+    if code:
+        fail(f"{label}: python -m {module} {args} exited {code}: "
+             f"{err.strip()[-2000:]}")
+    for line in out.strip().splitlines():
+        log(f"{label} CLI: {line}")
+    log(f"{label} CLI: python -m {module} {args}: exit 0 in {secs:.1f} s "
+        f"(start-up and init included); {card}")
+    return out
+
+
 def run_cli(label, module, args, card) -> str:
     """``python -m module args`` as a user starts it, from the checkout's
     ``src``; fails the run on a non-zero exit. Returns its stdout."""
-    t0 = time.perf_counter()
-    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
-    r = subprocess.run([sys.executable, "-m", module] + args, cwd=ROOT,
-                       env=env, capture_output=True, text=True, timeout=600)
-    if r.returncode:
-        fail(f"{label}: python -m {module} {' '.join(args)} exited "
-             f"{r.returncode}: {r.stderr.strip()[-2000:]}")
-    for line in r.stdout.strip().splitlines():
-        log(f"{label} CLI: {line}")
-    log(f"{label} CLI: python -m {module} {' '.join(args)}: exit 0 in "
-        f"{time.perf_counter() - t0:.1f} s (start-up and init included); "
-        f"{card}")
-    return r.stdout
+    return finish_cli(start_cli(label, module, args), card)
 
 
 def run_slice(dev, task: Task):
@@ -3222,6 +3301,395 @@ def run_zoo_phase(dev, card: str, results: dict) -> dict:
     return paths
 
 
+# -- phase 13 -----------------------------------------------------------------
+
+# the federation over processes: U = 4 FL workers of internvl2-1b (the
+# CLI's defaults: batch 4 x 128, one sequence a worker, SGD lr 3e-2, chunks
+# of 1024, S_c 256, κ_c 64, BIHT 10), four ranks sharing the card over gloo
+FED_ARCH, FED_U, FED_D, FED_STEPS = "internvl2-1b", 4, 493_982_720, 2
+# 13b, the process group against the U workers in turn in one process:
+# ĝ (from the SGD steps' checkpoints) by NMSE and support overlap, the
+# parameters within a share of their movement (Queue 3's contract)
+FED_GHAT_NMSE, FED_SUPPORT, FED_PARAM_TOL = 1e-4, 0.999, 1e-4
+FED_STEP = re.compile(r"step +(\d+) loss=(\S+) \(([\d.]+)s\) wire: "
+                      r"all_reduce ([\d.]+) MB ([\d.]+) ms, broadcast "
+                      r"([\d.]+) MB ([\d.]+) ms")
+
+
+def federation_rank() -> None:
+    """13a in each rank that ``torchrun`` starts (``chip_smoke.py
+    --federation-rank``): the ranks share the card over gloo. The int32
+    lane sums of ``psum_bits_mac`` at the zoo's geometry (4,096 rows, S_c
+    32, β = 1, 0, 1, 1) scaled by 0.5 against the one-process einsum of
+    every rank's unpacked symbols, bit for bit; f32 ``psum`` and
+    ``pmean`` of 2^20 values against the one-process sum (rtol 1e-6), the
+    same on every rank; ``all_gather`` stacked and tiled, exact; the
+    gather's backward (the summed cotangent's block) and
+    ``replicated_gather``'s (the local slice); an NCCL group of one on
+    rank 0 against ``group=None``, bit for bit; the bytes counter; no
+    launch of K1-K7. Exits 1 on a mismatch."""
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    import torch.distributed as dist
+
+    from repro_torch.core.quantize import pack_signs, unpack_signs
+    from repro_torch.dist import collectives as coll
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import join_world, leave_world
+
+    mesh, dev = join_world()
+    g = mesh.group
+    r, n = coll.axis_index(g), coll.axis_size(g)
+
+    def say(msg):
+        if r == 0:
+            log(msg)
+
+    def randn(seed, shape):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        return torch.randn(shape, generator=gen, device=dev)
+
+    say(f"13a: {n} ranks on {torch.cuda.get_device_name(dev)} over "
+        f"{dist.get_backend(g)}")
+    build.reset_launch_counts()
+    coll.reset_counters()
+    beta = torch.tensor([1.0, 0.0, 1.0, 1.0], device=dev)[:n]
+    words = [pack_signs(randn(1000 + u, (ZOO_ROWS, 32))) for u in range(n)]
+    lanes = coll.psum_bits_mac(words[r], g, beta_i=beta[r])
+    want = torch.einsum("u,urs->rs", beta * 0.5,
+                        torch.stack([unpack_signs(w) for w in words]))
+    if not torch.equal(lanes.to(torch.float32) * 0.5, want):
+        fail(f"13a rank {r}: psum_bits_mac != the einsum of the symbols")
+    xs = [randn(2000 + u, (1 << 20,)) for u in range(n)]
+    total = torch.stack(xs).sum(0)
+    y, m = coll.psum(xs[r], g), coll.pmean(xs[r], g)
+    err = float((y - total).abs().max())
+    if not (torch.allclose(y, total, rtol=1e-6, atol=1e-6)
+            and torch.allclose(m, total / n, rtol=1e-6, atol=1e-6)
+            and coll.replicated([y, m], g)):
+        fail(f"13a rank {r}: psum/pmean off the one-process sum ({err:.2e}) "
+             "or unequal across ranks")
+    head = [x[:4096] for x in xs]
+    if not (torch.equal(coll.all_gather(head[r], g), torch.stack(head))
+            and torch.equal(coll.all_gather(head[r], g, tiled=True),
+                            torch.cat(head))):
+        fail(f"13a rank {r}: all_gather != the ranks' tensors")
+    cots = [randn(3000 + u, (n * 4096,)) for u in range(n)]
+    x = head[r].clone().requires_grad_()
+    torch.sum(cots[r] * coll.all_gather(x, g, tiled=True)).backward()
+    block = torch.stack(cots).sum(0)[r * 4096:(r + 1) * 4096]
+    if not torch.allclose(x.grad, block, rtol=1e-6, atol=1e-6):
+        fail(f"13a rank {r}: all_gather's backward != the summed block")
+    x = head[r].clone().requires_grad_()
+    full = coll.replicated_gather(g, n)(x)
+    torch.sum(cots[0] * full).backward()
+    if not (torch.equal(full.detach(), torch.cat(head)) and torch.equal(
+            x.grad, cots[0][r * 4096:(r + 1) * 4096])):
+        fail(f"13a rank {r}: replicated_gather != cat / its local slice")
+    stats = coll.stats()
+    one = dist.new_group([0], backend="nccl")
+    if r == 0:
+        got = coll.psum_bits_mac(words[0], one, beta_i=beta[0])
+        if not (torch.equal(got, coll.psum_bits_mac(words[0], None,
+                                                    beta_i=beta[0]))
+                and torch.equal(coll.psum(xs[0], one), xs[0])
+                and torch.equal(coll.pmean(xs[0], one), xs[0])):
+            fail("13a: an NCCL group of one != group=None")
+    counts = build.launch_counts()
+    if any(counts.values()):
+        fail(f"13a rank {r}: kernel launches {counts}")
+    say(f"13a: psum_bits_mac ({ZOO_ROWS} x 32 lanes) == the einsum bit for "
+        f"bit; psum/pmean of 2^20 f32 within {err:.2e} of the one-process "
+        "sum (max |diff|) and equal on every rank; all_gather (stacked, "
+        "tiled) exact; the gather's backward = the summed block; "
+        "replicated_gather's = the local slice; an NCCL group of one == "
+        "group=None bit for bit; no K1-K7 launch")
+    say("13a: rank 0's collectives by kind (bytes, calls, ms from CUDA "
+        "events): " + ", ".join(
+            f"{k} {stats['bytes'][k]:,} B / {stats['calls'][k]} / "
+            f"{stats['ms'][k]:.2f} ms" for k in sorted(stats["bytes"])))
+    leave_world()
+
+
+def start_torchrun(label, nproc: int, args) -> dict:
+    """Start ``python -m torch.distributed.run --standalone
+    --nproc-per-node nproc args`` from the checkout (``finish_cli``
+    waits)."""
+    return start_cli(label, "torch.distributed.run",
+                     ["--standalone", "--nproc-per-node", str(nproc)] + args)
+
+
+def run_torchrun(label, nproc: int, args, card) -> str:
+    """``start_torchrun`` and wait; fails the run on a non-zero exit.
+    Returns its stdout."""
+    return finish_cli(start_torchrun(label, nproc, args), card)
+
+
+# the trainer CLI at the federation's width
+FED_CLI = ["-m", "repro_torch.launch.train", "--arch", FED_ARCH]
+
+
+def _ckpt_params(path: str, step: int) -> list:
+    """The parameter leaves (in tree order) of ``path``'s step, on the
+    CPU."""
+    arrays = _ckpt_arrays(os.path.join(path, f"step_{step:08d}"))
+    from repro_torch.checkpoint import msgpack_meta
+    with open(os.path.join(path, f"step_{step:08d}", "tree.msgpack"),
+              "rb") as f:
+        keys = msgpack_meta.unpackb(f.read())["keys"]
+    return [torch.from_numpy(arrays[f"a{i}"]) for i, k in enumerate(keys)
+            if k.startswith("['params']")]
+
+
+def _flat(ps) -> torch.Tensor:
+    return torch.cat([p.reshape(-1) for p in ps])
+
+
+def _nmse_support(got, want) -> tuple:
+    """(NMSE, support overlap) of two flat ĝ."""
+    nmse = float(torch.sum((got - want) ** 2) / torch.sum(want ** 2))
+    overlap = float(((got != 0) & (want != 0)).sum()
+                    / max(int((want != 0).sum()), 1))
+    return nmse, overlap
+
+
+def _ulps(a, b, before) -> tuple:
+    """(elements that differ, the largest |a − b| in units of the last
+    place of max(|before|, |b|)) of flat f32 parameters after a step from
+    ``before``: p − lr·ĝ rounds at the scale of the larger of the two, so
+    an element that the step brings near 0 is not counted in the ulps of
+    its tiny result."""
+    scale = torch.maximum(before.abs(), b.abs())
+    step = torch.nextafter(scale, torch.tensor(float("inf"))) - scale
+    d = (a - b).abs()
+    return int((d > 0).sum()), float((d / step).max())
+
+
+def run_federation_trainer(dev, card, tmp):
+    """13b: the trainer CLI under ``torchrun`` with 4 ranks on the card
+    (gloo), ``--steps 2 --ckpt-every 1 --check-replicas``: s per step,
+    the all-reduce's and the broadcast's share (CUDA events), peak memory
+    per rank, the loss finite, the ranks' parameters bit-identical.
+    Returns what ``check_federation_trainer`` holds it against."""
+    ck = os.path.join(tmp, "b")
+    out = run_torchrun("13b", FED_U, FED_CLI + [
+        "--steps", str(FED_STEPS), "--ckpt-dir", ck, "--ckpt-every", "1",
+        "--check-replicas"], card)
+    steps = [FED_STEP.search(ln) for ln in out.splitlines()]
+    steps = [m for m in steps if m]
+    if len(steps) != FED_STEPS or not all(
+            np.isfinite(float(m.group(2))) for m in steps):
+        fail(f"13b: want {FED_STEPS} steps with finite losses: {out}")
+    if f"replicas: parameters bit-identical on all {FED_U} ranks" not in out:
+        fail("13b: the ranks' parameters are not bit-identical")
+    for m in steps:
+        s, ar, bc = (float(m.group(3)), float(m.group(5)),
+                     float(m.group(7)))
+        log(f"13b: step {m.group(1)}: {s:.2f} s, all_reduce "
+            f"{m.group(4)} MB in {ar:.1f} ms ({100 * ar / (1e3 * s):.1f}% "
+            f"of the step), broadcast {m.group(6)} MB in {bc:.1f} ms "
+            f"({100 * bc / (1e3 * s):.1f}%; the wait for the PS's decode "
+            f"included); {card}")
+    return ck, steps
+
+
+def check_federation_trainer(dev, card, ck, steps) -> None:
+    """13b against the 4 workers in turn in this process: each step from
+    the process group's parameters before it (its checkpoint; SGD keeps
+    no state), ĝ ((p_t − p_t+1) / lr) by NMSE and support, the
+    parameters within 1e-4 of their movement; no launch of K1-K7. Then
+    the witness of why each step starts from the same carry: after step 0
+    the two paths' parameters are ulps apart (the MAC's magnitude sum
+    adds its 4 f32 terms in the all-reduce's order, not in turn), and the
+    in-turn step 1 from its own carry against the in-turn step 1 from
+    the process group's, one path from two carries that far apart (the
+    bf16 forward turns those ulps into other top-κ selections and signs:
+    ROADMAP Queue 3)."""
+    import gc
+
+    from repro_torch import tree
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.kernels import build
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.launch.mesh import make_zoo_mesh
+    from repro_torch.launch.train import make_batch
+    from repro_torch.models.registry import build_model
+
+    cfg = get_config(FED_ARCH)
+    model = build_model(cfg)
+    tcfg = TrainConfig(aggregation="obcsaa", **LM_TRAIN)
+    mesh = make_zoo_mesh(FED_U, 1)
+    params = model.init(0, device=dev)
+    D = sum(p.numel() for p in tree.leaves(params))
+    if D != FED_D:
+        fail(f"13b: D = {D:,}, want {FED_D:,}")
+    treedef = tree.flatten(params)[1]
+    theirs = [[p.cpu() for p in tree.leaves(params)]] + [
+        _ckpt_params(ck, t + 1) for t in range(FED_STEPS)]
+    del params
+    step = steps_lib.make_train_step(model, tcfg, mesh)
+    batch = make_batch(cfg, FED_U, LM_SEQ, device=dev)
+    opt = steps_lib.make_optimizer(tcfg)
+    lr = LM_TRAIN["learning_rate"]
+
+    def in_turn(start, t):
+        params = tree.unflatten(treedef, [p.to(dev) for p in start])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, _, m = step(params, opt.init(params), batch,
+                            steps_lib.default_round_ctx(seed=t, device=dev,
+                                                        mesh=mesh))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        out = [p.cpu() for p in tree.leaves(params)]
+        del params
+        return out, float(m["loss"]), secs
+
+    build.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    mine = []
+    for t in range(FED_STEPS):
+        got, loss, secs = in_turn(theirs[t], t)
+        mine.append(got)
+        before, want = _flat(theirs[t]), _flat(theirs[t + 1])
+        got = _flat(got)
+        nmse, overlap = _nmse_support((before - got) / lr,
+                                      (before - want) / lr)
+        if not (nmse <= FED_GHAT_NMSE and overlap >= FED_SUPPORT):
+            fail(f"13b step {t}: ĝ NMSE {nmse:.3e} (gate {FED_GHAT_NMSE}), "
+                 f"support overlap {overlap:.6f} (gate {FED_SUPPORT})")
+        share = float(torch.linalg.vector_norm(got - want)
+                      / torch.linalg.vector_norm(want - before))
+        if share > FED_PARAM_TOL:
+            fail(f"13b step {t}: parameters {share:.3e} of their movement "
+                 f"apart (gate {FED_PARAM_TOL})")
+        log(f"13b in turn: step {t}: {secs:.2f} s, loss {loss:.4f} (the "
+            f"process group's {steps[t].group(2)}); ĝ against the process "
+            f"group's, from the same carry: NMSE {nmse:.3e}, support "
+            f"overlap {overlap:.6f}; parameters {share:.3e} of their "
+            f"movement apart; peak "
+            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    # the witness: the carries after step 0, and step 1 from each
+    n_diff, ulps = _ulps(_flat(mine[0]), _flat(theirs[1]),
+                         _flat(theirs[0]))
+    own, _, _ = in_turn(mine[0], 1)
+    nmse, overlap = _nmse_support((_flat(mine[0]) - _flat(own)) / lr,
+                                  (_flat(theirs[1]) - _flat(mine[1])) / lr)
+    log(f"13b witness: after step 0 the in-turn parameters differ from "
+        f"the process group's in {n_diff:,} of {FED_D:,} elements, by at "
+        f"most {ulps:.1f} ulp (of max(|p_0|, |p_1|)); in-turn step 1 from "
+        f"its own carry against in-turn step 1 from the process group's "
+        f"(one path, two carries): ĝ NMSE {nmse:.3e}, support overlap "
+        f"{overlap:.6f}")
+    expect_counts("federation in turn (13b)", build.launch_counts(), {}, 0)
+    del step, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def check_federation_scan(outs: dict, ck: dict) -> None:
+    """13c: ``--scan-rounds 2 --steps 4`` (the greedy-scheduled span,
+    two chunks of 2 rounds), a run of ``--steps 2`` that stops at the
+    first chunk's end and its ``--resume`` to 4: the stopped run's step
+    2 and the resumed run's step 4 equal the uninterrupted run's, bit for
+    bit."""
+    if sum(ln.startswith("rounds ") for ln in outs["whole"].splitlines()) \
+            != 2:
+        fail("13c: want two chunks of 2 rounds")
+    if "resumed from step 2" not in outs["resumed"]:
+        fail("13c: --resume did not resume at step 2")
+    if f"replicas: parameters bit-identical on all {FED_U} ranks" \
+            not in outs["whole"]:
+        fail("13c: the ranks' parameters are not bit-identical")
+    for step, run in ((2, "stopped"), (4, "resumed")):
+        x, y = (_ckpt_arrays(os.path.join(ck[r], f"step_{step:08d}"))
+                for r in ("whole", run))
+        if x.keys() != y.keys() or not all(np.array_equal(x[k], y[k])
+                                           for k in x):
+            fail(f"13c: the {run} run's step {step} != the uninterrupted "
+                 "run's")
+    log(f"13c: the run stopped at step 2 and its resume to 4 ≡ the "
+        f"uninterrupted run bit for bit at steps 2 and 4 in all {len(x)} "
+        "leaves")
+
+
+def check_federation_nccl(dev, ck) -> None:
+    """13d: the NCCL world of one's step (its checkpoint) equals the
+    single-process step (one worker, batch 4 x 128) bit for bit."""
+    import gc
+
+    from repro_torch import tree
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.kernels import build
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.launch.train import make_batch
+    from repro_torch.models.registry import build_model
+
+    cfg = get_config(FED_ARCH)
+    model = build_model(cfg)
+    tcfg = TrainConfig(aggregation="obcsaa", **LM_TRAIN)
+    params = model.init(0, device=dev)
+    step = steps_lib.make_train_step(model, tcfg)
+    build.reset_launch_counts()
+    params, _, _ = step(params, steps_lib.make_optimizer(tcfg).init(params),
+                        make_batch(cfg, FED_U, LM_SEQ, device=dev),
+                        steps_lib.default_round_ctx(seed=0, device=dev))
+    expect_counts("federation, one process (13d)", build.launch_counts(),
+                  {}, 0)
+    got = _ckpt_params(ck, 1)
+    mine = [p.cpu() for p in tree.leaves(params)]
+    del params, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    if len(got) != len(mine) or not all(torch.equal(a, b)
+                                        for a, b in zip(got, mine)):
+        fail("13d: the NCCL world of one != the single-process step")
+    log(f"13d: an NCCL world of one ≡ the single-process step bit for bit "
+        f"in all {len(mine)} parameter leaves")
+
+
+def run_federation_phase(dev, card: str) -> dict:
+    """Phase 13, the federation over processes on the one card (13a-13d
+    above). What is not timed shares the card: 13c's stopped run and
+    13d's world of one run beside 13a, 13c's resumed run beside the
+    in-process checks of 13b and 13d; 13b and 13c's uninterrupted run,
+    whose times are reported, run alone. Returns the in-process checks'
+    launch counts (all 0)."""
+    import tempfile
+
+    from repro_torch.kernels import build
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    build.reset_launch_counts()
+    scan = FED_CLI + ["--scan-rounds", "2"]
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        ck = {r: os.path.join(tmp, r) for r in ("whole", "stopped", "d")}
+        stopped = start_torchrun("13c stopped", FED_U, scan + [
+            "--steps", "2", "--ckpt-dir", ck["stopped"]])
+        nccl = start_torchrun("13d", 1, FED_CLI + [
+            "--steps", "1", "--ckpt-dir", ck["d"]])
+        run_torchrun("13a", FED_U, [os.path.join(ROOT, "chip_smoke.py"),
+                                    "--federation-rank"], card)
+        if "world: 1 workers over nccl" not in finish_cli(nccl, card):
+            fail("13d: the world of one did not run over NCCL")
+        outs = {"stopped": finish_cli(stopped, card)}
+        b_ck, b_steps = run_federation_trainer(dev, card, tmp)
+        resumed = start_torchrun("13c resumed", FED_U, scan + [
+            "--steps", "4", "--ckpt-dir", ck["stopped"], "--resume"])
+        check_federation_trainer(dev, card, b_ck, b_steps)
+        check_federation_nccl(dev, ck["d"])
+        outs["resumed"] = finish_cli(resumed, card)
+        ck["resumed"] = ck["stopped"]
+        outs["whole"] = run_torchrun("13c whole", FED_U, scan + [
+            "--steps", "4", "--ckpt-dir", ck["whole"], "--check-replicas"],
+            card)
+        check_federation_scan(outs, ck)
+    counts = build.launch_counts()
+    expect_counts("federation (13)", counts, {}, 0)
+    log(f"federation: phase 13 took {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
 SOURCES = {
     "topk_select": ("src/repro_torch/kernels/csrc/topk_select.cu",
                     "src/repro/kernels/topk_select.py:23"),
@@ -3250,6 +3718,9 @@ def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a "
              "CUDA device")
+    if sys.argv[1:] == ["--federation-rank"]:
+        federation_rank()
+        return
     src = os.path.join(ROOT, "src")
     if not os.path.isdir(os.path.join(src, "repro_torch")):
         fail(f"no src/repro_torch beside {__file__}: run from a checkout")
@@ -3285,6 +3756,7 @@ def main() -> None:
     paths["lm_decode"] = run_lm_decode_phase(dev, card)
     paths["families"] = run_families_phase(dev, card)
     paths.update(run_zoo_phase(dev, card, results))
+    paths["federation"] = run_federation_phase(dev, card)
     kernels = []
     for name, r in results.items():
         source, replaces = SOURCES[name]

@@ -6,12 +6,13 @@ power-controlled MAC superposition plus AWGN (eq. 8-12), post-processing
 (eq. 13), 1-bit CS decode through the ``repro_torch.decode`` registry
 (eq. 43).
 
-The production mode's names (``shardmap_compress``, ``shardmap_mac``,
-``shardmap_reconstruct``, ``shardmap_aggregate``) are here in their
-one-worker form: one card is one FL worker, so the over-the-air sum is
-that worker's own power-scaled symbols and ``ksum = K·β``. Their ``group``
-argument is where ``dist/`` will pass a process group for more workers;
-in this slice it must be ``None``.
+The production mode (``shardmap_compress``, ``shardmap_mac``,
+``shardmap_reconstruct``, ``shardmap_aggregate``) runs in each FL worker's
+process: the over-the-air sum is the all-reduce over the worker
+``group`` (``dist/collectives``), the exact int32 lane sums with the
+packed codec, the f32 (or ``wire_dtype``) symbols otherwise. ``group=None``
+is the one-worker federation: the sum is that worker's own power-scaled
+symbols and ``ksum = K·β``.
 
 With ``use_kernels=True`` one round launches the CUDA kernels as one
 batch: every worker's chunks (U·n_chunks rows) go through ONE
@@ -30,7 +31,7 @@ from repro_torch.core.quantize import PACK, pack_signs, sign_pm1, unpack_signs
 from repro_torch.core.sparsify import topk_sparsify, topk_sparsify_bisect
 from repro_torch.decode import DecodeConfig
 from repro_torch.decode import decode as cs_decode
-from repro_torch.kernels.sign import unpack_bits
+from repro_torch.dist import collectives as coll
 
 
 @dataclass(frozen=True)
@@ -183,15 +184,7 @@ def simulate_round(cfg: OBCSAAConfig, grads_flat: torch.Tensor,
     return ghat[:D], diag
 
 
-# --- production mode, one worker (the LM trainer) ----------------------------
-
-def _one_worker(group) -> None:
-    if group is not None:
-        raise NotImplementedError(
-            "the shard-mapped aggregation takes one worker (group=None) in "
-            "this slice; more workers need dist/collectives (ROADMAP.md "
-            "Queue 1, item 5)")
-
+# --- production mode, a worker per process (the LM trainer) ------------------
 
 def _f32(x, device) -> torch.Tensor:
     return torch.as_tensor(x, dtype=torch.float32, device=device)
@@ -201,10 +194,10 @@ def shardmap_compress(cfg: OBCSAAConfig, local_flat: torch.Tensor,
                       group=None, *, k_weight, beta_i, b_t,
                       phi: Optional[torch.Tensor] = None, wire_dtype=None):
     """Worker-side half: compress this worker's gradient (eq. 7), scale by
-    the power factor (eq. 10-11) and superpose over the MAC (eq. 12).
-    Returns ``(y, ksum, mag_sum)``, what ``shardmap_reconstruct`` needs;
-    ``wire_dtype`` narrows the transmitted symbols (ignored when
-    ``cfg.packed``)."""
+    the power factor (eq. 10-11) and superpose over the MAC, the sum over
+    ``group`` (eq. 12). Returns ``(y, ksum, mag_sum)``, what
+    ``shardmap_reconstruct`` needs; ``wire_dtype`` narrows the
+    transmitted symbols (ignored when ``cfg.packed``)."""
     phi = cfg.phi(local_flat.device) if phi is None else phi
     signs, mags = compress_chunks(cfg, local_flat, phi)
     return shardmap_mac(cfg, signs, mags, group, k_weight=k_weight,
@@ -213,25 +206,28 @@ def shardmap_compress(cfg: OBCSAAConfig, local_flat: torch.Tensor,
 
 def shardmap_mac(cfg: OBCSAAConfig, signs, mags, group=None, *, k_weight,
                  beta_i, b_t, wire_dtype=None):
-    """MAC superposition of already-compressed symbols (eq. 12). With
-    ``cfg.packed`` the words become the exact integer lane sums β·(2·bit
-    − 1), scaled by K·b_t after the sum; otherwise the f32 (or
-    ``wire_dtype``) symbols times K·β·b_t. Returns ``(y, ksum,
-    mag_sum)``; ``mag_sum`` is None without magnitude tracking."""
-    _one_worker(group)
+    """MAC superposition of already-compressed symbols (eq. 12), summed
+    over ``group``. With ``cfg.packed`` the words become the exact int32
+    lane sums Σ β·(2·bit − 1) (``collectives.psum_bits_mac``), scaled by
+    K·b_t after the sum, which assumes the worker-uniform K·b_t of the
+    trainer (equal shards); otherwise the sum of the f32 (or
+    ``wire_dtype``) symbols times K·β·b_t. ``ksum`` and ``mag_sum`` are
+    summed the same way. Returns ``(y, ksum, mag_sum)``; ``mag_sum`` is
+    None without magnitude tracking."""
     dev = signs.device
     k_weight, beta_i, b_t = (_f32(k_weight, dev), _f32(beta_i, dev),
                              _f32(b_t, dev))
     if cfg.packed:
-        contrib = 2 * unpack_bits(signs, torch.int32) - 1
-        s_int = contrib * beta_i.to(torch.int32)
+        s_int = coll.psum_bits_mac(signs, group, beta_i=beta_i)
         y = s_int.to(torch.float32) * (k_weight * b_t)       # eq. (12)
     else:
         wd = wire_dtype or signs.dtype
-        y = signs.to(wd) * (k_weight * beta_i * b_t).to(wd)  # eq. (12)
-    ksum = k_weight * beta_i
-    mag_sum = (mags * ksum.to(mags.dtype) if cfg.magnitude_tracking
-               else None)
+        y = coll.psum(signs.to(wd) * (k_weight * beta_i * b_t).to(wd),
+                      group)                                 # eq. (12)
+    kb = k_weight * beta_i
+    ksum = coll.psum(kb, group)
+    mag_sum = (coll.psum(mags * kb.to(mags.dtype), group)
+               if cfg.magnitude_tracking else None)
     return y, ksum, mag_sum
 
 
@@ -264,8 +260,10 @@ def shardmap_aggregate(cfg: OBCSAAConfig, local_flat: torch.Tensor,
                        generator: Optional[torch.Generator] = None,
                        noise: Optional[torch.Tensor] = None
                        ) -> torch.Tensor:
-    """Compress, superpose and decode one worker's (D_pad,) gradient;
-    returns the reconstructed global gradient, as the PS broadcasts it."""
+    """Compress, superpose over ``group`` and decode one worker's
+    (D_pad,) gradient; returns the reconstructed global gradient, the
+    same on every worker (each decodes the same sum with the same
+    ``noise``, or the same ``generator`` state)."""
     del n_workers  # implied by group; kept for call-site stability
     phi = cfg.phi(local_flat.device) if phi is None else phi
     y, ksum, mag_sum = shardmap_compress(cfg, local_flat, group,

@@ -160,6 +160,10 @@ class ZooRound:
                 f"ZooRound(D={D}): the zoo surrogate hashes uint32 element "
                 "indices, so D must stay below 2**32 (a 64-bit index path "
                 "is the escape hatch)")
+        if getattr(mesh, "group", None) is not None:
+            raise NotImplementedError(
+                "ZooRound runs its mesh's cells in turn in one process; the "
+                "zoo over processes is ROADMAP.md Queue 1, item 5")
         self.ob, self.D, self.mesh = ob, int(D), mesh
         self.device = resolve_device(device)
         self.waxes = worker_axes(mesh)

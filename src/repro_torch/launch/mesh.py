@@ -1,32 +1,45 @@
-"""The zoo's logical mesh; port of ``repro/launch/mesh.py``.
+"""The trainer's and the zoo's mesh; port of ``repro/launch/mesh.py``.
 
-A ``ZooMesh`` is axis names and sizes and no devices: the counterpart of
-the ``jax.sharding.AbstractMesh`` the reference's single-device oracles
-run on. The zoo (``engine/zoo.py``, ``engine/zoo_train.py``) reads two
-things from it: how many FL workers there are (the product of the worker
-axes ``pod`` and ``data``) and how many model shards the parameters are
-laid out over (the ``model`` axis), which fixes the chunk padding and, in
-``dist/flat_layout.py``, the flat order. On one card every (worker,
-model-shard) cell of the mesh runs in turn on that card, as the
-reference's oracle runs them in one program. Mapping the cells onto
-processes is ``dist/collectives`` (ROADMAP.md Queue 1, item 5), and the
-TPU pod spec ``make_production_mesh`` waits for ``launch/dryrun.py``
-(item 6).
+A ``ZooMesh`` is axis names and sizes: the counterpart of the
+``jax.sharding.AbstractMesh`` the reference's single-device oracles run
+on. Its users read two things from it: how many FL workers there are (the
+product of the worker axes ``pod`` and ``data``) and how many model
+shards the parameters are laid out over (the ``model`` axis), which fixes
+the zoo's chunk padding and, in ``dist/flat_layout.py``, its flat order.
+
+Without a ``group`` every (worker, model-shard) cell of the mesh runs in
+turn in one process, as the reference's oracle runs them in one program.
+With one, the worker axes are the processes of that ``torch.distributed``
+group, one FL worker each: ``join_world`` builds the ``(world, 1)`` mesh
+of the world ``torchrun`` describes, and the LM train step
+(``launch/steps.py``) runs its MAC as the group's all-reduce. The model
+axis stays 1 across processes; the zoo's cells mapped onto processes are
+ROADMAP.md Queue 1, item 5, and the TPU pod spec ``make_production_mesh``
+waits for ``launch/dryrun.py`` (item 6).
+
+Backend rule (``choose_backend``), decided before the world starts: NCCL
+when every rank of the host has a card of its own, gloo when ranks share
+a card or run on the CPU (NCCL refuses two ranks on one device). A
+backend that fails to start raises; nothing switches backend.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Dict, Tuple
+import os
+from dataclasses import dataclass, field
+from typing import Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 
 @dataclass(frozen=True)
 class ZooMesh:
     """Named axes and their sizes; ``shape`` maps name -> size in axis
-    order, as a JAX mesh's does."""
+    order, as a JAX mesh's does. ``group``, when set, is the process
+    group whose ranks are the mesh's workers."""
     axis_names: Tuple[str, ...]
     axis_sizes: Tuple[int, ...]
+    group: Optional[object] = field(default=None, compare=False, repr=False)
 
     def __post_init__(self):
         if len(self.axis_names) != len(self.axis_sizes):
@@ -47,9 +60,26 @@ def local_device_count() -> int:
         else 1
 
 
+def world_group():
+    """The default process group when a world is initialised, else None."""
+    if dist.is_available() and dist.is_initialized():
+        return dist.group.WORLD
+    return None
+
+
 def make_host_mesh(model_parallel: int = 1) -> ZooMesh:
     """(devices // model_parallel, model_parallel) over ("data", "model")
-    for the devices present (the reference's CPU and example mesh)."""
+    for the devices present (the reference's CPU and example mesh). Under
+    an initialised world the workers are the world's processes, one
+    each, as the reference counts every device of its job: (world, 1)
+    with the world's group."""
+    group = world_group()
+    if group is not None:
+        if model_parallel != 1:
+            raise ValueError("make_host_mesh: the model axis stays 1 across "
+                             "processes (ROADMAP.md Queue 1, item 5)")
+        return ZooMesh(("data", "model"), (dist.get_world_size(), 1),
+                       group=group)
     n = local_device_count()
     if n % model_parallel:
         raise ValueError(f"make_host_mesh: {n} devices do not split into "
@@ -82,3 +112,46 @@ def num_workers(mesh) -> int:
     for ax in worker_axes(mesh):
         n *= mesh.shape[ax]
     return n
+
+
+def choose_backend(device: torch.device, local_world: int) -> str:
+    """NCCL when each of the host's ``local_world`` ranks has a card of
+    its own; gloo when they share cards or run on the CPU."""
+    if device.type == "cuda" and local_world <= torch.cuda.device_count():
+        return "nccl"
+    return "gloo"
+
+
+def join_world(device=None, *, init_method: str = "env://"):
+    """Join the world ``torchrun`` describes (``RANK``, ``WORLD_SIZE``,
+    ``LOCAL_RANK``, ``LOCAL_WORLD_SIZE``; with ``env://`` also
+    ``MASTER_ADDR`` and ``MASTER_PORT``). Rank r runs on
+    ``cuda:(LOCAL_RANK % device_count)``, or on the CPU when ``device``
+    is ``"cpu"``; without a card and without ``device="cpu"`` it raises.
+    The backend is ``choose_backend``'s. Returns ``(mesh, device)``: the
+    ``(world, 1)`` mesh over ("data", "model") with the world's group."""
+    rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    local = int(os.environ.get("LOCAL_RANK", rank))
+    local_world = int(os.environ.get("LOCAL_WORLD_SIZE", world))
+    if device is not None and torch.device(device).type == "cpu":
+        dev = torch.device("cpu")
+    else:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "join_world: no CUDA device is available; pass "
+                "device='cpu' (the CLI's --device cpu) to run the ranks "
+                "on the CPU")
+        dev = torch.device("cuda", local % torch.cuda.device_count())
+        torch.cuda.set_device(dev)
+    backend = choose_backend(dev, local_world)
+    dist.init_process_group(backend, init_method=init_method, rank=rank,
+                            world_size=world)
+    return ZooMesh(("data", "model"), (world, 1),
+                   group=dist.group.WORLD), dev
+
+
+def leave_world() -> None:
+    """Wait for every rank, then tear the world down."""
+    if world_group() is not None:
+        dist.barrier()
+        dist.destroy_process_group()

@@ -1,4 +1,4 @@
-"""The LM trainer on one card; port of ``repro/launch/train.py``.
+"""The LM trainer; port of ``repro/launch/train.py``.
 
     python -m repro_torch.launch.train --arch gemma2-2b --steps 2
     python -m repro_torch.launch.train --arch mamba2-2.7b --agg mean
@@ -7,11 +7,33 @@
 
 Every LM architecture in ``configs/`` trains: dense, MoE, SSM, hybrid,
 VLM (behind stub image embeddings) and the audio encoder-decoder (on stub
-frames). One card is one FL worker. Each step takes the gradient of the
-LM loss on fixed synthetic token streams and, under ``--agg obcsaa`` (the
-default), sends it through the 1-bit CS uplink leaf by leaf and decodes
-it (``launch/steps.py``). It runs on CUDA unless ``--device`` says otherwise;
-without a card it raises rather than fall back to the CPU.
+frames). Each step takes the gradient of the LM loss on fixed synthetic
+token streams and, under ``--agg obcsaa`` (the default), sends it through
+the 1-bit CS uplink leaf by leaf and decodes it (``launch/steps.py``). It
+runs on CUDA unless ``--device`` says otherwise; without a card it raises
+rather than fall back to the CPU.
+
+One process is one FL worker. Under ``torchrun`` the processes are the
+workers of one federation, the global ``--batch`` split over them and the
+MAC their all-reduce; rank 0 (the PS) prints and writes the checkpoints,
+every rank restores them:
+
+    python -m torch.distributed.run --standalone --nproc-per-node 4 \\
+        -m repro_torch.launch.train --arch internvl2-1b --steps 2
+    PYTHONPATH=src python -m torch.distributed.run --standalone \\
+        --nproc-per-node 4 -m repro_torch.launch.train --device cpu \\
+        --smoke --batch 4 --steps 2
+
+The backend is NCCL when every rank has a card of its own and gloo when
+ranks share a card or run on the CPU (``launch.mesh.choose_backend``).
+``--check-replicas`` ends the run by checking that every rank holds the
+same parameters bit for bit (rank 0's are broadcast to every rank: a
+test of the federation, off by default).
+
+``--scan-rounds N`` schedules the whole run's rounds in one batched P2
+solve (``make_scheduled_round_span``, greedy) and advances N rounds a
+call (``make_scan_train_step``), with a checkpoint at every chunk
+boundary when ``--ckpt-dir`` is set.
 
 ``--zoo-train`` trains through the chunked zoo round instead
 (``engine/zoo_train.py``, ``run_zoo_train``): the master as the
@@ -25,32 +47,30 @@ sweep with ``--arms``:
         --zoo-train --smoke --steps 2 --optimizer adam --error-feedback
 
 ``--serve`` hands the remaining arguments to the scheduling service
-(``repro_torch.serve.cli``). ``--scan-rounds`` belongs to a later slice
-and exits non-zero naming it.
+(``repro_torch.serve.cli``).
 """
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 import time
 from typing import Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import tree
 from repro_torch.configs import TrainConfig, get_config, get_smoke_config
 from repro_torch.data.synthetic import token_stream
 from repro_torch.device import resolve_device
+from repro_torch.dist import collectives as coll
 from repro_torch.launch import steps as steps_lib
-from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.launch.mesh import (join_world, leave_world,
+                                     make_host_mesh, make_zoo_mesh,
+                                     num_workers)
 from repro_torch.models.registry import build_model
-
-# flag -> (argparse dest, the later slice that ports it)
-LATER_FLAGS = {
-    "--scan-rounds": ("scan_rounds", "the scheduled round contexts and "
-                      "--scan-rounds (ROADMAP.md Queue 1, item 6)"),
-}
 
 
 def make_batch(cfg, B, S, rng_seed=0, device=None):
@@ -215,8 +235,119 @@ def build_parser() -> argparse.ArgumentParser:
                          "with --zoo-train each round samples a fresh "
                          "per-worker batch keyed by the absolute round "
                          "index; default: fixed synthetic streams")
-    ap.add_argument("--scan-rounds", type=int, default=None)
+    ap.add_argument("--scan-rounds", type=int, default=0,
+                    help="advance N rounds a call, P2 scheduled for the "
+                         "whole run in one batched greedy solve; "
+                         "checkpoints at every chunk boundary")
+    ap.add_argument("--check-replicas", action="store_true",
+                    help="under torchrun, end by checking that every rank "
+                         "holds the same parameters bit for bit (broadcasts "
+                         "every parameter from rank 0)")
     return ap
+
+
+def _wire(stats) -> str:
+    """The collectives of one step: MB and ms by kind."""
+    return ", ".join(f"{k} {stats['bytes'][k] / 1e6:.1f} MB "
+                     f"{stats['ms'].get(k, 0.0):.1f} ms"
+                     for k in sorted(stats["bytes"]))
+
+
+def train(args, cfg, tcfg, model, mesh, dev) -> int:
+    """The stepped or ``--scan-rounds`` loop of one worker of ``mesh``
+    (one process, or rank r of the mesh's group)."""
+    group = mesh.group
+    U, rank = num_workers(mesh), coll.axis_index(group)
+
+    def say(msg: str) -> None:
+        if rank == 0:
+            print(msg, flush=True)
+
+    def save(step: int, params, opt_state) -> None:
+        if rank == 0:
+            path = steps_lib.save_train_state(args.ckpt_dir, step, params,
+                                              opt_state)
+            print(f"saved checkpoint: {path}", flush=True)
+
+    if args.batch % U:
+        raise SystemExit(f"--batch {args.batch} does not split over {U} "
+                         "workers")
+    params = model.init(0, device=dev)
+    opt_state = steps_lib.make_optimizer(tcfg).init(params)
+    D = sum(p.numel() for p in tree.leaves(params))
+    say(f"{cfg.name}: D={D:,} on {dev}, agg={args.agg}, "
+        f"optimizer={args.optimizer}, remat={tcfg.remat_mode}")
+    if group is not None:
+        say(f"world: {U} workers over {dist.get_backend(group)}, "
+            f"batch {args.batch} = {U} x {args.batch // U}")
+    t_start = 0
+    if args.resume:
+        restored = steps_lib.restore_train_state(args.ckpt_dir, model, tcfg,
+                                                 dev)
+        if restored is not None:
+            params, opt_state, t_start = restored
+            say(f"resumed from step {t_start}")
+    batch = make_batch(cfg, args.batch, args.seq, device=dev)
+    if args.scan_rounds > 0:
+        n = args.scan_rounds
+        if t_start % n:
+            raise SystemExit(
+                f"--resume step {t_start} does not land on a --scan-rounds "
+                f"{n} chunk boundary; rerun with the cadence the "
+                f"checkpoints were saved with")
+        span = steps_lib.make_scheduled_round_span(mesh, tcfg, D,
+                                                   args.steps, device=dev)
+        scan_steps = {}   # chunk length -> step (full + tail)
+        for t0_round in range(0, args.steps, n):
+            m = min(n, args.steps - t0_round)
+            if t0_round + m <= t_start:
+                continue
+            if m not in scan_steps:
+                scan_steps[m] = steps_lib.make_scan_train_step(
+                    model, tcfg, mesh, m)
+            ctxs = {k: v[t0_round:t0_round + m] for k, v in span.items()}
+            coll.reset_counters()
+            t0 = time.perf_counter()
+            params, opt_state, metrics = scan_steps[m](params, opt_state,
+                                                       batch, ctxs)
+            loss = float(metrics["loss"][-1])
+            dt = time.perf_counter() - t0
+            beta = ctxs["beta"].to(torch.int32).tolist()
+            say(f"rounds {t0_round:4d}..{t0_round + m - 1} loss={loss:.4f} "
+                f"beta={beta} ({dt:.2f}s)"
+                + (f" wire: {_wire(coll.stats())}" if group else ""))
+            if args.ckpt_dir:
+                save(t0_round + m, params, opt_state)
+    else:
+        step = steps_lib.make_train_step(model, tcfg, mesh)
+        for t in range(t_start, args.steps):
+            ctx = steps_lib.default_round_ctx(seed=t, device=dev, mesh=mesh)
+            coll.reset_counters()
+            t0 = time.perf_counter()
+            params, opt_state, metrics = step(params, opt_state, batch, ctx)
+            loss = float(metrics["loss"])
+            dt = time.perf_counter() - t0
+            say(f"step {t:4d} loss={loss:.4f} ({dt:.2f}s)"
+                + (f" wire: {_wire(coll.stats())}" if group else ""))
+            if args.ckpt_dir and args.ckpt_every \
+                    and (t + 1) % args.ckpt_every == 0:
+                save(t + 1, params, opt_state)
+        saved = args.ckpt_every and args.steps % args.ckpt_every == 0
+        if args.ckpt_dir and not (saved and args.steps > t_start):
+            save(args.steps, params, opt_state)
+    if group is not None:
+        if args.check_replicas:
+            if not coll.replicated(tree.leaves(params), group):
+                raise RuntimeError("the ranks' parameters differ after the "
+                                   "run")
+            say(f"replicas: parameters bit-identical on all {U} ranks")
+        if dev.type == "cuda":
+            peak = coll.all_gather(torch.tensor(
+                [torch.cuda.max_memory_allocated(dev)], device=dev), group,
+                tiled=True)
+            say("peak memory by rank (GiB): " + ", ".join(
+                f"{v / 2**30:.2f}" for v in peak.tolist()))
+    return 0
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
@@ -225,14 +356,13 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         from repro_torch.serve.cli import main as serve_main
         return serve_main([a for a in argv if a != "--serve"])
     args = build_parser().parse_args(argv)
-    for flag, (dest, where) in LATER_FLAGS.items():
-        if getattr(args, dest) is not None:
-            raise SystemExit(f"{flag} is not ported yet: it comes with "
-                             f"{where}")
     if args.resume and not args.ckpt_dir:
         raise SystemExit("--resume needs --ckpt-dir")
-
-    dev = resolve_device(args.device)
+    under_torchrun = "RANK" in os.environ and "WORLD_SIZE" in os.environ
+    if under_torchrun and args.zoo_train:
+        raise SystemExit("--zoo-train runs its mesh's cells in turn in one "
+                         "process; the zoo over processes is ROADMAP.md "
+                         "Queue 1, item 5")
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     tcfg = TrainConfig(aggregation=args.agg, optimizer=args.optimizer,
                        learning_rate=args.lr,
@@ -242,39 +372,17 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                        biht_iters=10, cs_packed=args.zoo_train,
                        remat_policy=args.remat_policy)
     model = build_model(cfg)
+    if under_torchrun:
+        # a rank that raises exits without the closing barrier; torchrun
+        # then stops the others
+        mesh, dev = join_world(args.device)
+        code = train(args, cfg, tcfg, model, mesh, dev)
+        leave_world()
+        return code
+    dev = resolve_device(args.device)
     if args.zoo_train:
         return run_zoo_train(args, cfg, tcfg, model, make_host_mesh(), dev)
-    params = model.init(0, device=dev)
-    opt_state = steps_lib.make_optimizer(tcfg).init(params)
-    D = sum(p.numel() for p in tree.leaves(params))
-    print(f"{cfg.name}: D={D:,} on {dev}, agg={args.agg}, "
-          f"optimizer={args.optimizer}, remat={tcfg.remat_mode}",
-          flush=True)
-    t_start = 0
-    if args.resume:
-        restored = steps_lib.restore_train_state(args.ckpt_dir, model, tcfg,
-                                                 dev)
-        if restored is not None:
-            params, opt_state, t_start = restored
-            print(f"resumed from step {t_start}", flush=True)
-    batch = make_batch(cfg, args.batch, args.seq, device=dev)
-    step = steps_lib.make_train_step(model, tcfg)
-    for t in range(t_start, args.steps):
-        ctx = steps_lib.default_round_ctx(seed=t, device=dev)
-        t0 = time.perf_counter()
-        params, opt_state, metrics = step(params, opt_state, batch, ctx)
-        loss = float(metrics["loss"])
-        print(f"step {t:4d} loss={loss:.4f} "
-              f"({time.perf_counter() - t0:.2f}s)", flush=True)
-        if args.ckpt_dir and args.ckpt_every \
-                and (t + 1) % args.ckpt_every == 0:
-            steps_lib.save_train_state(args.ckpt_dir, t + 1, params,
-                                       opt_state)
-    if args.ckpt_dir:
-        path = steps_lib.save_train_state(args.ckpt_dir, args.steps, params,
-                                          opt_state)
-        print(f"saved checkpoint: {path}", flush=True)
-    return 0
+    return train(args, cfg, tcfg, model, make_zoo_mesh(1, 1), dev)
 
 
 if __name__ == "__main__":

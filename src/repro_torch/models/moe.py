@@ -10,10 +10,22 @@ same expert (a cumsum of the one-hot routes, token-major); a route past the
 capacity is dropped: it goes to slot ``capacity − 1`` with weight 0.
 Shared (always-on) experts are a plain dense MLP (DeepSeek-V2 style).
 
-This is the reference's one-device branch. Its ``shard_map`` branch, one
-dispatch per data shard, belongs with ``dist/collectives`` (ROADMAP.md
-Queue 1, item 5): ``moe_forward``'s ``group`` is where it will take the
-process group, and today it must be ``None``.
+Dispatch over data-parallel workers (the reference's ``shard_map``
+branch, ``repro/models/moe.py:97-130``). Inside the ``mean`` train step
+of W > 1 workers (``moe_forward(..., dp=(group, W))``, passed down by
+``launch/steps.py`` through the model's ``loss_fn`` as the reference's
+step leaves its worker axes to GSPMD), each worker dispatches its own
+tokens, with capacity from its own T/W, when T % W == 0 and T/W ≥ 64, and
+the aux term is the ``pmean`` of the workers'; below 64 tokens a worker,
+every worker's tokens are dispatched together, as one batch. Without a
+group the W workers' tokens are the rows of one x, in worker order; with
+one, x holds this worker's tokens and the global dispatch gathers the
+others' first. Inside the ``obcsaa`` step each worker's body sees only
+its own tokens and ``dp=None``: a local dispatch, its aux term not
+averaged, as in the reference's manual worker axes. ``dp`` is an argument
+and not ambient state because a checkpointed layer recomputes its forward
+inside the backward pass, on the autograd engine's device thread: the
+recompute must dispatch as the forward did.
 """
 from __future__ import annotations
 
@@ -24,6 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import MoEConfig
+from repro_torch.dist import collectives as coll
 from repro_torch.models.layers import he_init, init_mlp, mlp
 
 
@@ -116,14 +129,36 @@ def _moe_tokens(p, xf: torch.Tensor, m: MoEConfig, gated: bool,
     return out, aux.to(torch.float32)
 
 
+#: tokens a worker needs for a dispatch of its own (the reference's bound)
+MIN_SHARD_TOKENS = 64
+
+
 def moe_forward(p, x: torch.Tensor, m: MoEConfig, *, gated=True,
-                capacity: int = 0, group=None
+                capacity: int = 0, dp=None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (B, S, d). Returns (out, aux_loss)."""
-    if group is not None:
-        raise NotImplementedError(
-            "a per-shard MoE dispatch needs dist/collectives (ROADMAP.md "
-            "Queue 1, item 5); one card takes group=None")
+    """x: (B, S, d). Returns (out, aux_loss), dispatched over the
+    data-parallel workers ``dp = (group, W)``: the W processes of
+    ``group``, or, with no group, W equal row blocks of x. ``dp=None``:
+    one worker."""
     B, S, d = x.shape
-    out, aux = _moe_tokens(p, x.reshape(B * S, d), m, gated, capacity)
+    xf = x.reshape(B * S, d)
+    group, W = dp if dp is not None else (None, 1)
+    T = B * S * (W if group is not None else 1)
+    if W > 1 and T % W == 0 and T // W >= MIN_SHARD_TOKENS:
+        if group is not None:
+            out, aux = _moe_tokens(p, xf, m, gated, capacity)
+            # the pmean's value, this worker's gradient: the step averages
+            # the workers' gradients, which makes it the pmean's
+            mean = coll.pmean(aux.detach(), group)
+            return out.reshape(B, S, d), aux + (mean - aux.detach())
+        outs, auxes = zip(*(_moe_tokens(p, blk, m, gated, capacity)
+                            for blk in xf.chunk(W)))
+        return (torch.cat(outs).reshape(B, S, d),
+                torch.mean(torch.stack(auxes)))
+    if group is not None and W > 1:
+        # every worker's tokens in one dispatch; this worker's rows out
+        out, aux = _moe_tokens(
+            p, coll.all_gather(xf, group, tiled=True), m, gated, capacity)
+        return coll.shard_slice(out, group).reshape(B, S, d), aux
+    out, aux = _moe_tokens(p, xf, m, gated, capacity)
     return out.reshape(B, S, d), aux

@@ -3,7 +3,7 @@
 
 ``build_model(cfg)`` returns a ``Model`` with
   init(seed, device=None) -> params
-  loss_fn(params, batch, remat=...) -> (scalar loss, aux)
+  loss_fn(params, batch, remat=..., dp=None) -> (scalar loss, aux)
   forward(params, batch, remat=...) -> logits
   prefill(params, batch) -> (logits, cache seeds)
   init_cache(batch_size, seq_len, device=None) -> cache
@@ -61,11 +61,11 @@ def _lm_model(cfg: ModelConfig) -> Model:
             layer_resolver=layer_resolver)
         return logits
 
-    def loss_fn(params, batch, remat=True, layer_resolver=None):
+    def loss_fn(params, batch, remat=True, layer_resolver=None, dp=None):
         hidden, aux, _ = transformer.lm_forward(
             params, cfg, batch["tokens"],
             image_embeds=batch.get("image_embeds"), remat=remat,
-            return_hidden=True, layer_resolver=layer_resolver)
+            return_hidden=True, layer_resolver=layer_resolver, dp=dp)
         tgt, mask = batch["targets"], None
         if is_vlm:      # the image positions carry no LM loss
             n_img = cfg.num_image_tokens
@@ -113,7 +113,7 @@ def _encdec_model(cfg: ModelConfig) -> Model:
         return encdec.decode_full(params, cfg, batch["tokens"], enc,
                                   remat=remat, layer_resolver=layer_resolver)
 
-    def loss_fn(params, batch, remat=True, layer_resolver=None):
+    def loss_fn(params, batch, remat=True, layer_resolver=None, dp=None):
         enc = encdec.encode(params, cfg, batch["frames"],
                             layer_resolver=layer_resolver)
         hidden = encdec.decode_full(params, cfg, batch["tokens"], enc,
@@ -154,7 +154,7 @@ def _mlp_model(cfg: ModelConfig) -> Model:
         return init_mlp_mnist(seed, cfg.d_ff, cfg.d_model, cfg.vocab_size,
                               device=device)
 
-    def loss_fn(params, batch, remat=False, layer_resolver=None):
+    def loss_fn(params, batch, remat=False, layer_resolver=None, dp=None):
         return mlp_mnist_loss(params, batch["x"], batch["y"]), {}
 
     def forward(params, batch, remat=False, layer_resolver=None):

@@ -160,12 +160,12 @@ def _shared_block(sb, x, cfg: ModelConfig, positions):
 
 
 def _apply_layer_full(lp, x, cfg: ModelConfig, is_global: bool,
-                      apply_attn: bool, positions, shared_block):
+                      apply_attn: bool, positions, shared_block, dp=None):
     """Full-sequence (train/prefill) layer. Returns (x, cache_seed, aux):
     the seed is (k, v) for GQA, (c_kv, k_rope) for MLA, (conv, ssm) for
     an SSM layer and (conv, ssm, k, v) for a hybrid one (zero k/v where
     the shared block does not follow); aux is the MoE load-balance loss
-    (0 for every other layer)."""
+    (0 for every other layer); ``dp`` is ``moe_forward``'s."""
     eps = cfg.norm_eps
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.family in ("ssm", "hybrid"):
@@ -194,7 +194,7 @@ def _apply_layer_full(lp, x, cfg: ModelConfig, is_global: bool,
     h = rmsnorm(x, lp["ffn_norm"], eps)
     if cfg.family == "moe":
         o, aux = moe_lib.moe_forward(lp["moe"], h, cfg.moe,
-                                     gated=cfg.gated_mlp)
+                                     gated=cfg.gated_mlp, dp=dp)
     else:
         o = mlp(lp["mlp"], h, cfg.gated_mlp)
     return x + o, seed, aux
@@ -240,7 +240,7 @@ def remat_wrap(body, remat):
 
 def lm_forward(params, cfg: ModelConfig, tokens, *, image_embeds=None,
                remat=True, collect_cache=False, return_hidden=False,
-               layer_resolver=None):
+               layer_resolver=None, dp=None):
     """tokens: (B, S_text). Returns (logits_or_hidden, aux, caches): aux
     is the MoE load-balance loss summed over the layers (0 for the other
     families); with ``collect_cache`` caches is the tuple of each layer's
@@ -250,7 +250,8 @@ def lm_forward(params, cfg: ModelConfig, tokens, *, image_embeds=None,
     (N + S_text positions in all). ``return_hidden=True`` skips the
     unembed (the chunked-CE training path). ``layer_resolver`` maps a
     layer's parameter slice to the form the block consumes, inside the
-    remat boundary."""
+    remat boundary. ``dp = (group, W)``: the MoE layers dispatch over W
+    data-parallel workers (``moe.moe_forward``)."""
     dtype = dtype_of(cfg)
     x = embed(params["embedding"], tokens, dtype) * math.sqrt(cfg.d_model)
     if cfg.family == "vlm":
@@ -268,7 +269,7 @@ def lm_forward(params, cfg: ModelConfig, tokens, *, image_embeds=None,
         if layer_resolver is not None:
             lp = layer_resolver(lp)
         x, seed, aux = _apply_layer_full(lp, x, cfg, glob, with_attn,
-                                         positions, shared_block)
+                                         positions, shared_block, dp)
         return x, (seed if collect_cache else None), aux
 
     body_fn = remat_wrap(body, remat)

@@ -920,3 +920,51 @@ def _hard_flips_mask(phi, x):
                                 * torch.linalg.vector_norm(phi.double(),
                                                            dim=1)[None])
     return acc.abs() <= lim
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seq", [32, 64])
+def test_moe_mean_step_over_ranks_remat_full(cuda, seq, tmp_path):
+    """mixtral's smoke model in f32 under the ``mean`` step with remat
+    "full", W = 2 workers of ``seq`` tokens each (T/W = 64: a dispatch a
+    worker; 32: every token in one dispatch, gathered over the ranks): 2
+    gloo ranks sharing the card against the 2 workers in turn in this
+    process. On the card the backward pass, and in it each checkpointed
+    layer's recompute, runs on the autograd engine's device thread; the
+    recompute must dispatch as the forward did. Losses rtol 1e-5; each
+    parameter leaf within 1e-4 of its movement (the gradients' sums run
+    in other orders)."""
+    from _torch_dist_child import run_world
+    from repro_torch import configs, tree
+    from repro_torch.data import token_stream
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_zoo_mesh
+    from repro_torch.models.registry import build_model
+
+    W = 2
+    cs = dict(learning_rate=3e-2)
+    cfg = configs.scaled(configs.get_smoke_config("mixtral-8x22b"),
+                         dtype="float32")
+    model = build_model(cfg)
+    p0 = model.init(0, device="cpu")
+    tok, tgt = token_stream(W, seq, cfg.vocab_size, seed=0)
+    batch = {"tokens": torch.from_numpy(tok),
+             "targets": torch.from_numpy(tgt)}
+    outs = run_world("train", W, {"cases": {"moe": {
+        "arch": "mixtral-8x22b", "agg": "mean", "ctxs": [{}],
+        "params": p0, "batch": batch}}, "cs": cs}, tmp_path,
+        device="cuda")
+    tt = configs.TrainConfig(aggregation="mean", **cs)
+    assert tt.remat_mode == "full"
+    step = steps.make_train_step(model, tt, make_zoo_mesh(W, 1))
+    params = tree.tree_map(lambda x: x.to(cuda), p0)
+    params, _, m = step(params, steps.make_optimizer(tt).init(params),
+                        tree.tree_map(lambda x: x.to(cuda), batch), {})
+    for o in outs:
+        assert o["moe"]["losses"][0] == pytest.approx(float(m["loss"]),
+                                                      rel=1e-5)
+        for got, want, start in zip(o["moe"]["params"], tree.leaves(params),
+                                    tree.leaves(p0)):
+            want = want.cpu()
+            moved = torch.linalg.vector_norm(want - start)
+            assert torch.linalg.vector_norm(got - want) <= 1e-4 * moved

@@ -391,22 +391,15 @@ def test_cli_resume_equals_uninterrupted(tmp_path, capsys):
                                   ["--scan-rounds", "4"],
                                   ["--data", "/nonexistent"],
                                   ["--error-feedback"]])
-def test_cli_later_flags_exit_nonzero(argv):
-    """``--scan-rounds`` belongs to a later slice and exits non-zero
-    naming it. The flags slice 12 ported are accepted: ``--zoo-train``
-    trains through the zoo round, ``--error-feedback`` under ``obcsaa``
-    is a valid TrainConfig, and outside ``--zoo-train`` the trainer reads
-    neither ``--arms`` nor ``--data``, as the reference's does."""
+def test_cli_flags_of_later_slices_run(argv):
+    """Every flag of the reference's CLI runs: ``--zoo-train`` trains
+    through the zoo round, ``--scan-rounds`` through the scheduled span,
+    ``--error-feedback`` under ``obcsaa`` is a valid TrainConfig, and
+    outside ``--zoo-train`` the trainer reads neither ``--arms`` nor
+    ``--data``, as the reference's does."""
     base = ["--device", "cpu", "--smoke", "--steps", "1", "--seq", "8",
             "--batch", "1"]
-    if argv[0] != "--scan-rounds":
-        assert ttrain.main(base + argv) == 0
-        return
-    with pytest.raises(SystemExit) as e:
-        ttrain.main(base + argv)
-    assert e.value.code not in (0, None)
-    assert "not ported yet" in str(e.value.code)
-    assert "ROADMAP.md Queue 1, item 6" in str(e.value.code)
+    assert ttrain.main(base + argv) == 0
 
 
 def test_cli_without_card_raises():
@@ -424,8 +417,25 @@ def test_cli_serve_dispatch(capsys):
     assert "tick" in capsys.readouterr().out
 
 
-def test_one_worker_only():
-    cfg = tob.OBCSAAConfig(chunk=1024, measure=256, topk=64)
-    with pytest.raises(NotImplementedError, match="one worker"):
-        tob.shardmap_mac(cfg, torch.ones((1, 256)), torch.ones(1), "data",
-                         k_weight=1.0, beta_i=1.0, b_t=1.0)
+@pytest.mark.parametrize("packed", [False, True])
+def test_shardmap_mac_over_a_group(tmp_path, packed):
+    """``shardmap_mac`` sums over a process group: a gloo world of one
+    gives what ``group=None`` gives, bit for bit (more ranks:
+    ``tests/test_torch_workers.py``)."""
+    import torch.distributed as dist
+    from repro_torch.core.quantize import pack_signs, sign_pm1
+    cfg = tob.OBCSAAConfig(chunk=1024, measure=256, topk=64, packed=packed)
+    rng = np.random.default_rng(0)
+    proj = torch.from_numpy(rng.standard_normal((3, 256)).astype(np.float32))
+    signs = pack_signs(proj) if packed else sign_pm1(proj)
+    mags = torch.from_numpy(rng.random(3).astype(np.float32))
+    kw = dict(k_weight=1.0, beta_i=1.0, b_t=0.7)
+    want = tob.shardmap_mac(cfg, signs, mags, None, **kw)
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    try:
+        got = tob.shardmap_mac(cfg, signs, mags, dist.group.WORLD, **kw)
+    finally:
+        dist.destroy_process_group()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)

@@ -170,10 +170,34 @@ def test_moe_tokens_dispatch(E, k, shared, gated, capacity):
     assert float(taux) == pytest.approx(float(jaux), rel=1e-5)
 
 
-def test_moe_group_raises():
-    m = tcfg.MoEConfig(num_experts=4, top_k=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmoe.moe_forward({}, torch.zeros(1, 2, 8), m, group=object())
+@pytest.mark.parametrize("S,per_worker", [(32, True), (16, False)])
+def test_moe_data_parallel_dispatch(S, per_worker):
+    """``moe_forward`` with ``dp=(None, 4)``: with T/W ≥ 64
+    each worker's rows dispatch on their own (capacity from T/W) and the
+    aux term is the workers' mean, the reference's ``shard_map`` branch
+    (``_moe_tokens`` per shard, ``pmean``); below 64 every token
+    dispatches together. ``dp=None``: one dispatch."""
+    W, B, d, f = 4, 8, 32, 24
+    m = tcfg.MoEConfig(num_experts=4, top_k=2, capacity_factor=1.25)
+    jm = jcfg.MoEConfig(num_experts=4, top_k=2, capacity_factor=1.25)
+    p = _moe_params(d, f, m, True, seed=3)
+    x = _rng(4).standard_normal((B, S, d)).astype(np.float32)
+    tp = lm_params_from_reference(p, device="cpu")
+    xf = x.reshape(-1, d)
+    if per_worker:
+        parts = [jmoe._moe_tokens(p, jnp.asarray(blk), jm, True, 0)
+                 for blk in np.split(xf, W)]
+        jout = np.concatenate([np.asarray(o) for o, _ in parts])
+        jaux = np.mean([float(a) for _, a in parts])
+    else:
+        jout, jaux = jmoe._moe_tokens(p, jnp.asarray(xf), jm, True, 0)
+    tout, taux = tmoe.moe_forward(tp, _t(x), m, dp=(None, W))
+    np.testing.assert_allclose(tout.numpy().reshape(-1, d), np.asarray(jout),
+                               rtol=1e-5, atol=1e-5)
+    assert float(taux) == pytest.approx(float(jaux), rel=1e-5)
+    one, _ = tmoe._moe_tokens(tp, _t(xf), m, True, 0)
+    got, _ = tmoe.moe_forward(tp, _t(x), m)
+    assert torch.equal(got.reshape(-1, d), one)
 
 
 # --- attention decode --------------------------------------------------------
