@@ -143,6 +143,23 @@ result line):
             step bit for bit; no launch of K1-K7 in this process. The
             runs whose times are not reported share the card with
             others (13c's stopped and resumed runs, 13d)
+14. zoo/proc the zoo over processes: one 4-rank launch (``chip_smoke.py
+            --zoo-rank``), started with the script, its ranks asleep until
+            this phase; 2 x 2 ranks, one a (worker, model-shard) cell,
+            sharing the card over gloo. (14a) 12a's surrogate round at
+            gemma2-2b's D with K1-K4 and K7, two rounds: each rank's rows
+            against the in-turn round's row checksums (written by this
+            process first), s a round, the all-gather's and the MAC's ms
+            and MB, peak memory per rank, the launches; (14c) 10a's f32
+            gemma2-2b decode, the K/V cache of 4,176 rows split four ways
+            over its length and seeded with each rank's rows of 10a's
+            prefill: 16 greedy tokens equal 10a's, logits within 1e-5 of
+            their max; (14b) ``--zoo-train --model-parallel 2 --kernels``
+            at internvl2-1b's full width (bf16, SGD, one sequence of 128 a
+            worker, 2 rounds, ``--ckpt-dir``) through the CLI's own
+            ``main``: the ranks' checkpoint equals this process's in-turn
+            carry after round 1, and round 2 from it the uninterrupted
+            in-turn round 2, bit for bit; K1-K4 launch in every rank
 
 Each path's launch counters are set to 0 just before it and read just
 after; a kernel of the path that was not launched fails the run.
@@ -1054,15 +1071,15 @@ def start_cli(label, module, args) -> dict:
     return h
 
 
-def finish_cli(h, card) -> str:
+def finish_cli(h, card, limit: float = 600.0) -> str:
     """Wait for a ``start_cli``; fails the run on a non-zero exit or
-    after 600 s. Returns its stdout."""
+    ``limit`` s after its start. Returns its stdout."""
     label, module, args = h["label"], h["module"], " ".join(h["args"])
     try:
-        code = h["proc"].wait(timeout=max(1.0, 600 - (time.perf_counter()
-                                                      - h["t0"])))
+        code = h["proc"].wait(timeout=max(1.0, limit - (time.perf_counter()
+                                                        - h["t0"])))
     except subprocess.TimeoutExpired:
-        fail(f"{label}: python -m {module} {args} ran past 600 s")
+        fail(f"{label}: python -m {module} {args} ran past {limit:.0f} s")
     secs = time.perf_counter() - h["t0"]
     _STARTED.remove(h)
     for f in (h["out"], h["err"]):
@@ -2320,6 +2337,8 @@ def run_lm_phase(dev, card: str) -> dict:
 DECODE_CELLS = (("10a", "gemma2-2b", 2, 4160, 2_614_222_080),
                 ("10b", "deepseek-v2-lite-16b", 4, 32, 16_210_324_992))
 DECODE_GEN = 16
+# what a later phase holds its run against, kept from an earlier one
+ORACLES: dict = {}
 
 
 def _decode(model, params, cache, first, start: int, feed=None):
@@ -2403,6 +2422,10 @@ def run_decode_cell(dev, card: str, label: str, arch: str, B: int, P: int,
         if offset != P:
             fail(f"{label}: seeded prefill offset {offset} != {P}")
         dec, fed, step_ms = _decode(model, params, cache, first, P)
+        if label == "10a":          # 14c's prompt state and oracle
+            ORACLES["10a"] = {
+                "fed": fed.cpu(), "logits": dec.cpu(), "first": first.cpu(),
+                "seeds": tuple(cache[k][:, :, :P].cpu() for k in ("k", "v"))}
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
 
         def steps4():
@@ -2906,10 +2929,11 @@ class ZooClock:
 
 def zoo_counts(zr) -> dict:
     """K1-K4 launches of one zoo round with the kernels: per compression
-    block one K1 and one K2 (pack); per decode block ``biht_iters`` IHT
-    iterations of K3, K4 and K1."""
-    nc = zr.U * zr.n_model * -(-zr.n_half // zr.block_rows)
+    block (every worker's model halves, each owner's rows of a half in
+    blocks) one K1 and one K2 (pack); per decode block (each cell's own
+    rows in blocks) ``biht_iters`` IHT iterations of K3, K4 and K1."""
     nd = zr.U * zr.n_model * -(-zr.n_local // zr.block_rows)
+    nc = zr.U * nd
     it = zr.ob.biht_iters
     return {"topk_select": nc + it * nd, "cs_project": nc,
             "cs_project_resid": it * nd, "backproject": it * nd}
@@ -3689,6 +3713,392 @@ def run_federation_phase(dev, card: str) -> dict:
     log(f"federation: phase 13 took {time.perf_counter() - t_phase:.1f} s")
     return counts
 
+# -- phase 14 -----------------------------------------------------------------
+
+# the zoo over processes: one rank per (worker, model-shard) cell of a 2 x 2
+# mesh, the four ranks sharing the card over gloo (one torchrun launch).
+# 14a the surrogate round at gemma2-2b's D (12a's geometry and kernels),
+# 14c gemma2-2b's f32 decode (10a's) with the K/V cache split over the
+# four ranks' length, then 14b the --zoo-train CLI at internvl2-1b's full
+# width (bf16, SGD, K1-K4, one sequence of 128 a worker). Two workers: a
+# sum of two f32 terms over the worker group is exact in either order, so
+# 14a and 14b hold the ranks bit for bit against the in-turn rounds
+ZP_W, ZP_M = 2, 2
+ZP_ROUNDS = 2
+ZP_LIMIT = 1500.0        # s from the launch (at the script's start) to its end
+ZP_TRAIN_ARCH, ZP_TRAIN_D = "internvl2-1b", 493_982_720
+ZP_TRAIN_ARGV = ["--zoo-train", "--model-parallel", str(ZP_M), "--arch",
+                 ZP_TRAIN_ARCH, "--batch", "1", "--seq", "128", "--steps",
+                 str(ZP_ROUNDS), "--kernels"]
+
+
+def zoo_procs_params(zr, r0: int, n: int, dev) -> torch.Tensor:
+    """Rows [r0, r0 + n) of 14a's parameters: 0.04·(U(0,1) − ½) hashed
+    from the global element index (the zoo's own hash), zero at and past
+    D, so that every rank can make its own rows alone."""
+    from repro_torch.engine.zoo import _hash_u01
+    dc = zr.ob.chunk
+    out = torch.empty((n, dc), device=dev)
+    cols = torch.arange(dc, dtype=torch.int64, device=dev)
+    for a in range(0, n, ZOO_ROWS):
+        b = min(a + ZOO_ROWS, n)
+        rows = torch.arange(r0 + a, r0 + b, dtype=torch.int64, device=dev)
+        idx = rows[:, None] * dc + cols[None]
+        v = 0.04 * (_hash_u01(idx, 1000, 0) - 0.5)
+        out[a:b] = torch.where(idx < zr.D, v, torch.zeros_like(v))
+    return out
+
+
+def row_sums(rows: torch.Tensor) -> torch.Tensor:
+    """Each row's int64 sum of its f32 bits read as int32: the checksum
+    the ranks' rows are held to."""
+    return rows.view(torch.int32).to(torch.int64).sum(dim=1).cpu()
+
+
+def zoo_surrogate_round(dev, mesh):
+    """14a's round on ``mesh``: 12a's, K1-K4 and K7 on."""
+    from repro_torch.core.obcsaa import OBCSAAConfig
+    from repro_torch.engine.zoo import build_zoo_round
+    from repro_torch.sched import SchedConfig
+    return build_zoo_round(OBCSAAConfig(**ZOO_OB, use_kernels=True), LM_D,
+                           mesh, scheduler="greedy_batched",
+                           sched_cfg=SchedConfig(use_kernel=True),
+                           device=dev)
+
+
+def zoo_procs_oracle(dev, path: str) -> None:
+    """14a's in-turn rounds on the logical 2 x 2 mesh in this process:
+    each cell's row checksums after each round, written to ``path`` for
+    the ranks (which wait for it)."""
+    from repro_torch.launch.mesh import make_zoo_mesh
+    t0 = time.perf_counter()
+    zr = zoo_surrogate_round(dev, make_zoo_mesh(ZP_W, ZP_M))
+    params = zoo_procs_params(zr, 0, zr.n_chunks, dev)
+    sums = {}
+    for t in range(ZP_ROUNDS):
+        zr.round_gen(params, t, ZOO_KEY, ZOO_NV, ZOO_PMAX, ZOO_LR)
+        for d in range(ZP_W):
+            for m in range(ZP_M):
+                r0 = m * zr.n_half + d * zr.n_local
+                sums.setdefault(f"{d},{m}", []).append(
+                    row_sums(params[r0:r0 + zr.n_local]))
+    torch.cuda.synchronize()
+    del params
+    torch.cuda.empty_cache()
+    torch.save(sums, path + ".tmp")
+    os.replace(path + ".tmp", path)
+    log(f"14a oracle: {ZP_ROUNDS} in-turn rounds on the logical {ZP_W} x "
+        f"{ZP_M} mesh and the cells' row checksums in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
+def _wait_for(path: str, what: str, timeout: float = 600.0,
+              proc=None) -> None:
+    """Wait for ``path`` to exist; fails after ``timeout`` s, or at once
+    when ``proc`` (a launch that should write it) has exited."""
+    t0 = time.perf_counter()
+    while not os.path.exists(path):
+        if time.perf_counter() - t0 > timeout:
+            fail(f"waited {timeout:.0f} s for {what}")
+        if proc is not None and proc.poll() is not None:
+            fail(f"the launch that writes {what} exited {proc.returncode}")
+        time.sleep(0.2)
+
+
+def zoo_rank_surrogate(dev, mesh, tmp, say) -> dict:
+    """14a on this rank: its own rows, two rounds, each held to the
+    in-turn rows' checksums. Returns its launch counts."""
+    from repro_torch.dist import collectives as coll
+    from repro_torch.kernels import build
+    zr = zoo_surrogate_round(dev, mesh)
+    d, m = zr.cell
+    t_start = time.perf_counter()
+    want = torch.load(os.path.join(tmp, "oracle_14a.pt"))[f"{d},{m}"]
+    params = zoo_procs_params(zr, zr.row0, zr.n_local, dev)
+    build.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    nb = -(-zr.n_local // zr.block_rows)
+    it = zr.ob.biht_iters
+    per_round = {"topk_select": zr.U * nb + it * nb,
+                 "cs_project": zr.U * nb, "cs_project_resid": it * nb,
+                 "backproject": it * nb, "prefix_eval": 1}
+    for t in range(ZP_ROUNDS):
+        coll.reset_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, st = zr.round_gen(params, t, ZOO_KEY, ZOO_NV, ZOO_PMAX, ZOO_LR)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        stats = coll.stats()
+        bad = int((row_sums(params) != want[t]).sum())
+        flags = coll.all_gather(torch.tensor([bad], device=dev),
+                                mesh.world, tiled=True).tolist()
+        if any(flags):
+            fail(f"14a round {t}: rows whose checksums differ from the "
+                 f"in-turn round's, by rank: {flags}")
+        say(f"14a: round {t}: {secs:.3f} s on rank 0 (host clock); "
+            + ", ".join(f"{k} {stats['bytes'][k] / 1e6:.1f} MB in "
+                        f"{stats['ms'][k]:.1f} ms ({stats['calls'][k]} "
+                        f"calls)" for k in sorted(stats["bytes"]))
+            + f"; ‖ĝ‖ {float(st.ghat_norm):.4f}, |M_t| "
+            f"{int(st.n_scheduled)}; every rank's {zr.n_local:,} rows "
+            "equal the in-turn round's checksums")
+    counts = build.launch_counts()
+    want = {k: per_round.get(k, 0) * ZP_ROUNDS for k in counts}
+    if counts != want:
+        fail(f"14a rank {d},{m}: launch counts {counts} != {want}")
+    say(f"14a: launches on every rank "
+        f"{({k: v for k, v in counts.items() if v})} = {ZP_ROUNDS} x "
+        f"{per_round}")
+    peak = coll.all_gather(torch.tensor(
+        [torch.cuda.max_memory_allocated(dev)], device=dev), mesh.world,
+        tiled=True)
+    say("14a: peak memory by rank (GiB): " + ", ".join(
+        f"{v / 2**30:.2f}" for v in peak.tolist())
+        + f"; {time.perf_counter() - t_start:.1f} s from the oracle's file")
+    del params
+    torch.cuda.empty_cache()
+    return counts
+
+
+def zoo_rank_decode(dev, mesh, tmp, say) -> None:
+    """14c on this rank: 10a's f32 gemma2-2b greedy decode, the K/V cache
+    of P + 16 rows split over the world's length, seeded with each rank's
+    own rows of 10a's prefill (``seed_cache_from_prefill`` with the
+    group). Rank 0 writes the tokens and logits for the parent to hold
+    against 10a's."""
+    from repro_torch.configs import get_config, scaled
+    from repro_torch.dist import collectives as coll
+    from repro_torch.models import transformer
+    from repro_torch.models.registry import build_model
+    _, arch, B, P, _ = DECODE_CELLS[0]
+    R = coll.axis_size(mesh.world)
+    torch.cuda.reset_peak_memory_stats()
+    cfg = scaled(get_config(arch), dtype="float32")
+    model = build_model(cfg)
+    params = model.init(0, device=dev)
+    total = P + DECODE_GEN
+    # 10a's prefill (the parent's) seeds the cache: every rank keeps its
+    # own rows of the seeds, read from a memmap of the parent's file
+    path = os.path.join(tmp, "seeds_14c.pt")
+    _wait_for(path, "14c's cache seeds", timeout=900)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    prompt_state = torch.load(path, mmap=True)
+    first = prompt_state["first"].to(dev)
+    cache = model.init_cache(B, total, dev, kv_group=mesh.world)
+    transformer.seed_cache_from_prefill(cfg, cache, prompt_state["seeds"],
+                                        start=0, kv_group=mesh.world)
+    del prompt_state
+    torch.cuda.synchronize()
+    seed_s = time.perf_counter() - t0
+    if tuple(cache["k"].shape[2:3]) != (total // R,):
+        fail(f"14c: the k cache {tuple(cache['k'].shape)} is not split "
+             f"over the length of {total} by {R} ranks")
+    coll.reset_counters()
+    tok, logits, fed, ms = first, [], [], []
+    for i in range(DECODE_GEN):
+        fed.append(tok)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, cache = model.decode_step(params, cache, tok, P + i,
+                                       kv_group=mesh.world)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        logits.append(out[:, 0])
+        tok = torch.argmax(out[:, -1], dim=-1)[:, None].to(torch.int32)
+    stats = coll.stats()
+    fed = torch.cat(fed, dim=1)
+    same = coll.replicated([fed], mesh.world)
+    if not same:
+        fail("14c: the ranks drew different tokens")
+    if coll.axis_index(mesh.world) == 0:
+        torch.save((fed.cpu(), torch.stack(logits, dim=1).cpu()),
+                   os.path.join(tmp, "decode_14c.pt"))
+    say(f"14c: {arch} f32, B = {B}, prompt {P} (past the window of "
+        f"{cfg.attention.window}), cache {total} rows split {R} ways "
+        f"({total // R} a rank): the own rows of 10a's seeds in "
+        f"{seed_s:.2f} s, decode step "
+        f"median {sorted(ms)[len(ms) // 2]:.1f} ms (host clock, "
+        f"synchronised); a step's collectives " + ", ".join(
+            f"{k} {stats['bytes'][k] / DECODE_GEN / 1e3:.1f} kB in "
+            f"{stats['calls'][k] // DECODE_GEN} calls"
+            for k in sorted(stats["bytes"]))
+        + f"; peak {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB"
+        " on rank 0; the ranks' tokens equal")
+    del params, cache
+    torch.cuda.empty_cache()
+
+
+def zoo_rank() -> None:
+    """Phase 14 in each rank that ``torchrun`` starts (``chip_smoke.py
+    --zoo-rank DIR``): 14a and 14c in a world of the 2 x 2 mesh, then
+    14b through the trainer's CLI (``main(argv)``, which joins and
+    leaves its own world). Each rank writes its launch counts to DIR;
+    rank 0 prints. Exits 1 on a mismatch."""
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.kernels import build
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import join_world, leave_world
+
+    tmp = sys.argv[2]
+    rank = int(os.environ["RANK"])
+    # started with the script: wait, imports done, for the parent's go
+    _wait_for(os.path.join(tmp, "oracle_14a.pt"), "14a's oracle",
+              timeout=ZP_LIMIT)
+    mesh, dev = join_world(model_parallel=ZP_M, init_method="file://"
+                           + os.path.join(tmp, "store_a"))
+
+    def say(msg):
+        if rank == 0:
+            log(msg)
+
+    counts = {"zoo_procs_surrogate": zoo_rank_surrogate(dev, mesh, tmp,
+                                                        say)}
+    t0 = time.perf_counter()
+    zoo_rank_decode(dev, mesh, tmp, say)
+    say(f"14c: {time.perf_counter() - t0:.1f} s")
+    leave_world()
+    if rank == 0:
+        open(os.path.join(tmp, "done_14c"), "w").close()
+    build.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    train.main(ZP_TRAIN_ARGV + ["--ckpt-dir", os.path.join(tmp, "ck"),
+                                "--init-method", "file://" + os.path.join(
+                                    tmp, "store_b")])
+    counts["zoo_procs_train"] = build.launch_counts()
+    if not all(counts["zoo_procs_train"][k] for k in (
+            "topk_select", "cs_project", "cs_project_resid", "backproject")):
+        fail(f"14b rank {rank}: K1-K4 did not all launch: "
+             f"{counts['zoo_procs_train']}")
+    used = {k: v for k, v in counts["zoo_procs_train"].items() if v}
+    say(f"14b: the CLI in {time.perf_counter() - t0:.1f} s; launches on "
+        f"rank 0 {used}; peak "
+        f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB on rank 0")
+    counts["peak_14b"] = torch.cuda.max_memory_allocated(dev)
+    with open(os.path.join(tmp, f"counts_{rank}.json"), "w") as f:
+        json.dump(counts, f)
+
+
+def zoo_train_oracle(dev):
+    """14b's in-turn round on the logical 2 x 2 mesh, from the CLI's own
+    configuration (``train_config``), init and batch."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_zoo_mesh
+    from repro_torch.models.registry import build_model
+    args = train.build_parser().parse_args(ZP_TRAIN_ARGV)
+    tcfg = train.train_config(args)
+    cfg = get_config(ZP_TRAIN_ARCH)
+    model = build_model(cfg)
+    zr = steps_lib.make_zoo_train_round(model, tcfg, make_zoo_mesh(ZP_W,
+                                                                   ZP_M),
+                                        device=dev, use_kernels=True)
+    if zr.D != ZP_TRAIN_D:
+        fail(f"14b: D = {zr.D:,}, want {ZP_TRAIN_D:,}")
+    batch = train.make_zoo_batch(cfg, zr.U, args.batch, args.seq,
+                                 device=dev)
+
+    def rnd(state, t):
+        return zr.round_train(state, batch, t, 1, tcfg.noise_var,
+                              tcfg.p_max, args.lr)
+
+    return zr, rnd
+
+
+def start_zoo_procs() -> dict:
+    """Start phase 14's 4-rank launch (``zoo_rank``) with the script:
+    the ranks start up (imports, ~25 s of a launch) while the kernels
+    build, then sleep until ``run_zoo_procs_phase`` writes 14a's oracle
+    file; they join their world and touch the card only then."""
+    import tempfile
+    tmp = tempfile.TemporaryDirectory(dir=ROOT)
+    h = start_torchrun("14", ZP_W * ZP_M, [
+        os.path.join(ROOT, "chip_smoke.py"), "--zoo-rank", tmp.name])
+    return {"tmp": tmp, "launch": h}
+
+
+def run_zoo_procs_phase(dev, card: str, started: dict) -> dict:
+    """Phase 14 on the launch ``start_zoo_procs`` started. The parent
+    writes 10a's prompt state for 14c, computes 14a's in-turn checksums
+    (the ranks' signal to go), stays idle while the ranks run 14a and
+    14c (timed alone), runs 14b's in-turn rounds 0-2 beside the ranks'
+    14b, then holds: 14c's tokens and logits against 10a's one-process
+    decode, the ranks' 14b checkpoint against the in-turn carry after
+    round 1 (bit for bit), and round 2 from that checkpoint against the
+    uninterrupted in-turn round 2 (bit for bit). Returns the ranks'
+    summed launch counts by path."""
+    import gc
+
+    from repro_torch import tree
+    from repro_torch.engine.zoo_train import clone_state
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    h, oracle = started["launch"], ORACLES["10a"]
+    with started["tmp"] as tmp:
+        path = os.path.join(tmp, "seeds_14c.pt")
+        torch.save({"first": oracle["first"], "seeds": oracle["seeds"]},
+                   path + ".tmp")
+        os.replace(path + ".tmp", path)
+        zoo_procs_oracle(dev, os.path.join(tmp, "oracle_14a.pt"))
+        _wait_for(os.path.join(tmp, "done_14c"), "the ranks' 14a and 14c",
+                  proc=h["proc"])
+        t0 = time.perf_counter()
+        zr, rnd = zoo_train_oracle(dev)
+        state = zr.init_state(zr.chunk_params(zr.model.init(0, device=dev)))
+        for t in range(ZP_ROUNDS):
+            state, st = rnd(state, t)
+        after = clone_state(state)
+        state, _ = rnd(state, ZP_ROUNDS)
+        whole = state.master.cpu()
+        del state
+        torch.cuda.synchronize()
+        log(f"14b in turn: rounds 0-{ZP_ROUNDS} in "
+            f"{time.perf_counter() - t0:.1f} s beside the ranks' 14b (round "
+            f"{ZP_ROUNDS - 1} loss {float(st.loss):.4f})")
+        out = finish_cli(h, card, limit=ZP_LIMIT)
+        counts = [json.load(open(os.path.join(tmp, f"counts_{r}.json")))
+                  for r in range(ZP_W * ZP_M)]
+        fed, logits = torch.load(os.path.join(tmp, "decode_14c.pt"))
+        want_fed, want = oracle["fed"], oracle["logits"]
+        err = float((logits - want).abs().max() / want.abs().max())
+        if not torch.equal(fed, want_fed) or err > 1e-5:
+            fail(f"14c: the split decode's tokens differ from 10a's one-"
+                 f"process decode, or its logits by {err:.2e} of their max "
+                 "(gate 1e-5)")
+        log(f"14c: tokens equal 10a's one-process decode, logits within "
+            f"{err:.2e} of their max (gate 1e-5)")
+        ck = os.path.join(tmp, "ck")
+        got, t_next = zr.restore_state(ck)
+        if t_next != ZP_ROUNDS or not all(
+                torch.equal(a, b) for a, b in zip(tree.leaves(got),
+                                                  tree.leaves(after))):
+            fail("14b: the ranks' checkpoint != the in-turn carry after "
+                 f"round {ZP_ROUNDS - 1}")
+        del after
+        got, _ = rnd(got, ZP_ROUNDS)
+        if not torch.equal(got.master.cpu(), whole):
+            fail(f"14b: round {ZP_ROUNDS} from the ranks' checkpoint != the "
+                 f"uninterrupted in-turn round {ZP_ROUNDS}")
+        log(f"14b: the ranks' checkpoint (step {ZP_ROUNDS}) ≡ the in-turn "
+            f"carry bit for bit; round {ZP_ROUNDS} from it ≡ the "
+            f"uninterrupted in-turn round {ZP_ROUNDS} bit for bit; peak "
+            "by rank (GiB) " + ", ".join(
+                f"{c['peak_14b'] / 2**30:.2f}" for c in counts))
+        if "resumed" in out:
+            fail("14b: the CLI resumed from a checkpoint it should not have")
+        del got, whole
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths = {p: {k: sum(c[p][k] for c in counts) for k in counts[0][p]}
+             for p in ("zoo_procs_surrogate", "zoo_procs_train")}
+    log(f"zoo over processes: phase 14 took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return paths
+
 
 SOURCES = {
     "topk_select": ("src/repro_torch/kernels/csrc/topk_select.cu",
@@ -3721,12 +4131,16 @@ def main() -> None:
     if sys.argv[1:] == ["--federation-rank"]:
         federation_rank()
         return
+    if sys.argv[1:2] == ["--zoo-rank"]:
+        zoo_rank()
+        return
     src = os.path.join(ROOT, "src")
     if not os.path.isdir(os.path.join(src, "repro_torch")):
         fail(f"no src/repro_torch beside {__file__}: run from a checkout")
     sys.path.insert(0, src)
     dev = torch.device("cuda")
     card = banner()
+    zoo_procs = start_zoo_procs()
     build_kernels()
     results = check_kernels(dev)
     check_round_against_plain(dev)
@@ -3757,6 +4171,7 @@ def main() -> None:
     paths["families"] = run_families_phase(dev, card)
     paths.update(run_zoo_phase(dev, card, results))
     paths["federation"] = run_federation_phase(dev, card)
+    paths.update(run_zoo_procs_phase(dev, card, zoo_procs))
     kernels = []
     for name, r in results.items():
         source, replaces = SOURCES[name]

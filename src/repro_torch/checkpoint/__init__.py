@@ -1,3 +1,4 @@
-from repro_torch.checkpoint.io import latest_step, restore, save, step_dir
+from repro_torch.checkpoint.io import (RowBlocks, latest_step, restore, save,
+                                      step_dir)
 
-__all__ = ["latest_step", "restore", "save", "step_dir"]
+__all__ = ["RowBlocks", "latest_step", "restore", "save", "step_dir"]

@@ -19,13 +19,19 @@ card's machine has no ``msgpack``).
   checkpoint ...")``. Template leaves are tensors (``device="meta"`` ones
   allocate nothing) or anything with ``shape`` and ``dtype``; a restored
   leaf lands on its template's device (the CPU for a meta template).
+- A leaf given to ``save`` as ``RowBlocks`` is written a block of rows
+  at a time as its generator yields them, never whole; ``restore`` with
+  ``rows`` reads only the selected part of each leaf, memory-mapped
+  (``arrays.npz`` is stored uncompressed, as ``np.savez`` writes it).
 """
 from __future__ import annotations
 
 import os
 import re
 import shutil
-from typing import Any, List, Optional
+import struct
+import zipfile
+from typing import Any, Callable, List, Optional
 
 import numpy as np
 import torch
@@ -56,6 +62,33 @@ def _to_numpy(leaf) -> np.ndarray:
     return np.asarray(leaf)
 
 
+class RowBlocks:
+    """A leaf of ``shape`` and ``dtype`` whose rows ``blocks()`` yields in
+    order, a block (tensor or array) at a time, for ``save`` to write as
+    they come."""
+
+    def __init__(self, shape, dtype, blocks: Callable):
+        self.shape, self.dtype, self.blocks = tuple(shape), dtype, blocks
+
+
+def _write_npz(path: str, leaves) -> None:
+    """The file ``np.savez`` writes (members ``a<i>.npy``, stored
+    uncompressed), a ``RowBlocks`` leaf streamed a block at a time."""
+    with zipfile.ZipFile(path, "w", compression=zipfile.ZIP_STORED,
+                         allowZip64=True) as zf:
+        for i, leaf in enumerate(leaves):
+            with zf.open(f"a{i}.npy", "w", force_zip64=True) as f:
+                if not isinstance(leaf, RowBlocks):
+                    np.lib.format.write_array(f, leaf, allow_pickle=False)
+                    continue
+                np.lib.format.write_array_header_1_0(f, {
+                    "descr": np.lib.format.dtype_to_descr(
+                        np.dtype(_storage_dtype(leaf.dtype))),
+                    "fortran_order": False, "shape": leaf.shape})
+                for block in leaf.blocks():
+                    f.write(np.ascontiguousarray(_to_numpy(block)).tobytes())
+
+
 def step_dir(ckpt_dir: str, step: int) -> str:
     return os.path.join(ckpt_dir, f"step_{step:08d}")
 
@@ -66,13 +99,14 @@ def save(ckpt_dir: str, step: int, obj: Any) -> str:
     tmp = path + ".tmp"
     os.makedirs(tmp, exist_ok=True)
     flat, _ = tree.flatten_with_paths(obj)
-    leaves = [(k, _to_numpy(v)) for k, v in flat]
-    arrays = {f"a{i}": arr for i, (_, arr) in enumerate(leaves)}
+    leaves = [(k, v if isinstance(v, RowBlocks) else _to_numpy(v))
+              for k, v in flat]
     meta = {"keys": [k for k, _ in leaves],
-            "dtypes": [str(a.dtype) for _, a in leaves],
+            "dtypes": [_storage_dtype(a.dtype) if isinstance(a, RowBlocks)
+                       else str(a.dtype) for _, a in leaves],
             "shapes": [list(a.shape) for _, a in leaves],
             "step": step}
-    np.savez(os.path.join(tmp, "arrays.npz"), **arrays)
+    _write_npz(os.path.join(tmp, "arrays.npz"), [a for _, a in leaves])
     with open(os.path.join(tmp, "tree.msgpack"), "wb") as f:
         f.write(msgpack_meta.packb(meta))
     if os.path.isdir(path):        # overwrite an existing step in place
@@ -81,9 +115,39 @@ def save(ckpt_dir: str, step: int, obj: Any) -> str:
     return path
 
 
-def _load_step(path: str):
-    """(meta, arrays) of one step dir, or a ValueError that names the
-    corrupt or truncated file and says how to recover."""
+def _memmap_members(npz_p: str, n: int) -> list:
+    """Read-only memmaps of members ``a0.npy`` .. of an uncompressed
+    npz: each member's data starts after its zip local header (30 bytes,
+    the name, the extra field) and its npy header."""
+    out = []
+    with zipfile.ZipFile(npz_p) as zf, open(npz_p, "rb") as f:
+        for i in range(n):
+            info = zf.getinfo(f"a{i}.npy")
+            if info.compress_type != zipfile.ZIP_STORED:
+                raise ValueError(f"member a{i}.npy is compressed")
+            f.seek(info.header_offset)
+            head = f.read(30)
+            name_len, extra_len = struct.unpack("<HH", head[26:30])
+            f.seek(info.header_offset + 30 + name_len + extra_len)
+            version = np.lib.format.read_magic(f)
+            read = (np.lib.format.read_array_header_1_0 if version == (1, 0)
+                    else np.lib.format.read_array_header_2_0)
+            shape, fortran, dtype = read(f)
+            if fortran:
+                raise ValueError(f"member a{i}.npy is Fortran-ordered")
+            if shape and 0 not in shape:
+                out.append(np.memmap(npz_p, dtype=dtype, mode="r",
+                                     offset=f.tell(), shape=shape))
+            else:
+                size = int(np.prod(shape)) * dtype.itemsize
+                out.append(np.frombuffer(f.read(size), dtype).reshape(shape))
+    return out
+
+
+def _load_step(path: str, mmap: bool = False):
+    """(meta, arrays) of one step dir (with ``mmap`` the arrays are
+    read-only memmaps), or a ValueError that names the corrupt or
+    truncated file and says how to recover."""
     meta_p = os.path.join(path, "tree.msgpack")
     npz_p = os.path.join(path, "arrays.npz")
     try:
@@ -97,8 +161,11 @@ def _load_step(path: str):
             f"{type(e).__name__}: {e}. Delete this step directory and "
             f"resume from an earlier step.") from e
     try:
-        with np.load(npz_p) as data:
-            arrays = [data[f"a{i}"] for i in range(len(meta["keys"]))]
+        if mmap:
+            arrays = _memmap_members(npz_p, len(meta["keys"]))
+        else:
+            with np.load(npz_p) as data:
+                arrays = [data[f"a{i}"] for i in range(len(meta["keys"]))]
     except Exception as e:
         raise ValueError(
             f"corrupt or truncated checkpoint arrays {npz_p!r}: "
@@ -113,16 +180,19 @@ def _target_dtype(dtype) -> torch.dtype:
     return getattr(torch, _dtype_name(dtype))
 
 
-def restore(ckpt_dir: str, step: int, like: Any) -> Any:
+def restore(ckpt_dir: str, step: int, like: Any, rows=None) -> Any:
     """Restore into the structure of ``like`` (the shape and dtype
-    template); every leaf comes back as a tensor."""
+    template); every leaf comes back as a tensor. ``rows``, when given,
+    is a list with an index per leaf (None: the whole leaf): each leaf
+    is checked against the template whole, then only ``leaf[index]`` is
+    read, from a memmap of the file."""
     path = step_dir(ckpt_dir, step)
     if not os.path.isdir(path):
         have = _steps(ckpt_dir)
         raise FileNotFoundError(
             f"no checkpoint step {step} under {ckpt_dir!r} "
             f"(available steps: {have or 'none'})")
-    meta, arrays = _load_step(path)
+    meta, arrays = _load_step(path, mmap=rows is not None)
     flat, treedef = tree.flatten(like)
     if len(flat) != len(arrays):
         raise ValueError(
@@ -130,7 +200,7 @@ def restore(ckpt_dir: str, step: int, like: Any) -> Any:
             f"{len(flat)}; saved paths: {meta['keys'][:8]}... — was it "
             f"written by a differently-configured run?")
     restored: List[torch.Tensor] = []
-    for key, arr, leaf in zip(meta["keys"], arrays, flat):
+    for i, (key, arr, leaf) in enumerate(zip(meta["keys"], arrays, flat)):
         if tuple(arr.shape) != tuple(leaf.shape):
             raise ValueError(
                 f"checkpoint leaf {key!r} has shape {tuple(arr.shape)}, "
@@ -145,6 +215,8 @@ def restore(ckpt_dir: str, step: int, like: Any) -> Any:
                 f"dtype-strict; a silent cast would break bitwise resume. "
                 f"Re-save the checkpoint with the template's dtypes or fix "
                 f"the restore template.")
+        if rows is not None and rows[i] is not None:
+            arr = arr[rows[i]]
         dev = getattr(leaf, "device", None)
         dev = "cpu" if dev is None or dev.type == "meta" else dev
         restored.append(torch.from_numpy(np.array(arr, copy=True)).to(

@@ -2,8 +2,9 @@
 the MAC as the group's all-reduce, gathers, the PS's broadcast), and the
 layout index math of the zoo on a logical mesh: ``sharding`` (which dim
 of each parameter leaf the model axis splits) and ``flat_layout`` (the
-model-major flat order of the zoo-train master). The zoo's cells mapped
-onto processes are ROADMAP.md Queue 1, item 5."""
+model-major flat order of the zoo-train master). Over processes the
+zoo's cells are ranks, and these collectives run over a mesh's worker
+and model groups (``launch.mesh.world_mesh``)."""
 from repro_torch.dist import collectives
 from repro_torch.dist.flat_layout import FlatShardLayout
 from repro_torch.dist.sharding import (STACKED_KEYS, best_spec, constrain,

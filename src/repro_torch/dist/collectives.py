@@ -142,6 +142,17 @@ def shard_slice(x: torch.Tensor, group, *, axis: int = 0) -> torch.Tensor:
     return x.narrow(axis, axis_index(group) * n, n)
 
 
+def pmax(x: torch.Tensor, group) -> torch.Tensor:
+    """Elementwise max over the workers (``lax.pmax``): the length-split
+    decode's global softmax max. Returns a new tensor."""
+    if group is None:
+        return x
+    y = x.clone(memory_format=torch.contiguous_format)
+    with _Count("all_reduce_max", y):
+        dist.all_reduce(y, op=dist.ReduceOp.MAX, group=group)
+    return y
+
+
 def pmean(x: torch.Tensor, group) -> torch.Tensor:
     if group is None:
         return x
@@ -176,12 +187,15 @@ def replicated(tensors, group) -> bool:
 
 
 def _gather(x: torch.Tensor, group) -> List[torch.Tensor]:
-    """Every worker's ``x``, in rank order."""
+    """Every worker's ``x``, in rank order. bfloat16 travels as its
+    bytes (a gather copies, so the bits are the value; gloo takes no
+    bfloat16)."""
     x = x.contiguous()
-    out = [torch.empty_like(x) for _ in range(axis_size(group))]
+    wire = x.view(torch.uint8) if x.dtype == torch.bfloat16 else x
+    out = [torch.empty_like(wire) for _ in range(axis_size(group))]
     with _Count("all_gather", x):
-        dist.all_gather(out, x, group=group)
-    return out
+        dist.all_gather(out, wire, group=group)
+    return [o.view(x.dtype) for o in out]
 
 
 def _join(parts, axis: int, tiled: bool) -> torch.Tensor:

@@ -1,5 +1,4 @@
-"""Full FL rounds at model-zoo scale on one card; port of
-``repro/engine/zoo.py``.
+"""Full FL rounds at model-zoo scale; port of ``repro/engine/zoo.py``.
 
 The scan engine (``engine/core.py``) holds every worker's gradient as a
 dense (U, D) tensor, which is hopeless at ≥1B parameters. This module
@@ -8,21 +7,47 @@ power scaling → eq. 12-13 MAC and AWGN → eq. 43 decode → eq. 14 update)
 with nothing of size U·D ever held:
 
 * Parameters live chunked, as a (n_chunks, D_c) f32 tensor. The chunk
-  count is padded so that the logical mesh (``launch/mesh.ZooMesh``)
-  splits it evenly: model-major, the cell (worker d, model m) owns the
-  chunk rows ``m·n_half + d·n_local`` (n_half = n_chunks / n_model,
+  count is padded so that the mesh (``launch/mesh.ZooMesh``) splits it
+  evenly: model-major, the cell (worker d, model m) owns the chunk rows
+  ``m·n_half + d·n_local`` (n_half = n_chunks / n_model,
   n_local = n_half / n_workers), as in the reference.
-* The cells run in turn on the card. Cell (u, m) compresses worker u's
-  gradient over model half m; the compressed uplink is tiny (one uint32
-  word a chunk at S_c = 32 when ``ob.packed``) and is superposed as the
-  exact int32 lane sums of the reference's packed MAC. Then cell (u, m)
-  decodes its own n_local rows and updates them in place on the master.
+* Worker d compresses its gradient over each model half m a block at a
+  time, the blocks cut relative to each cell's rows: rows
+  ``m·n_half + o·n_local + k·block_rows`` onward for every owner o. The
+  compressed uplink is tiny (one uint32 word a chunk at S_c = 32 when
+  ``ob.packed``) and is superposed as the exact int32 lane sums of the
+  reference's packed MAC. Then cell (d, m) decodes its own n_local rows
+  and updates them in place.
 * Work goes in blocks of ``block_rows`` chunk rows, sized by bytes
   (``BLOCK_BYTES`` of f32 a block). The reference's ``block`` and
   ``block_dec`` (the largest divisor of n_half and n_local under
   ``block_chunks``) pin XLA's compiled loop shape; they are kept as
   attributes, but rows are independent in compression, decode and
   update, so the port's blocks need not divide anything.
+
+Two ways to run the cells. On a mesh without a ``world`` they run in
+turn in one process, and the round is its own single-device oracle
+(``reference_round`` is the same round on a copy). On a mesh of
+``launch.mesh.world_mesh`` every cell is a rank and holds only its own
+n_local rows (``shard_params``); each round, as the reference's
+``shard_map`` body (``zoo.py:296-336``):
+
+1. the rank gathers its half's rows over the worker group, a block of
+   every owner's rows at a time (never the half whole), and takes its
+   worker's gradient on them (the surrogate, or the one handed in);
+2. compresses them in the same blocks as the in-turn path;
+3. superposes them through ``collectives.psum_bits_mac`` over the worker
+   group (exact int32 lane sums); ``ksum`` and ``mag_sum`` go through
+   ``psum`` over the same group;
+4. draws the round's full (n_chunks, S_c) AWGN field, as every rank does
+   from the same generator, and takes its own rows;
+5. decodes and updates its own rows in place. ‖ĝ‖² is the ``psum`` of
+   the ranks' parts over the world.
+
+With two workers every f32 sum over the worker group adds two terms,
+which commute exactly, so the ranks' round equals the in-turn round bit
+for bit; with more, the all-reduce's order may move the magnitude sums
+by ulps.
 
 Gradients are real ones handed in as (U, n_chunks, D_c)
 (``round_from_grads``) or the surrogate of ½‖p − c_u‖² whose anchors c_u
@@ -35,15 +60,15 @@ and the standard normal AWGN field z (n_chunks, S_c), scaled by √σ² in
 the round). Otherwise they come from a generator seeded by (key, t), the
 absolute round index, so a resume needs no generator state; the port does
 not replicate threefry, and parity tests inject the reference's
-``fold_in(key, t)`` draws. On one card the round is its own
-single-device oracle: ``reference_round`` is the same round on a copy.
+``fold_in(key, t)`` draws.
 
 ``round_gen`` and ``round_from_grads`` update ``params`` in place and
 return it. ``hook(stage, **info)``, when given, is called where a piece
-of a stage ends ("compress", "mac", "decode", "update"; the zoo-train
-round adds "backward"), so CUDA events can split a round's time; "mac"
-passes the MAC sums before the AWGN (``y_sum``, the exact int32 lane
-sums under ``ob.packed``, and ``mag_sum``).
+of a stage ends ("gather" over processes, "compress", "mac", "decode",
+"update"; the zoo-train round adds "backward"), so CUDA events can split
+a round's time; "mac" passes the MAC sums before the AWGN (``y_sum``,
+the exact int32 lane sums under ``ob.packed``, and ``mag_sum``: over
+processes those of this rank's half).
 """
 from __future__ import annotations
 
@@ -58,6 +83,7 @@ from repro_torch.core.obcsaa import (OBCSAAConfig, compress_chunks,
 from repro_torch.core import channel as chan
 from repro_torch.core.sparsify import flatten_pytree
 from repro_torch.device import resolve_device
+from repro_torch.dist import collectives as coll
 from repro_torch.engine.core import budget_geometry
 from repro_torch.kernels.sign import unpack_bits
 from repro_torch.launch.mesh import num_workers, worker_axes
@@ -139,15 +165,27 @@ def grads_spec(mesh) -> tuple:
     return (w, m, None)
 
 
+def _surrogate_d(D: int) -> None:
+    raise ValueError(
+        f"ZooRound(D={D}): the zoo surrogate hashes uint32 element "
+        "indices, so D must stay below 2**32 (a 64-bit index path "
+        "is the escape hatch)")
+
+
 class ZooRound:
-    """One zoo round for (ob, D, mesh) on one card. See module docstring.
+    """One zoo round for (ob, D, mesh). See module docstring.
 
     ``round_gen(params, t, key, noise_var, p_max, lr)`` and
     ``round_from_grads(params, grads, t, ...)`` take the (n_chunks, D_c)
-    f32 tensor of :meth:`chunk_params` and update it in place; ``key`` is
-    an int seed, ``draws`` a ``ZooDraws`` that replaces the round's
-    draws. ``phi`` replaces Φ (the port draws its own from
+    f32 tensor of :meth:`chunk_params` (over processes: this rank's
+    (n_local, D_c) rows, :meth:`shard_params`) and update it in place;
+    ``key`` is an int seed, ``draws`` a ``ZooDraws`` that replaces the
+    round's draws. ``phi`` replaces Φ (the port draws its own from
     ``ob.phi_seed``, not the reference's bits)."""
+
+    #: whether the round is built for the surrogate, whose uint32 element
+    #: hash caps D below 2**32 (a round fed real gradients needs no cap)
+    SURROGATE = True
 
     def __init__(self, ob: OBCSAAConfig, D: int, mesh, *,
                  scheduler: str = "all",
@@ -155,16 +193,13 @@ class ZooRound:
                  sched_cfg=None, grad_scale: float = 0.05,
                  block_chunks: int = 64, n_chunks: Optional[int] = None,
                  device=None, phi: Optional[torch.Tensor] = None):
-        if D >= 2 ** 32:
-            raise ValueError(
-                f"ZooRound(D={D}): the zoo surrogate hashes uint32 element "
-                "indices, so D must stay below 2**32 (a 64-bit index path "
-                "is the escape hatch)")
-        if getattr(mesh, "group", None) is not None:
-            raise NotImplementedError(
-                "ZooRound runs its mesh's cells in turn in one process; the "
-                "zoo over processes is ROADMAP.md Queue 1, item 5")
+        if D >= 2 ** 32 and self.SURROGATE:
+            _surrogate_d(D)
         self.ob, self.D, self.mesh = ob, int(D), mesh
+        # over processes: this rank's cell and the mesh's groups
+        self.world = getattr(mesh, "world", None)
+        self.wgroup = getattr(mesh, "group", None)
+        self.mgroup = getattr(mesh, "model_group", None)
         self.device = resolve_device(device)
         self.waxes = worker_axes(mesh)
         self.U = num_workers(mesh)
@@ -200,6 +235,11 @@ class ZooRound:
                                                    self.n_local),
                                                0, -1) if self.n_local % b == 0)
         self.block_rows = max(1, BLOCK_BYTES // (4 * ob.chunk))
+        self.cell = mesh.cell() if self.world is not None else None
+        if self.cell is not None:
+            d, m = self.cell
+            self.half0 = m * self.n_half
+            self.row0 = self.half0 + d * self.n_local
         self.spec = param_spec(mesh)
         self.grads_spec = grads_spec(mesh)
         _, s_eff, kappa_eff = budget_geometry(ob, self.D_pad)
@@ -222,9 +262,13 @@ class ZooRound:
         return out
 
     def shard_params(self, chunked) -> torch.Tensor:
-        """The reference places the chunks on the mesh; one card holds
-        them all, so this only moves them to the round's device."""
-        return torch.as_tensor(chunked).to(self.device)
+        """The (n_chunks, D_c) chunks on the round's device; over
+        processes a copy of this rank's own (n_local, D_c) rows."""
+        chunked = torch.as_tensor(chunked)
+        if self.cell is None:
+            return chunked.to(self.device)
+        return chunked[self.row0:self.row0 + self.n_local].to(
+            self.device, copy=True)
 
     def chunk_worker_grads(self, grads) -> torch.Tensor:
         """(U, D) per-worker grads -> (U, n_chunks, D_c) f32. U must equal
@@ -254,6 +298,14 @@ class ZooRound:
     def _blocks(self, r0: int, n: int):
         for a in range(r0, r0 + n, self.block_rows):
             yield a, min(a + self.block_rows, r0 + n)
+
+    def _half_blocks(self, m: int):
+        """The compression blocks of model half m: each owner's n_local
+        rows in blocks of ``block_rows``, owner by owner (the cut the
+        ranks make when they gather a block of every owner's rows)."""
+        for o in range(self.U):
+            yield from self._blocks(m * self.n_half + o * self.n_local,
+                                    self.n_local)
 
     def draws(self, key: int) -> Callable[[int], ZooDraws]:
         """The round's own draws under ``key``: round t -> its draws from
@@ -335,7 +387,7 @@ class ZooRound:
         for u in range(self.U):
             rows_of = worker_rows(u)
             for m in range(self.n_model):
-                for a, b in self._blocks(m * self.n_half, self.n_half):
+                for a, b in self._half_blocks(m):
                     signs, mags = compress(u, rows_of(a, b), a)
                     if ob.packed:
                         y[a:b] += (2 * unpack_bits(signs, torch.int32) - 1) \
@@ -347,45 +399,98 @@ class ZooRound:
                         hook("compress")
         return y, mag_sum
 
+    def _gathered(self, local, hook=None):
+        """Over processes: this rank's half, gathered over the worker
+        group a block of every owner's rows at a time, as (first global
+        row, rows) pairs in ``_half_blocks``' cut."""
+        for a, b in self._blocks(0, self.n_local):
+            parts = coll.all_gather(local[a:b], self.wgroup)
+            if hook is not None:
+                hook("gather")
+            for o in range(self.U):
+                yield self.half0 + o * self.n_local + a, parts[o]
+
+    def _upload_procs(self, blocks, beta, b_t, hook=None, compress=None):
+        """Over processes: this rank's worker's compression of its model
+        half (``blocks()`` yields (first global row, f32 gradient rows)),
+        superposed over the worker group (eq. 12): the exact int32 lane
+        sums of ``psum_bits_mac`` under ``ob.packed``, else the f32
+        ``psum`` of (β·b_t)·s. Returns the half's (y_sum (n_half, S_c),
+        mag_sum (n_half,))."""
+        ob = self.ob
+        compress = compress or (
+            lambda u, rows, r0: compress_chunks(ob, rows, self.phi))
+        d, _ = self.cell
+        signs = None
+        mags = torch.zeros((self.n_half,), dtype=torch.float32,
+                           device=self.device)
+        for a, rows in blocks():
+            s, mg = compress(d, rows, a)
+            if signs is None:
+                signs = s.new_empty((self.n_half,) + tuple(s.shape[1:]))
+            lo = a - self.half0
+            signs[lo:lo + rows.shape[0]] = s
+            mags[lo:lo + rows.shape[0]] = mg
+            if hook is not None:
+                hook("compress")
+        if ob.packed:
+            y = coll.psum_bits_mac(signs, self.wgroup, beta_i=beta[d])
+        else:
+            y = coll.psum((beta[d] * b_t) * signs, self.wgroup)
+        return y, coll.psum(beta[d] * mags, self.wgroup)
+
     def _mac_decode(self, y_sum, mag_sum, beta, b_t, z, noise_var, apply,
                     hook=None):
         """MAC + decode of every round body: post-processing (eq. 12-13),
         (y + AWGN) / (Σβ·b_t) and the mean transmitted magnitude, then
         the decode (eq. 43), whose rows ``apply(a, b, ghat_rows)``
         updates: the update is the caller's, so the stateful optimizers
-        (``engine/zoo_train.py``) reuse this path. Returns ‖ĝ‖² over the
-        full vector."""
+        (``engine/zoo_train.py``) reuse this path. In one process the
+        rows are global and every cell's are decoded; over processes
+        ``y_sum``/``mag_sum`` are the half's, the rank decodes its own
+        rows and ``apply`` gets local ones. Returns ‖ĝ‖² over the full
+        vector."""
         ob = self.ob
-        y = y_sum.to(torch.float32) * b_t if ob.packed else y_sum
-        ksum = torch.sum(beta)
+        if self.cell is None:
+            ksum = torch.sum(beta)
+            spans = [blk for u, m, half0 in self.cells() for blk in
+                     self._blocks(half0 + u * self.n_local, self.n_local)]
+            y, mags = y_sum, mag_sum
+        else:
+            d, _ = self.cell
+            ksum = coll.psum(beta[d:d + 1], self.wgroup)[0]
+            spans = list(self._blocks(0, self.n_local))
+            own = slice(d * self.n_local, (d + 1) * self.n_local)
+            y, mags = y_sum[own], mag_sum[own]
+            z = z[self.row0:self.row0 + self.n_local]
+        y = y.to(torch.float32) * b_t if ob.packed else y
         denom = torch.clamp(ksum * b_t, min=1e-12)
         nv = torch.as_tensor(noise_var, dtype=torch.float32,
                              device=self.device)
         y = (y + z * torch.sqrt(nv)) / denom
-        mbar = (mag_sum / torch.clamp(ksum, min=1e-12)
+        mbar = (mags / torch.clamp(ksum, min=1e-12)
                 if ob.magnitude_tracking else None)
         if hook is not None:
             hook("mac", y_sum=y_sum, mag_sum=mag_sum)
-        return self._decode_blocks(y, mbar, apply, hook)
+        gn2 = self._decode_blocks(y, mbar, apply, spans, hook)
+        return gn2 if self.cell is None else coll.psum(gn2, self.world)
 
-    def _decode_blocks(self, y, mbar, apply, hook=None):
-        """Each cell decodes its own n_local rows (eq. 43), a block at a
-        time, and ``apply(a, b, ghat_rows)`` updates rows [a, b). Returns
-        ‖ĝ‖² over the full vector."""
+    def _decode_blocks(self, y, mbar, apply, spans, hook=None):
+        """Decode (eq. 43) the rows of ``y`` a block ``(a, b)`` of
+        ``spans`` at a time, and ``apply(a, b, ghat_rows)`` updates them.
+        Returns the blocks' ‖ĝ‖²."""
         ob = self.ob
         gn2 = torch.zeros((), dtype=torch.float32, device=self.device)
-        for u, m, half0 in self.cells():
-            q0 = half0 + u * self.n_local
-            for a, b in self._blocks(q0, self.n_local):
-                ghat = reconstruct_chunks(
-                    ob, y[a:b], None if mbar is None else mbar[a:b],
-                    self.phi).reshape(b - a, ob.chunk)
-                gn2 += torch.sum(ghat * ghat)
-                if hook is not None:
-                    hook("decode")
-                apply(a, b, ghat)
-                if hook is not None:
-                    hook("update")
+        for a, b in spans:
+            ghat = reconstruct_chunks(
+                ob, y[a:b], None if mbar is None else mbar[a:b],
+                self.phi).reshape(b - a, ob.chunk)
+            gn2 += torch.sum(ghat * ghat)
+            if hook is not None:
+                hook("decode")
+            apply(a, b, ghat)
+            if hook is not None:
+                hook("update")
         return gn2
 
     def _stats(self, beta, b_t, gn2, noise_var) -> ZooStats:
@@ -396,10 +501,13 @@ class ZooRound:
         return ZooStats(n_scheduled=torch.sum(beta > 0).to(torch.int32),
                         b_t=b_t, ghat_norm=torch.sqrt(gn2), budget=budget)
 
-    def _round(self, params, worker_rows, t, key, noise_var, p_max, lr,
+    def _round(self, params, source, t, key, noise_var, p_max, lr,
                draws, hook):
+        """``source`` is ``worker_rows`` in one process (``_upload``) and
+        ``blocks`` over processes (``_upload_procs``)."""
         beta, b_t, z = self._prologue(t, key, noise_var, p_max, draws)
-        y_sum, mag_sum = self._upload(worker_rows, beta, b_t, hook)
+        upload = self._upload if self.cell is None else self._upload_procs
+        y_sum, mag_sum = upload(source, beta, b_t, hook)
         lr = float(np.float32(lr))
 
         def apply(a, b, ghat):
@@ -415,7 +523,18 @@ class ZooRound:
                   draws: Optional[ZooDraws] = None, hook=None):
         """One surrogate-gradient round from absolute round ``t``; updates
         ``params`` in place. Returns (params, ZooStats)."""
+        if self.D >= 2 ** 32:
+            _surrogate_d(self.D)
         self._check_params(params)
+        if self.cell is not None:
+            d, _ = self.cell
+
+            def blocks():
+                for a, rows in self._gathered(params, hook):
+                    yield a, self._surrogate_grads(rows, a, d, int(t))
+
+            return self._round(params, blocks, t, key, noise_var, p_max,
+                               lr, draws, hook)
 
         def worker_rows(u):
             return lambda a, b: self._surrogate_grads(params[a:b], a, u,
@@ -427,9 +546,28 @@ class ZooRound:
     def round_from_grads(self, params, grads, t, key, noise_var, p_max, lr,
                          *, draws: Optional[ZooDraws] = None, hook=None):
         """One round on real per-worker gradients ``grads`` (U, n_chunks,
-        D_c) from :meth:`chunk_worker_grads`; updates ``params`` in place."""
+        D_c) from :meth:`chunk_worker_grads` (over processes also this
+        rank's worker's (n_half, D_c) rows of its half); updates
+        ``params`` in place."""
         self._check_params(params)
         want = (self.U, self.n_chunks, self.ob.chunk)
+        if self.cell is not None:
+            d, _ = self.cell
+            if tuple(grads.shape) == want:
+                grads = grads[d, self.half0:self.half0 + self.n_half]
+            elif tuple(grads.shape) != (self.n_half, self.ob.chunk):
+                raise ValueError(
+                    f"round_from_grads: grads {tuple(grads.shape)} != (U, "
+                    f"n_chunks, D_c) = {want} or this rank's (n_half, D_c)"
+                    f" = {(self.n_half, self.ob.chunk)}")
+
+            def blocks():
+                for a, b in self._half_blocks(self.cell[1]):
+                    yield a, grads[a - self.half0:b - self.half0].to(
+                        torch.float32)
+
+            return self._round(params, blocks, t, key, noise_var, p_max,
+                               lr, draws, hook)
         if tuple(grads.shape) != want:
             raise ValueError(f"round_from_grads: grads {tuple(grads.shape)}"
                              f" != (U, n_chunks, D_c) = {want}")
@@ -441,11 +579,13 @@ class ZooRound:
                            lr, draws, hook)
 
     def _check_params(self, params):
-        want = (self.n_chunks, self.ob.chunk)
+        rows = self.n_chunks if self.cell is None else self.n_local
+        want = (rows, self.ob.chunk)
         if tuple(params.shape) != want or params.dtype != torch.float32:
             raise ValueError(f"zoo round: params {params.dtype} "
                              f"{tuple(params.shape)}, expected f32 "
-                             f"(n_chunks, D_c) = {want} from chunk_params")
+                             f"{want} from chunk_params (over processes: "
+                             f"this rank's rows, from shard_params)")
 
     def reference_round(self, chunked, t, key, noise_var, p_max, lr,
                         grads=None, *, draws: Optional[ZooDraws] = None):

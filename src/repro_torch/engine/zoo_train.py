@@ -10,13 +10,25 @@ eq. 3 gradients of a model from ``models/registry``:
   .FlatShardLayout``: section m holds the m-th model-axis slice of every
   leaf. That order decides which parameters share a chunk, so it fixes
   the numbers; it is the reference's bit for bit.
-* Each round casts the master to ``compute_dtype`` as the full parameter
-  tree (``master_to_tree``) once, then takes every worker's loss and
-  gradient on its own batch in turn, as the reference's single-device
-  oracle does. A worker's gradient is laid into the master's order
-  (``tree_to_master``) and compressed a block of chunk rows at a time;
-  only one worker's gradient is alive at a time. On one card no layer
-  resolver or model-axis gather is needed: the card holds every shard.
+* In one process each round casts the master to ``compute_dtype`` as
+  the full parameter tree (``master_to_tree``) once, then takes every
+  worker's loss and gradient on its own batch in turn, as the
+  reference's single-device oracle does. A worker's gradient is laid
+  into the master's order (``tree_to_master``) and compressed a block of
+  chunk rows at a time; only one worker's gradient is alive at a time.
+* Over processes (a mesh of ``launch.mesh.world_mesh``) rank (d, m)
+  holds its own n_local master rows and runs the reference's
+  ``shard_map`` body (``zoo_train.py:183-230``): it gathers its section
+  over the worker group in ``compute_dtype`` and views it as per-leaf
+  shards (``section_to_tree``). The forward is redundant over the model
+  axis: ``_materialize`` gathers each non-stacked leaf once and
+  ``_layer_resolver`` one layer's weights at a time, both through
+  ``collectives.replicated_gather`` over the model group, whose adjoint
+  is the local slice, so the backward's cotangents are this rank's
+  section block (``tree_to_section``), laid straight into compression.
+  The resolver hands each layer the same weights as the in-turn path's
+  full tree, so the ranks' round equals the in-turn round bit for bit
+  with two workers (``engine/zoo.py``).
 * The MAC, the decode and the update are the zoo round's, in place on
   the master: decode and update go a block of rows at a time.
 
@@ -29,12 +41,20 @@ gradients' layout: ``optim.ef_step`` corrects each block of a worker's
 gradient with its residual rows, and the top-κ sparse block goes into
 ``compress_chunks``' presparsified path (no second selection).
 
+Over processes the carry is the rank's own rows: master and moments
+(n_local, D_c), the residual its worker's (n_half, D_c) rows of its
+half (``local_state`` cuts them from a whole carry).
+
 ``round_train`` updates the carry's tensors in place and returns the
 carry; ``reference_round_train`` is the same round on a copy, the
 single-device oracle on one card. ``run_sweep`` is a host loop over
-rounds × arms (a CUDA graph of it is later work). ``save_state`` /
-``restore_state`` write the reference's checkpoint format, so either
-package resumes the other's.
+rounds × arms in one process (a CUDA graph of it is later work).
+``save_state`` / ``restore_state`` write the reference's checkpoint
+format, the whole carry, so either package resumes the other's: over
+processes rank 0 writes it a block of rows at a time, gathered from
+their owners, and every rank reads its own rows memory-mapped. The flat
+order depends on the model axis, so a carry resumes onto the same
+logical (W, M) mesh only, in one process or over W·M ranks.
 """
 from __future__ import annotations
 
@@ -46,7 +66,9 @@ import torch
 from repro_torch import checkpoint, tree
 from repro_torch.core.obcsaa import OBCSAAConfig, compress_chunks
 from repro_torch.core.sparsify import topk_sparsify, topk_sparsify_bisect
+from repro_torch.dist import collectives as coll
 from repro_torch.dist.flat_layout import FlatShardLayout
+from repro_torch.dist.sharding import STACKED_KEYS, param_shard_dims
 from repro_torch.engine.zoo import ZooDraws, ZooRound, ZooStats, host_stats
 from repro_torch.launch.mesh import num_workers
 from repro_torch.optim import optimizers as optim
@@ -91,7 +113,11 @@ class ZooTrainRound(ZooRound):
     ``optimizer``: sgd | momentum | adam (``optim.make``); its moments
     become carry leaves beside the master. ``error_feedback`` adds the
     per-worker residual carry. ``compute_dtype`` is the dtype of the
-    forward and backward (the master stays f32)."""
+    forward and backward (the master stays f32). Its D may pass 2**32
+    (zamba2-7b's 6.7e9): only the inherited surrogate round hashes uint32
+    indices, and it refuses such a D when called."""
+
+    SURROGATE = False
 
     def __init__(self, model, mesh, ob: OBCSAAConfig, *,
                  scheduler: str = "all", const=None, sched_cfg=None,
@@ -120,6 +146,82 @@ class ZooTrainRound(ZooRound):
                          phi=phi)
         self._opt_shapes = self.optimizer.init(torch.empty(
             (self.n_chunks, ob.chunk), dtype=torch.float32, device="meta"))
+        # the model-axis gather dim of each leaf; a stacked collection's
+        # per-layer dims (dim 0, the layer axis, sliced off), keyed by the
+        # key paths of its per-layer tree
+        self._dims_tree = param_shard_dims(shapes, mesh)
+        self._resolver_dims = {}
+        for key in STACKED_KEYS:
+            if key in shapes:
+                paths = tuple(p for p, _ in
+                              tree.flatten_with_paths(shapes[key])[0])
+                self._resolver_dims[paths] = [
+                    max(d - 1, -1) for d in tree.leaves(self._dims_tree[key])]
+
+    # -- weight resolution over the model group -----------------------------
+
+    def _gather_leaf(self, x, dim: int):
+        if self.n_model == 1 or dim < 0:
+            return x
+        return coll.replicated_gather(self.mgroup, self.n_model, dim=dim)(x)
+
+    def _layer_resolver(self, lp):
+        """Shards -> full weights of one layer (inside the remat boundary,
+        so the backward gathers them again rather than keep them)."""
+        flat, td = tree.flatten_with_paths(lp)
+        dims = self._resolver_dims.get(tuple(p for p, _ in flat))
+        if dims is None:
+            raise KeyError(
+                f"zoo-train layer resolver saw an unknown per-layer "
+                f"structure {[p for p, _ in flat][:4]}...; stacked "
+                f"collections must be registered under "
+                f"dist.sharding.STACKED_KEYS {STACKED_KEYS}")
+        return tree.unflatten(td, [self._gather_leaf(x, d) for (_, x), d
+                                   in zip(flat, dims)])
+
+    def _materialize(self, shards):
+        """Non-stacked leaves gathered to full weights once; stacked
+        collections stay sharded for the per-layer resolver."""
+        return {key: sub if key in STACKED_KEYS else tree.tree_map(
+                    self._gather_leaf, sub, self._dims_tree[key])
+                for key, sub in shards.items()}
+
+    def _local_loss_and_grads(self, pl, batch_u):
+        """Over processes: (loss, this rank's (n_half, D_c) gradient
+        block in compute dtype) from its master rows ``pl``: the section
+        gathered over the worker group, the forward and backward with
+        the model-axis gathers, the cotangents laid out as the section.
+
+        Non-stacked leaves are gathered once, before the forward
+        (``_materialize``), and the gradient is taken of the full leaf,
+        then sliced to this rank's part (``replicated_gather``'s
+        adjoint): a leaf used in several places (a tied embedding, the
+        hybrid's shared block) then sums its cotangents in the same
+        order as the in-turn path's full tree, so the two agree bit for
+        bit."""
+        m = self.cell[1]
+        with torch.no_grad():
+            sect = coll.all_gather(pl.to(self.compute_dtype), self.wgroup,
+                                   tiled=True)
+            p = self._materialize(self.layout.section_to_tree(sect))
+        leaves, td = tree.flatten(p)
+        req = [x.detach().requires_grad_() for x in leaves]
+        resolver = self._layer_resolver if self._resolver_dims else None
+        with torch.enable_grad():
+            loss, _ = self.model.loss_fn(tree.unflatten(td, req), batch_u,
+                                         remat=self.remat,
+                                         layer_resolver=resolver)
+            grads = torch.autograd.grad(loss, req)
+        del sect, req
+        local = []
+        for (keys, x), g, d in zip(tree.flatten_with_keys(p), grads,
+                                   tree.leaves(self._dims_tree)):
+            if keys[0] not in STACKED_KEYS and d >= 0 and self.n_model > 1:
+                k = x.shape[d] // self.n_model
+                g = g.narrow(d, m * k, k)
+            local.append(g)
+        return loss.detach(), self.layout.tree_to_section(
+            tree.unflatten(td, local))
 
     # -- gradients -----------------------------------------------------------
 
@@ -189,10 +291,16 @@ class ZooTrainRound(ZooRound):
     def init_state(self, master) -> ZooTrainState:
         """Fresh carry for a (n_chunks, D_c) master: zero moments in the
         master's chunk rows, a zero EF residual when error feedback is
-        on."""
-        master = torch.as_tensor(master).to(self.device, torch.float32)
-        res = (torch.zeros((self.U, self.n_chunks, self.ob.chunk),
-                           dtype=torch.float32, device=self.device)
+        on. Over processes the carry of this rank's rows (the master may
+        be the whole one or the rank's rows)."""
+        master = torch.as_tensor(master)
+        if self.cell is not None and master.shape[0] == self.n_chunks:
+            master = self.shard_params(master)
+        master = master.to(self.device, torch.float32)
+        res_shape = ((self.U, self.n_chunks, self.ob.chunk)
+                     if self.cell is None else (self.n_half, self.ob.chunk))
+        res = (torch.zeros(res_shape, dtype=torch.float32,
+                           device=self.device)
                if self.error_feedback else None)
         return ZooTrainState(master=master, opt=self.optimizer.init(master),
                              residual=res)
@@ -247,10 +355,42 @@ class ZooTrainRound(ZooRound):
             f"zoo-train round expects a ZooTrainState or a bare "
             f"(n_chunks, D_c) master array, got {type(state).__name__}")
 
+    def local_state(self, state: ZooTrainState) -> ZooTrainState:
+        """This rank's rows of a whole carry, as copies on the round's
+        device: master and moments rows ``row0`` onward, the residual its
+        worker's rows of its half."""
+        d, _ = self.cell
+        r0, h0 = self.row0, self.half0
+
+        def rows(x):
+            x = torch.as_tensor(x)
+            if _rowwise(x):
+                x = x[r0:r0 + self.n_local]
+            return x.to(self.device, copy=True)
+
+        res = state.residual
+        if res is not None:
+            res = torch.as_tensor(res)[d, h0:h0 + self.n_half].to(
+                self.device, copy=True)
+        return ZooTrainState(master=rows(state.master),
+                             opt=tree.tree_map(rows, state.opt),
+                             residual=res)
+
     def _check_state(self, state: ZooTrainState):
         """EF residual geometry, checked at the entry points, naming the
         expected geometry."""
         res = state.residual
+        if self.cell is not None:
+            want = (self.n_half, self.ob.chunk) if self.error_feedback \
+                else None
+            got = None if res is None else tuple(res.shape)
+            if got != want:
+                raise ValueError(
+                    f"ZooTrainRound(error_feedback={self.error_feedback}) "
+                    f"over processes: the carry's EF residual is {got}, "
+                    f"expected {want} (this rank's worker's rows of its "
+                    f"half; local_state cuts them from a whole carry)")
+            return
         want = (self.U, self.n_chunks, self.ob.chunk)
         if self.error_feedback:
             if res is None:
@@ -296,6 +436,9 @@ class ZooTrainRound(ZooRound):
         state = self.as_state(state)
         self._check_state(state)
         beta, b_t, z = self._prologue(t, key, noise_var, p_max, draws)
+        if self.cell is not None:
+            return self._round_train_procs(state, batch, beta, b_t, z,
+                                           noise_var, lr, hook)
         p_full = self.layout.master_to_tree(state.master,
                                             dtype=self.compute_dtype)
         losses, cur = [], {}
@@ -338,12 +481,60 @@ class ZooTrainRound(ZooRound):
         return state, _with_loss(self._stats(beta, b_t, gn2, noise_var),
                                  loss)
 
+    def _round_train_procs(self, state, batch, beta, b_t, z, noise_var, lr,
+                           hook):
+        """``round_train``'s body on rank (d, m): the worker's backward on
+        its own batch, the EF-corrected compression of its half, the MAC
+        over the worker group, the decode and update of its own rows."""
+        d, m = self.cell
+        loss, g_sect = self._local_loss_and_grads(
+            state.master, {k: v[d] for k, v in batch.items()})
+        if hook is not None:
+            hook("backward")
+        res = state.residual
+
+        def blocks():
+            for a, b in self._half_blocks(m):
+                yield a, g_sect[a - self.half0:b - self.half0].to(
+                    torch.float32)
+
+        def compress(u, rows, a):
+            if res is None:
+                return self._compress_blocks(rows)
+            lo = a - self.half0
+            return self._compress_blocks_ef(rows,
+                                            res[lo:lo + rows.shape[0]])
+
+        y_sum, mag_sum = self._upload_procs(blocks, beta, b_t, hook,
+                                            compress=compress)
+        del g_sect
+        lr_t = float(np.float32(lr))
+        scalars = []
+
+        def apply(a, b, ghat):
+            scalars[:] = self._opt_update_blocks(ghat, state.opt,
+                                                 state.master, a, b, lr_t)
+
+        gn2 = self._mac_decode(y_sum, mag_sum, beta, b_t, z, noise_var,
+                               apply, hook)
+        olds = [l for l in tree.leaves(state.opt) if not _rowwise(l)]
+        for old, new in zip(olds, scalars):
+            old.copy_(new)
+        loss = coll.pmean(loss.to(torch.float32).reshape(1), self.wgroup)[0]
+        return state, _with_loss(self._stats(beta, b_t, gn2, noise_var),
+                                 loss)
+
     def grads_in_layout(self, master, batch):
         """The per-worker gradients as a (U, n_chunks, D_c) f32 tensor in
         the master's flat order, what ``round_from_grads`` consumes.
-        Returns (grads, per-worker losses (U,))."""
+        Returns (grads, per-worker losses (U,)); over processes (this
+        rank's (n_half, D_c) block from its master rows, its loss)."""
         if isinstance(master, ZooTrainState):
             master = master.master
+        if self.cell is not None:
+            loss, g = self._local_loss_and_grads(
+                master, {k: v[self.cell[0]] for k, v in batch.items()})
+            return g.to(torch.float32), loss
         p_full = self.layout.master_to_tree(master, dtype=self.compute_dtype)
         gs, losses = [], []
         for u in range(self.U):
@@ -396,6 +587,10 @@ class ZooTrainRound(ZooRound):
         round t shares its draws, as the reference's arms share the
         round's key). Returns (states, ZooTrainStats of NumPy arrays
         stacked (rounds, A))."""
+        if self.cell is not None:
+            raise NotImplementedError(
+                "ZooTrainRound.run_sweep runs its arms in one process; over "
+                "processes run one arm a launch")
         states = self.as_state(states)
         self._check_state(states)
         nv, pm, lr = (np.asarray(torch.as_tensor(arms[k]).cpu(), np.float32)
@@ -434,22 +629,79 @@ class ZooTrainRound(ZooRound):
         absolute next round, one atomic step dir in the reference's
         format. Every draw is keyed by the absolute round index, so no
         generator state is saved."""
-        return checkpoint.save(ckpt_dir, step,
-                               {"state": self.as_state(state),
-                                "t_next": np.int32(t_next)})
+        state = self.as_state(state)
+        if self.cell is None:
+            return checkpoint.save(ckpt_dir, step,
+                                   {"state": state,
+                                    "t_next": np.int32(t_next)})
+        obj = {"state": self._streamed(state), "t_next": np.int32(t_next)}
+        if coll.axis_index(self.world) == 0:
+            path = checkpoint.save(ckpt_dir, step, obj)
+        else:
+            for leaf in tree.leaves(obj):
+                if isinstance(leaf, checkpoint.RowBlocks):
+                    for _ in leaf.blocks():
+                        pass
+            path = checkpoint.step_dir(ckpt_dir, step)
+        # rank 0's word that the step is on disk
+        coll.broadcast(torch.zeros(1, device=self.device), self.world)
+        return path
+
+    def _streamed(self, state: ZooTrainState) -> ZooTrainState:
+        """The whole carry as ``RowBlocks`` leaves: each leaf's rows in
+        order, every owner's block broadcast from it over the world (rank
+        0 writes them). Rank d·M + m owns master rows m·n_half + d·n_local
+        and worker d's residual rows of half m."""
+        W, M = self.U, self.n_model
+        me = coll.axis_index(self.world)
+
+        def rows_of(local, owners):
+            def blocks():
+                for src in owners:
+                    for a, b in self._blocks(0, local.shape[0]):
+                        buf = (local[a:b].contiguous() if me == src
+                               else torch.empty_like(local[a:b]))
+                        yield coll.broadcast(buf, self.world, src=src)
+            return blocks
+
+        by_rows = [d * M + m for m in range(M) for d in range(W)]
+        by_res = [u * M + m for u in range(W) for m in range(M)]
+
+        def leaf(x):
+            if not _rowwise(x):
+                return x
+            return checkpoint.RowBlocks((self.n_chunks, self.ob.chunk),
+                                        x.dtype, rows_of(x, by_rows))
+
+        res = state.residual
+        if res is not None:
+            res = checkpoint.RowBlocks((self.U, self.n_chunks, self.ob.chunk),
+                                       res.dtype, rows_of(res, by_res))
+        return ZooTrainState(master=leaf(state.master),
+                             opt=tree.tree_map(leaf, state.opt),
+                             residual=res)
 
     def restore_state(self, ckpt_dir: str, step: Optional[int] = None,
                       arms: Optional[int] = None):
         """(state, t_next) from ``step`` (default: the latest), strict
         against :meth:`state_template` (leaf count, shapes, dtypes), on
-        the round's device. None when the directory holds no steps."""
+        the round's device; over processes this rank's rows of it. None
+        when the directory holds no steps."""
         if step is None:
             step = checkpoint.latest_step(ckpt_dir)
             if step is None:
                 return None
         like = {"state": self.state_template(arms),
                 "t_next": torch.empty((), dtype=torch.int32, device="meta")}
-        got = checkpoint.restore(ckpt_dir, step, like)
+        rows = None
+        if self.cell is not None:
+            # this rank's rows of each leaf, memory-mapped
+            d, _ = self.cell
+            own = slice(self.row0, self.row0 + self.n_local)
+            half = (d, slice(self.half0, self.half0 + self.n_half))
+            rows = [own if x.ndim == 2 else half if x.ndim == 3 else None
+                    for x in tree.leaves(like)]
+        got = checkpoint.restore(ckpt_dir, step, like, rows=rows)
         state = tree.tree_map(lambda x: x.to(self.device), got["state"])
         return state, int(got["t_next"])
 

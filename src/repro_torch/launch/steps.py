@@ -45,6 +45,7 @@ kernel), and the decode path calls no kernel.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable, Dict, List, Optional
 
 import numpy as np
@@ -57,7 +58,8 @@ from repro_torch.core.obcsaa import (OBCSAAConfig, shardmap_compress,
                                      shardmap_reconstruct)
 from repro_torch.device import resolve_device
 from repro_torch.dist import collectives as coll
-from repro_torch.dist.sharding import infer_param_specs
+from repro_torch.dist.sharding import (best_spec, infer_param_sharding,
+                                       infer_param_specs)
 from repro_torch.launch.mesh import ZooMesh, make_zoo_mesh, num_workers
 from repro_torch.models import transformer
 from repro_torch.models.registry import Model
@@ -512,13 +514,16 @@ def make_zoo_train_round(model: Model, tcfg: TrainConfig, mesh, **kw):
     for (model, tcfg, mesh), built from the same TrainConfig knobs the
     per-leaf train step reads: ``obcsaa_config(tcfg)`` for the wire
     geometry, ``tcfg.remat_mode``, the optimizer and error feedback.
-    Extra kwargs (``scheduler``, ``compute_dtype``, ``device``, ...) pass
-    through."""
+    ``use_kernels=True`` runs its compression and decode through the CUDA
+    kernels. Extra kwargs (``scheduler``, ``compute_dtype``, ``device``,
+    ...) pass through."""
     from repro_torch.engine.zoo_train import ZooTrainRound
     kw.setdefault("remat", tcfg.remat_mode)
     kw.setdefault("optimizer", tcfg.optimizer)
     kw.setdefault("error_feedback", tcfg.error_feedback)
-    return ZooTrainRound(model, mesh, obcsaa_config(tcfg), **kw)
+    ob = dataclasses.replace(obcsaa_config(tcfg),
+                             use_kernels=kw.pop("use_kernels", False))
+    return ZooTrainRound(model, mesh, ob, **kw)
 
 
 # --- serve steps -------------------------------------------------------------
@@ -530,14 +535,19 @@ def make_prefill_step(model: Model) -> Callable:
     return step
 
 
-def make_decode_step(model: Model) -> Callable:
+def make_decode_step(model: Model, kv_group=None) -> Callable:
+    """``step(params, cache, tokens, pos)``; with ``kv_group`` the cache's
+    K/V length is split over the group (``model.init_cache(...,
+    kv_group=)``)."""
     def step(params, cache, tokens, pos):
-        return model.decode_step(params, cache, tokens, pos)
+        return model.decode_step(params, cache, tokens, pos,
+                                 kv_group=kv_group)
 
     return step
 
 
-def make_seeded_prefill(model: Model, total_len: int) -> Callable:
+def make_seeded_prefill(model: Model, total_len: int,
+                        kv_group=None) -> Callable:
     """Prefill a prompt prefix and seed a ``total_len`` decode cache.
 
     Returns ``step(params, batch) -> (logits, cache, offset)``: the
@@ -545,8 +555,10 @@ def make_seeded_prefill(model: Model, total_len: int) -> Callable:
     may be zero-length) runs through the full forward once, its per-layer
     cache seeds land in slots [0, offset) of a fresh cache on the tokens'
     device, and decoding continues at ``pos = offset + i``. Decode steps
-    are text-only, so an image enters through the cache. The SSM, hybrid
-    and audio families have no positional seeds and raise
+    are text-only, so an image enters through the cache. With
+    ``kv_group`` the cache's K/V length is split over the group and each
+    rank keeps its own rows of the seeds. The SSM, hybrid and audio
+    families have no positional seeds and raise
     (``transformer.seed_cache_from_prefill``), as in the reference."""
     cfg = model.cfg
 
@@ -555,12 +567,40 @@ def make_seeded_prefill(model: Model, total_len: int) -> Callable:
         logits, seeds = model.prefill(params, batch)
         img = batch.get("image_embeds")
         offset = tokens.shape[1] + (img.shape[1] if img is not None else 0)
-        cache = model.init_cache(tokens.shape[0], total_len, tokens.device)
+        cache = model.init_cache(tokens.shape[0], total_len, tokens.device,
+                                 kv_group=kv_group)
         cache = transformer.seed_cache_from_prefill(cfg, cache, seeds,
-                                                    start=0)
+                                                    start=0,
+                                                    kv_group=kv_group)
         return logits, cache, offset
 
     return step
+
+
+# --- sharding specs ----------------------------------------------------------
+
+def cache_shardings(cache_shapes, mesh) -> Dict[str, tuple]:
+    """Partition specs of a cache's leaves on ``mesh`` from
+    ``transformer.cache_shardings_hints`` (``cross_k``/``cross_v`` take
+    ``k``/``v``'s), through ``dist.sharding.best_spec``: {name: spec
+    tuple}. ``cache_shapes`` maps a leaf's name to a tensor (a meta one
+    allocates nothing) or a ``(shape, dtype)`` pair."""
+    hints = transformer.cache_shardings_hints()
+    hints.update({"cross_k": hints["k"], "cross_v": hints["v"]})
+    out = {}
+    for name, leaf in cache_shapes.items():
+        shape = tuple(leaf.shape if hasattr(leaf, "shape") else leaf[0])
+        out[name] = best_spec(shape, hints.get(name, (None,) * len(shape)),
+                              mesh)
+    return out
+
+
+def param_shardings(model: Model, mesh, sample_batch_specs=None):
+    """(spec pytree, meta-tensor params) of ``model`` on ``mesh``: each
+    leaf's largest model-divisible dim over "model"
+    (``dist.sharding.infer_param_sharding``); nothing is allocated."""
+    shapes = model.init(0, device="meta")
+    return infer_param_sharding(shapes, mesh), shapes
 
 
 # --- trainer checkpointing ---------------------------------------------------

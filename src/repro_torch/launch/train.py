@@ -46,6 +46,16 @@ sweep with ``--arms``:
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
         --zoo-train --smoke --steps 2 --optimizer adam --error-feedback
 
+Under ``torchrun`` ``--zoo-train`` runs one cell of the zoo a rank: the
+W·M ranks are the ``(W, M)`` mesh, M = ``--model-parallel``, worker d
+training on its own token stream (``make_zoo_batch``), its M ranks
+splitting the model axis. Rank 0 prints and writes the checkpoints,
+every rank restores its own rows (one arm a launch):
+
+    PYTHONPATH=src python -m torch.distributed.run --standalone \
+        --nproc-per-node 4 -m repro_torch.launch.train --device cpu \
+        --zoo-train --model-parallel 2 --smoke --steps 2
+
 ``--serve`` hands the remaining arguments to the scheduling service
 (``repro_torch.serve.cli``).
 """
@@ -105,21 +115,32 @@ def run_zoo_train(args, cfg, tcfg, model, mesh, device) -> int:
     The carry is the full ZooTrainState (master, optimizer moments, EF
     residuals), so --ckpt-dir/--resume continue bit for bit. With --data
     every round samples a fresh (U, B, S) batch from the token shards,
-    keyed by the absolute round index (no iterator state)."""
-    zr = steps_lib.make_zoo_train_round(model, tcfg, mesh, device=device)
-    print(f"zoo-train: D={zr.D:,} n_chunks={zr.n_chunks} "
-          f"({zr.n_model} model x {zr.U} workers x {zr.n_local} local), "
-          f"optimizer={zr.optimizer_name} ef={zr.error_feedback} "
-          f"remat={tcfg.remat_mode} on {device}", flush=True)
+    keyed by the absolute round index (no iterator state). Over
+    processes (``mesh.world``) each rank holds its own rows of the carry
+    and rank 0 prints."""
+    rank = coll.axis_index(mesh.world)
+
+    def say(msg: str) -> None:
+        if rank == 0:
+            print(msg, flush=True)
+
+    zr = steps_lib.make_zoo_train_round(model, tcfg, mesh, device=device,
+                                        use_kernels=args.kernels)
+    say(f"zoo-train: D={zr.D:,} n_chunks={zr.n_chunks} "
+        f"({zr.n_model} model x {zr.U} workers x {zr.n_local} local), "
+        f"optimizer={zr.optimizer_name} ef={zr.error_feedback} "
+        f"remat={tcfg.remat_mode} on {device}")
+    if mesh.world is not None:
+        say(f"world: {zr.U} x {zr.n_model} ranks over "
+            f"{dist.get_backend(mesh.world)}")
     master = zr.chunk_params(model.init(0, device=device))
     key, data_key = 1, 2
     shards = None
     if args.data:
         from repro_torch.data.tokens import TokenShards
         shards = TokenShards.open(args.data)
-        print(f"data: {len(shards.names)} token shards, "
-              f"{shards.total_tokens:,} tokens from {args.data}",
-              flush=True)
+        say(f"data: {len(shards.names)} token shards, "
+            f"{shards.total_tokens:,} tokens from {args.data}")
 
     def zoo_batch(t):
         if shards is not None:
@@ -143,7 +164,7 @@ def run_zoo_train(args, cfg, tcfg, model, mesh, device) -> int:
             got = zr.restore_state(args.ckpt_dir, arms=A)
             if got is not None:
                 states, t_start = got
-                print(f"resumed sweep at round {t_start}", flush=True)
+                say(f"resumed sweep at round {t_start}")
         batch = zoo_batch(t_start)   # sweeps run one fixed batch
         t0 = time.perf_counter()
         states, stats = zr.run_sweep(states, batch, arms,
@@ -152,16 +173,14 @@ def run_zoo_train(args, cfg, tcfg, model, mesh, device) -> int:
         dt = time.perf_counter() - t0
         losses = stats.loss                      # (rounds, A)
         for a in range(A):
-            print(f"arm {a}: noise_var={arms['noise_var'][a]:.2e} "
-                  f"lr={arms['lr'][a]:.3f} "
-                  f"loss {losses[0, a]:.4f} -> {losses[-1, a]:.4f}",
-                  flush=True)
-        print(f"{A} arms x {args.steps - t_start} rounds ({dt:.2f}s)",
-              flush=True)
+            say(f"arm {a}: noise_var={arms['noise_var'][a]:.2e} "
+                f"lr={arms['lr'][a]:.3f} "
+                f"loss {losses[0, a]:.4f} -> {losses[-1, a]:.4f}")
+        say(f"{A} arms x {args.steps - t_start} rounds ({dt:.2f}s)")
         if args.ckpt_dir:
             path = zr.save_state(args.ckpt_dir, args.steps, states,
                                  t_next=args.steps)
-            print(f"saved checkpoint: {path}", flush=True)
+            say(f"saved checkpoint: {path}")
         return 0
     state = zr.init_state(master)
     t_start = 0
@@ -169,7 +188,7 @@ def run_zoo_train(args, cfg, tcfg, model, mesh, device) -> int:
         got = zr.restore_state(args.ckpt_dir)
         if got is not None:
             state, t_start = got
-            print(f"resumed zoo-train at round {t_start}", flush=True)
+            say(f"resumed zoo-train at round {t_start}")
     batch = None
     for t in range(t_start, args.steps):
         if shards is not None or batch is None:
@@ -177,17 +196,28 @@ def run_zoo_train(args, cfg, tcfg, model, mesh, device) -> int:
         t0 = time.perf_counter()
         state, st = zr.round_train(state, batch, t, key, tcfg.noise_var,
                                    tcfg.p_max, args.lr)
-        print(f"round {t:4d} loss={float(st.loss):.4f} "
-              f"b_t={float(st.b_t):.4f} "
-              f"({time.perf_counter() - t0:.2f}s)", flush=True)
+        say(f"round {t:4d} loss={float(st.loss):.4f} "
+            f"b_t={float(st.b_t):.4f} "
+            f"({time.perf_counter() - t0:.2f}s)")
         if args.ckpt_dir and args.ckpt_every \
                 and (t + 1) % args.ckpt_every == 0:
             zr.save_state(args.ckpt_dir, t + 1, state, t_next=t + 1)
     if args.ckpt_dir:
         path = zr.save_state(args.ckpt_dir, args.steps, state,
                              t_next=args.steps)
-        print(f"saved checkpoint: {path}", flush=True)
+        say(f"saved checkpoint: {path}")
     return 0
+
+
+def train_config(args) -> TrainConfig:
+    """The TrainConfig of parsed CLI arguments."""
+    return TrainConfig(aggregation=args.agg, optimizer=args.optimizer,
+                       learning_rate=args.lr,
+                       error_feedback=args.error_feedback,
+                       cs_chunk=args.cs_chunk,
+                       cs_measure=args.cs_measure, cs_topk=args.cs_topk,
+                       biht_iters=10, cs_packed=args.zoo_train,
+                       remat_policy=args.remat_policy)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -224,6 +254,9 @@ def build_parser() -> argparse.ArgumentParser:
                          "backward passes (engine.zoo_train): the master "
                          "as the flat-shard (n_chunks, D_c) tensor, "
                          "gradients into the packed 1-bit uplink")
+    ap.add_argument("--kernels", action="store_true",
+                    help="with --zoo-train: compress and decode through the "
+                         "CUDA kernels K1-K4 (OBCSAAConfig.use_kernels)")
     ap.add_argument("--arms", type=int, default=1,
                     help="with --zoo-train: an N-arm noise_var x lr grid "
                          "(ZooTrainRound.run_sweep)")
@@ -239,6 +272,14 @@ def build_parser() -> argparse.ArgumentParser:
                     help="advance N rounds a call, P2 scheduled for the "
                          "whole run in one batched greedy solve; "
                          "checkpoints at every chunk boundary")
+    ap.add_argument("--model-parallel", type=int, default=1,
+                    help="under torchrun with --zoo-train: the model axis "
+                         "M of the (W, M) mesh the W*M ranks form "
+                         "(launch.mesh.make_host_mesh's model_parallel)")
+    ap.add_argument("--init-method", default="env://",
+                    help="under torchrun: the process group's init method "
+                         "(default env://, what torchrun sets; file://PATH "
+                         "for a file store)")
     ap.add_argument("--check-replicas", action="store_true",
                     help="under torchrun, end by checking that every rank "
                          "holds the same parameters bit for bit (broadcasts "
@@ -359,24 +400,21 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     if args.resume and not args.ckpt_dir:
         raise SystemExit("--resume needs --ckpt-dir")
     under_torchrun = "RANK" in os.environ and "WORLD_SIZE" in os.environ
-    if under_torchrun and args.zoo_train:
-        raise SystemExit("--zoo-train runs its mesh's cells in turn in one "
-                         "process; the zoo over processes is ROADMAP.md "
-                         "Queue 1, item 5")
+    if args.model_parallel != 1 and not (under_torchrun and args.zoo_train):
+        raise SystemExit("--model-parallel splits the model axis over "
+                         "torchrun's ranks in --zoo-train only; the plain "
+                         "train step keeps the weights whole on every rank")
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
-    tcfg = TrainConfig(aggregation=args.agg, optimizer=args.optimizer,
-                       learning_rate=args.lr,
-                       error_feedback=args.error_feedback,
-                       cs_chunk=args.cs_chunk,
-                       cs_measure=args.cs_measure, cs_topk=args.cs_topk,
-                       biht_iters=10, cs_packed=args.zoo_train,
-                       remat_policy=args.remat_policy)
+    tcfg = train_config(args)
     model = build_model(cfg)
     if under_torchrun:
         # a rank that raises exits without the closing barrier; torchrun
         # then stops the others
-        mesh, dev = join_world(args.device)
-        code = train(args, cfg, tcfg, model, mesh, dev)
+        mesh, dev = join_world(args.device,
+                               model_parallel=args.model_parallel,
+                               init_method=args.init_method)
+        run = run_zoo_train if args.zoo_train else train
+        code = run(args, cfg, tcfg, model, mesh, dev)
         leave_world()
         return code
     dev = resolve_device(args.device)

@@ -24,6 +24,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import AttentionConfig
+from repro_torch.dist import collectives as coll
 from repro_torch.models.layers import apply_rope, he_init, rmsnorm, softcap
 
 
@@ -154,12 +155,19 @@ def gqa_forward(p, x, a: AttentionConfig, *, positions, causal=True,
 
 
 def decode_attention_sharded(q, k, v, pos: int, *, scale, window=None,
-                             is_global=None, cap=0.0, n_chunks=16):
+                             is_global=None, cap=0.0, n_chunks=16,
+                             group=None, offset: int = 0):
     """Flash-decoding arithmetic for one query: the cache length split
     into ``n_chunks`` partial softmaxes (each chunk's max, then the
-    global max, exp-sums and weighted V summed over the chunks). The
-    reference shards the chunks over devices; on one card it is the
-    same arithmetic, which ``cfg.decode_sharded_chunks > 0`` selects.
+    global max, exp-sums and weighted V summed over the chunks), the
+    reference's ``decode_attention_sharded``. With ``group`` the cache's
+    length is split over the group's ranks as well: ``k``/``v`` are this
+    rank's rows, at positions ``offset`` onward, and the global max, the
+    exp-sums and the weighted V are reduced over the group (``pmax``,
+    ``psum``), the reference's cross-device reduction; the traffic is
+    the (B, H, hd) partials, never the cache. Without one the same
+    arithmetic runs on the whole cache (``cfg.decode_sharded_chunks >
+    0`` selects it).
 
     q: (B, 1, H, hd); k/v: (B, S, KV, hd). Returns (B, 1, H, hd)."""
     B, S, KV, hd = k.shape
@@ -174,46 +182,63 @@ def decode_attention_sharded(q, k, v, pos: int, *, scale, window=None,
     scores = torch.einsum("bkrh,bnskh->bnkrs", qg.to(torch.float32),
                           kc.to(torch.float32)) * scale
     scores = softcap(scores, cap)
-    k_pos = torch.arange(S, dtype=torch.int32,
-                         device=q.device).reshape(n_chunks, cl)
+    k_pos = offset + torch.arange(S, dtype=torch.int32,
+                                  device=q.device).reshape(n_chunks, cl)
     mask = k_pos <= pos                                    # causal
     if window is not None and not is_global:
         mask &= (pos - k_pos) < window
     scores = torch.where(mask[None, :, None, None, :], scores,
                          torch.full_like(scores, -1e30))
     m_part = torch.amax(scores, dim=-1)                    # (B,nc,KV,rep)
-    m_glob = torch.amax(m_part, dim=1, keepdim=True)       # across chunks
+    m_glob = coll.pmax(torch.amax(m_part, dim=1, keepdim=True), group)
     e = torch.exp(scores - m_glob[..., None])
     denom = torch.sum(e, dim=(1, 4))                       # (B,KV,rep)
     num = torch.einsum("bnkrs,bnskh->bkrh", e, vc.to(torch.float32))
+    if group is not None:     # one all-reduce of both partial sums
+        both = coll.psum(torch.cat([num, denom[..., None]], dim=-1), group)
+        num, denom = both[..., :hd], both[..., hd]
     out = num / denom[..., None]
     return out.reshape(B, 1, H, hd).to(v.dtype)
 
 
 def gqa_decode(p, x, a: AttentionConfig, *, cache_k, cache_v, pos: int,
                is_global: Optional[bool] = None, use_rope: bool = True,
-               cross: bool = False, sharded_cache_chunks: int = 0):
+               cross: bool = False, sharded_cache_chunks: int = 0,
+               kv_group=None):
     """x: (B, 1, d); cache_k/v: (B, S, KV, hd). Self-attention writes the
     new row into the cache in place at ``pos`` and attends causally;
     ``cross=True`` attends over the whole given cache (the encoder's K/V)
-    and writes nothing. Returns (out, cache_k, cache_v)."""
+    and writes nothing. With ``kv_group`` (self-attention) the cache's
+    length is split over the group: cache_k/v are this rank's S rows of
+    the R·S, at positions rank·S onward; only the rank that owns ``pos``
+    writes the new row, and the attention is ``decode_attention_sharded``
+    over the group. Returns (out, cache_k, cache_v)."""
     hd = p["wq"].shape[-1]
     S = cache_k.shape[1]
     q_pos = torch.full((1,), pos, dtype=torch.int32, device=x.device)
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(x.dtype))
     if use_rope:
         q = apply_rope(q, q_pos, a.rope_theta)
+    offset = 0
+    if kv_group is not None and not cross:
+        offset = coll.axis_index(kv_group) * S
     if not cross:
         knew = torch.einsum("bsd,dhk->bshk", x, p["wk"].to(x.dtype))
         vnew = torch.einsum("bsd,dhk->bshk", x, p["wv"].to(x.dtype))
         if use_rope:
             knew = apply_rope(knew, q_pos, a.rope_theta)
-        cache_k[:, pos:pos + 1] = knew.to(cache_k.dtype)
-        cache_v[:, pos:pos + 1] = vnew.to(cache_v.dtype)
+        if offset <= pos < offset + S:
+            at = pos - offset
+            cache_k[:, at:at + 1] = knew.to(cache_k.dtype)
+            cache_v[:, at:at + 1] = vnew.to(cache_v.dtype)
     window = a.window if a.window else None
     kw = dict(scale=1.0 / math.sqrt(hd), window=window, is_global=is_global,
               cap=a.logit_softcap)
-    if sharded_cache_chunks and not cross:
+    if kv_group is not None and not cross:
+        out = decode_attention_sharded(q, cache_k, cache_v, pos,
+                                       n_chunks=sharded_cache_chunks or 1,
+                                       group=kv_group, offset=offset, **kw)
+    elif sharded_cache_chunks and not cross:
         out = decode_attention_sharded(q, cache_k, cache_v, pos,
                                        n_chunks=sharded_cache_chunks, **kw)
     else:

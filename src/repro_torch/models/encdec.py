@@ -141,12 +141,15 @@ def decode_full(params, cfg: ModelConfig, tokens, enc_out, *, remat=True,
 
 
 def init_encdec_cache(cfg: ModelConfig, batch: int, seq_len: int,
-                      device=None):
+                      device=None, kv_group=None):
     """Zero cache in the model's dtype: self ``k``/``v`` of ``seq_len``
-    and ``cross_k``/``cross_v`` of ``encoder_seq_len``."""
+    (with ``kv_group`` this rank's ``transformer.kv_length`` rows of it)
+    and ``cross_k``/``cross_v`` of ``encoder_seq_len``, whole."""
+    from repro_torch.models.transformer import kv_length
     dev = resolve_device(device)
     L, a, dtype = cfg.num_layers, cfg.attention, dtype_of(cfg)
-    own = (L, batch, seq_len, a.num_kv_heads, cfg.head_dim)
+    own = (L, batch, kv_length(seq_len, kv_group), a.num_kv_heads,
+           cfg.head_dim)
     enc = (L, batch, cfg.encoder_seq_len, a.num_kv_heads, cfg.head_dim)
     return {name: torch.zeros(shape, dtype=dtype, device=dev)
             for name, shape in (("k", own), ("v", own), ("cross_k", enc),
@@ -168,10 +171,12 @@ def seed_cross_cache(params, cfg: ModelConfig, cache, enc_out):
 
 
 @torch.no_grad()
-def encdec_decode_step(params, cfg: ModelConfig, cache, tokens, pos):
+def encdec_decode_step(params, cfg: ModelConfig, cache, tokens, pos,
+                       kv_group=None):
     """One decoder token against the self cache and the cross K/V.
     tokens: (B, 1); pos: int. Returns (logits (B, 1, V) f32, cache), each
-    layer's new k/v row written into the cache at ``pos`` in place."""
+    layer's new k/v row written into the cache at ``pos`` in place. With
+    ``kv_group`` the self cache's length is split over the group."""
     pos = int(pos)
     dtype = dtype_of(cfg)
     a, eps = cfg.attention, cfg.norm_eps
@@ -185,7 +190,8 @@ def encdec_decode_step(params, cfg: ModelConfig, cache, tokens, pos):
         lp, c = layer(i), cache_l(i)
         h = rmsnorm(x, lp["attn_norm"], eps)
         o, _, _ = attn.gqa_decode(lp["attn"], h, a, cache_k=c["k"],
-                                  cache_v=c["v"], pos=pos, use_rope=False)
+                                  cache_v=c["v"], pos=pos, use_rope=False,
+                                  kv_group=kv_group)
         x = x + o
         h = rmsnorm(x, lp["cross_norm"], eps)
         o, _, _ = attn.gqa_decode(lp["cross"], h, a, cache_k=c["cross_k"],

@@ -6,15 +6,16 @@
   loss_fn(params, batch, remat=..., dp=None) -> (scalar loss, aux)
   forward(params, batch, remat=...) -> logits
   prefill(params, batch) -> (logits, cache seeds)
-  init_cache(batch_size, seq_len, device=None) -> cache
-  decode_step(params, cache, tokens, pos) -> (logits, cache)
+  init_cache(batch_size, seq_len, device=None, kv_group=None) -> cache
+  decode_step(params, cache, tokens, pos, kv_group=None) -> (logits, cache)
   input_specs(shape) -> {name: (shape, dtype)}
 for every decoder family (dense, MoE, SSM, hybrid, VLM; ``transformer``),
 the encoder-decoder (audio; ``encdec``) and the paper's MLP, which has no
 decode path. A VLM batch carries ``image_embeds`` (B, N, d) before its
 text, an audio batch ``frames`` (B, S_enc, d). ``prefill`` and
 ``decode_step`` run without autograd; ``decode_step`` writes the cache in
-place.
+place. ``kv_group`` splits the self-attention K/V cache's length over a
+process group (``transformer.kv_length``).
 """
 from __future__ import annotations
 
@@ -90,11 +91,13 @@ def _lm_model(cfg: ModelConfig) -> Model:
             collect_cache=True)
         return logits, caches
 
-    def init_cache(batch_size, seq_len, device=None):
-        return transformer.init_lm_cache(cfg, batch_size, seq_len, device)
+    def init_cache(batch_size, seq_len, device=None, kv_group=None):
+        return transformer.init_lm_cache(cfg, batch_size, seq_len, device,
+                                         kv_group)
 
-    def decode_step(params, cache, tokens, pos):
-        return transformer.lm_decode_step(params, cfg, cache, tokens, pos)
+    def decode_step(params, cache, tokens, pos, kv_group=None):
+        return transformer.lm_decode_step(params, cfg, cache, tokens, pos,
+                                          kv_group)
 
     def input_specs(shape: InputShape):
         return lm_input_specs(cfg, shape)
@@ -136,11 +139,13 @@ def _encdec_model(cfg: ModelConfig) -> Model:
                                     remat=False)
         return logits, cache
 
-    def init_cache(batch_size, seq_len, device=None):
-        return encdec.init_encdec_cache(cfg, batch_size, seq_len, device)
+    def init_cache(batch_size, seq_len, device=None, kv_group=None):
+        return encdec.init_encdec_cache(cfg, batch_size, seq_len, device,
+                                        kv_group)
 
-    def decode_step(params, cache, tokens, pos):
-        return encdec.encdec_decode_step(params, cfg, cache, tokens, pos)
+    def decode_step(params, cache, tokens, pos, kv_group=None):
+        return encdec.encdec_decode_step(params, cfg, cache, tokens, pos,
+                                         kv_group)
 
     def input_specs(shape: InputShape):
         return lm_input_specs(cfg, shape)

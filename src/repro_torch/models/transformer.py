@@ -39,6 +39,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from repro_torch import tree
 from repro_torch.configs.base import ModelConfig, dtype_of
 from repro_torch.device import resolve_device
+from repro_torch.dist import collectives as coll
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
@@ -293,9 +294,37 @@ def lm_forward(params, cfg: ModelConfig, tokens, *, image_embeds=None,
 
 # --- decode ------------------------------------------------------------------
 
-def init_lm_cache(cfg: ModelConfig, batch: int, seq_len: int, device=None):
+def cache_shardings_hints():
+    """Dim hints for cache leaves: length over data, heads over model."""
+    return {
+        "k": (None, None, "data", "model", None),
+        "v": (None, None, "data", "model", None),
+        "ckv": (None, "data", None, "model"),
+        "kr": (None, "data", None, None),
+        "conv": (None, "data", None, "model"),
+        "ssm": (None, "data", "model", None, None),
+    }
+
+
+def kv_length(seq_len: int, kv_group) -> int:
+    """This rank's rows of a ``seq_len``-long K/V cache split over
+    ``kv_group`` (all of them without one). The split is what
+    ``launch.steps.cache_shardings`` gives k/v on a (ranks, 1) mesh: the
+    length over "data", which must divide it."""
+    R = coll.axis_size(kv_group)
+    if seq_len % R:
+        raise ValueError(f"a K/V cache of length {seq_len} does not split "
+                         f"over {R} ranks; make the length a multiple of "
+                         f"{R}")
+    return seq_len // R
+
+
+def init_lm_cache(cfg: ModelConfig, batch: int, seq_len: int, device=None,
+                  kv_group=None):
     """Zero cache, stacked over layers (leading L axis), in the model's
-    dtype; the SSM state in f32."""
+    dtype; the SSM state in f32. With ``kv_group`` the k/v leaves hold
+    this rank's ``kv_length`` rows of the length; the MLA latents and
+    the SSM state stay whole on every rank."""
     dev = resolve_device(device)
     L, a, dtype = cfg.num_layers, cfg.attention, dtype_of(cfg)
     shapes = {}
@@ -308,7 +337,8 @@ def init_lm_cache(cfg: ModelConfig, batch: int, seq_len: int, device=None):
         shapes["ckv"] = (L, batch, seq_len, a.kv_lora_rank)
         shapes["kr"] = (L, batch, seq_len, a.qk_rope_dim)
     elif cfg.family != "ssm":
-        kv = (L, batch, seq_len, a.num_kv_heads, cfg.head_dim)
+        kv = (L, batch, kv_length(seq_len, kv_group), a.num_kv_heads,
+              cfg.head_dim)
         shapes["k"] = shapes["v"] = kv
     return {name: torch.zeros(shape, dtype=torch.float32 if name == "ssm"
                               else dtype, device=dev)
@@ -316,7 +346,7 @@ def init_lm_cache(cfg: ModelConfig, batch: int, seq_len: int, device=None):
 
 
 def seed_cache_from_prefill(cfg: ModelConfig, cache, seeds, *,
-                            start: int = 0):
+                            start: int = 0, kv_group=None):
     """Write prefill cache seeds into a decode cache at ``start`` (in
     place; the cache is returned).
 
@@ -324,8 +354,10 @@ def seed_cache_from_prefill(cfg: ModelConfig, cache, seeds, *,
     returns. The forward already applies RoPE to K at the absolute
     positions 0..T−1, the values ``gqa_decode`` would have written token
     by token, so seeding the first T slots and decoding from
-    ``pos = start + T`` reproduces the full forward. The SSM families
-    carry a recurrent state with no positional slot, and raise."""
+    ``pos = start + T`` reproduces the full forward. With ``kv_group``
+    each rank writes the seeds' rows that fall in its part of the k/v
+    length. The SSM families carry a recurrent state with no positional
+    slot, and raise."""
     if cfg.family not in ATTN_FAMILIES:
         raise NotImplementedError(
             f"prefill cache seeding is attention-only; family "
@@ -333,17 +365,23 @@ def seed_cache_from_prefill(cfg: ModelConfig, cache, seeds, *,
             "slot to seed")
     names = ("ckv", "kr") if cfg.attention.use_mla else ("k", "v")
     for name, seed in zip(names, seeds):
-        T = seed.shape[2]
-        cache[name][:, :, start:start + T] = seed.to(cache[name].dtype)
+        T, S = seed.shape[2], cache[name].shape[2]
+        lo = coll.axis_index(kv_group) * S if name in ("k", "v") else 0
+        a, b = max(start, lo), min(start + T, lo + S)
+        if a < b:
+            cache[name][:, :, a - lo:b - lo] = \
+                seed[:, :, a - start:b - start].to(cache[name].dtype)
     return cache
 
 
 @torch.no_grad()
-def lm_decode_step(params, cfg: ModelConfig, cache, tokens, pos):
+def lm_decode_step(params, cfg: ModelConfig, cache, tokens, pos,
+                   kv_group=None):
     """tokens: (B, 1); pos: int (or a 0-d tensor). Returns (logits,
     cache): logits (B, 1, V) f32; every layer's new K/V (or latent) row is
     written into the cache at ``pos``, and an SSM layer's conv and ssm
-    state over its old one, in place."""
+    state over its old one, in place. With ``kv_group`` the k/v length is
+    split over the group (``init_lm_cache``; ``attention.gqa_decode``)."""
     pos = int(pos)
     eps = cfg.norm_eps
     a = cfg.attention
@@ -368,7 +406,8 @@ def lm_decode_step(params, cfg: ModelConfig, cache, tokens, pos):
             if apply_attn[i]:
                 h = rmsnorm(x, sb["attn_norm"], eps)
                 o, _, _ = attn.gqa_decode(sb["attn"], h, a, cache_k=c["k"],
-                                          cache_v=c["v"], pos=pos)
+                                          cache_v=c["v"], pos=pos,
+                                          kv_group=kv_group)
                 x = x + o
                 h = rmsnorm(x, sb["ffn_norm"], eps)
                 x = x + mlp(sb["mlp"], h, cfg.gated_mlp)
@@ -381,7 +420,8 @@ def lm_decode_step(params, cfg: ModelConfig, cache, tokens, pos):
             o, _, _ = attn.gqa_decode(
                 lp["attn"], h, a, cache_k=c["k"], cache_v=c["v"], pos=pos,
                 is_global=is_global[i],
-                sharded_cache_chunks=cfg.decode_sharded_chunks)
+                sharded_cache_chunks=cfg.decode_sharded_chunks,
+                kv_group=kv_group)
         x = x + o
         h = rmsnorm(x, lp["ffn_norm"], eps)
         if cfg.family == "moe":

@@ -1,14 +1,18 @@
 """One rank of the port's multi-process CPU tests
-(``tests/test_torch_collectives.py``, ``tests/test_torch_workers.py``).
-It imports torch and ``repro_torch`` only, never JAX: the tests compute
-the reference's oracles in their own process.
+(``tests/test_torch_collectives.py``, ``tests/test_torch_workers.py``,
+``tests/test_torch_zoo_procs.py``, ``tests/test_torch_shardings.py``,
+``tests/test_torch_dryrun.py``). It imports torch and ``repro_torch``
+only, never JAX: the tests compute the reference's oracles in their own
+process.
 
-    python tests/_torch_dist_child.py CASE DIR RANK WORLD [DEVICE]
+    python tests/_torch_dist_child.py CASE DIR RANK WORLD [DEVICE [M]]
 
 joins a world of WORLD ranks on DEVICE ("cpu", the default, or "cuda":
-gloo, the ranks share the card) through a file store in DIR, runs CASE
-on ``DIR/inputs.pt`` (written by ``run_world``) and writes
-``DIR/out_RANK.pt``, on the CPU.
+gloo, the ranks share the card) through a file store in DIR, as the
+(WORLD / M, M) mesh (M = 1 by default), runs CASE on ``DIR/inputs.pt``
+(written by ``run_world``) and writes ``DIR/out_RANK.pt``, on the CPU.
+The case ``zoo_cli`` joins no world itself: it runs the trainer's CLI,
+which joins and leaves its own.
 """
 import os
 import subprocess
@@ -20,7 +24,8 @@ ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
 
 
 def run_world(case: str, world: int, inputs: dict, tmp_dir,
-              timeout: float = 240.0, device: str = "cpu") -> list:
+              timeout: float = 240.0, device: str = "cpu",
+              model_parallel: int = 1) -> list:
     """Start WORLD ranks of CASE on ``inputs`` and return their outputs
     in rank order; a rank that exits non-zero fails the caller."""
     tmp_dir = str(tmp_dir)
@@ -29,8 +34,9 @@ def run_world(case: str, world: int, inputs: dict, tmp_dir,
                OMP_NUM_THREADS="1")
     procs = [subprocess.Popen(
         [sys.executable, os.path.abspath(__file__), case, tmp_dir, str(r),
-         str(world), device], env=env, stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT, text=True) for r in range(world)]
+         str(world), device, str(model_parallel)], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(world)]
     logs = []
     try:
         for p in procs:
@@ -129,18 +135,181 @@ def train(inp, mesh, dev):
     return out
 
 
+def _stats(st) -> dict:
+    """A round's stats as plain numbers (the parent loads weights only)."""
+    out = {k: float(getattr(st, k)) for k in ("b_t", "ghat_norm")}
+    out["n_scheduled"] = int(st.n_scheduled)
+    out["budget"] = [float(x) for x in st.budget]
+    if hasattr(st, "loss"):
+        out["loss"] = float(st.loss)
+    return out
+
+
+def zoo(inp, mesh, dev):
+    """Surrogate rounds of ``ZooRound`` from the whole chunked
+    parameters, each round's draws injected: this rank's rows, the MAC
+    sums of its half, the stats and the collectives' bytes; then a round
+    on the given (U, n_chunks, D_c) gradients."""
+    from repro_torch.core.obcsaa import OBCSAAConfig
+    from repro_torch.dist import collectives as coll
+    from repro_torch.engine import zoo as tzoo
+    zr = tzoo.build_zoo_round(OBCSAAConfig(**inp["ob"]), inp["D"], mesh,
+                              device=dev, phi=inp["phi"],
+                              scheduler=inp["scheduler"])
+    p = zr.shard_params(inp["params"])
+    out = {"cell": zr.cell, "rows": [], "mac": [], "stats": []}
+    coll.reset_counters()
+    for t, dr in enumerate(inp["draws"]):
+        seen = {}
+        _, st = zr.round_gen(p, t, 0, *inp["args"], draws=tzoo.ZooDraws(
+            *dr), hook=lambda stage, **i: seen.update(i)
+            if stage == "mac" else None)
+        out["rows"].append(p.clone())
+        out["mac"].append((seen["y_sum"].clone(), seen["mag_sum"].clone()))
+        out["stats"].append(_stats(st))
+    out["bytes"] = coll.stats()["bytes"]
+    zr.round_from_grads(p, inp["grads"], 2, 0, *inp["args"],
+                        draws=tzoo.ZooDraws(*inp["draws"][0]))
+    out["from_grads"] = p.clone()
+    return out
+
+
+def _zoo_train_round(case, mesh, dev):
+    from repro_torch import configs
+    from repro_torch.core.obcsaa import OBCSAAConfig
+    from repro_torch.engine import zoo_train as tzt
+    from repro_torch.models.registry import build_model
+    cfg = configs.scaled(configs.get_smoke_config(case["arch"]),
+                         dtype="float32")
+    return tzt.build_zoo_train_round(
+        build_model(cfg), mesh, OBCSAAConfig(**case["ob"]),
+        compute_dtype=torch.float32, device=dev, phi=case["phi"],
+        optimizer=case["opt"], error_feedback=case["ef"])
+
+
+def zoo_train(inp, mesh, dev):
+    """Rounds of ``ZooTrainRound`` for each case from a whole carry,
+    draws injected: this rank's gradient block and loss before them, its
+    carry after each round, the stats, the collectives' bytes of a
+    round; then the carry saved by the ranks and restored by them."""
+    from repro_torch import tree
+    from repro_torch.dist import collectives as coll
+    from repro_torch.engine import zoo as tzoo
+    from repro_torch.engine import zoo_train as tzt
+    out = {}
+    for name, case in inp["cases"].items():
+        zr = _zoo_train_round(case, mesh, dev)
+        state = zr.local_state(tzt.ZooTrainState(*case["state"]))
+        res = {"states": [], "stats": [], "bytes": [],
+               "grads": zr.grads_in_layout(state, case["batch"])}
+        for t, dr in enumerate(case["draws"]):
+            coll.reset_counters()
+            state, st = zr.round_train(state, case["batch"], t, 0,
+                                       *inp["args"],
+                                       draws=tzoo.ZooDraws(*dr))
+            res["bytes"].append(coll.stats()["bytes"])
+            res["states"].append(tuple(tree.tree_map(torch.clone, state)))
+            res["stats"].append(_stats(st))
+        ck = os.path.join(inp["dir"], name)
+        res["path"] = zr.save_state(ck, 2, state, t_next=2)
+        got, t_next = zr.restore_state(ck)
+        res["restored_equal"] = t_next == 2 and all(
+            torch.equal(a, b) for a, b in zip(tree.leaves(got),
+                                              tree.leaves(state)))
+        out[name] = res
+    return out
+
+
+def zoo_cli(inp, rank, tmp_dir):
+    """The trainer's CLI under the file store, once per argv of
+    ``inp["argvs"]`` (each joins and leaves a world of its own)."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import train
+    logs = []
+    for i, argv in enumerate(inp["argvs"]):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            train.main(argv + ["--init-method", "file://" + os.path.join(
+                tmp_dir, f"store_cli{i}")])
+        logs.append(buf.getvalue())
+    return {"logs": logs}
+
+
+def lm_decode(model, params, tok, stub, P, G, total, group):
+    """Prompt ``tok[:, :P]`` into a ``total``-long cache whose K/V length
+    is split over ``group`` (seeded from a prefill for the attention
+    families, stepped for the others; audio after ``seed_cross_cache``),
+    then G greedy tokens, each from the logits before it. Returns
+    (tokens (B, G), those logits (G, B, V))."""
+    from repro_torch.launch import steps
+    from repro_torch.models import encdec
+    cfg = model.cfg
+    if cfg.family in ("dense", "moe", "vlm"):
+        lg, cache, pos = steps.make_seeded_prefill(model, total, group)(
+            params, {"tokens": tok[:, :P], **stub})
+    else:
+        cache = model.init_cache(tok.shape[0], total, tok.device,
+                                 kv_group=group)
+        if cfg.family == "audio":
+            encdec.seed_cross_cache(params, cfg, cache, encdec.encode(
+                params, cfg, stub["frames"]))
+        for pos in range(P):
+            lg, cache = model.decode_step(params, cache,
+                                          tok[:, pos:pos + 1], pos,
+                                          kv_group=group)
+        pos = P
+    out, logits = [], []
+    for _ in range(G):
+        lg = lg[:, -1]
+        nxt = torch.argmax(lg, dim=-1)[:, None].to(torch.int32)
+        out.append(nxt)
+        logits.append(lg)
+        lg, cache = model.decode_step(params, cache, nxt, pos,
+                                      kv_group=group)
+        pos += 1
+    return torch.cat(out, 1), torch.stack(logits)
+
+
+def decode(inp, mesh, dev):
+    """``lm_decode`` for each case with the K/V length split over the
+    world; the collectives' bytes."""
+    from repro_torch import configs
+    from repro_torch.dist import collectives as coll
+    from repro_torch.models.registry import build_model
+    out = {}
+    for name, case in inp["cases"].items():
+        cfg = configs.scaled(configs.get_smoke_config(case["arch"]),
+                             dtype="float32")
+        coll.reset_counters()
+        toks, logits = lm_decode(build_model(cfg), case["params"],
+                                 case["tok"], case["stub"], case["P"],
+                                 case["G"], case["total"], mesh.group)
+        out[name] = {"tokens": toks, "logits": logits,
+                     "bytes": coll.stats()["bytes"]}
+    return out
+
+
 def main(argv) -> int:
     case, tmp_dir, rank, world = argv[0], argv[1], int(argv[2]), int(argv[3])
     device = argv[4] if len(argv) > 4 else "cpu"
+    mp = int(argv[5]) if len(argv) > 5 else 1
     torch.set_num_threads(1)
     os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
                       LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world))
-    from repro_torch.launch.mesh import join_world, leave_world
-    mesh, dev = join_world(device, init_method="file://" + os.path.join(
-        tmp_dir, "store"))
     inp = torch.load(os.path.join(tmp_dir, "inputs.pt"))
+    if case == "zoo_cli":
+        out = zoo_cli(inp, rank, tmp_dir)
+        torch.save(out, os.path.join(tmp_dir, f"out_{rank}.pt"))
+        return 0
+    from repro_torch.launch.mesh import join_world, leave_world
+    mesh, dev = join_world(device, model_parallel=mp,
+                           init_method="file://" + os.path.join(tmp_dir,
+                                                                "store"))
     out = {"collectives": collectives, "aggregate": aggregate,
-           "train": train}[case](inp, mesh, dev)
+           "train": train, "zoo": zoo, "zoo_train": zoo_train,
+           "decode": decode}[case](inp, mesh, dev)
     torch.save(out, os.path.join(tmp_dir, f"out_{rank}.pt"))
     leave_world()
     return 0

@@ -1,0 +1,165 @@
+"""The dry run (``repro_torch.launch.dryrun``): one rank's step of the
+port's program on the meta device inside a "fake" process group, on the
+CPU. The reference's ``repro.launch.dryrun`` is never imported (it sets
+``XLA_FLAGS`` for 512 host devices when imported); its specs come from
+``repro.launch.steps``.
+
+Tolerances:
+- exact: per-card parameter bytes, the product rule over the
+  reference's param specs on the (32, 8) and (2, 32, 8) meshes, for
+  every config and in a zoo-train result; the zoo-train round's
+  collective bytes by kind against the counters of a live 2 x 2 gloo
+  world running the same round; the long_500k skip and its reason; the
+  decode's cache split.
+- ``cost.flops`` of a dense train step (gemma2-2b at full width, remat
+  off, one sequence of 512 a card) within 10% of 6·N·T.
+"""
+import math
+
+import jax
+import numpy as np
+import pytest
+import torch
+from jax.sharding import AbstractMesh
+
+from _torch_dist_child import run_world
+from repro import configs as jcfg
+from repro.launch import steps as jsteps
+from repro.models.registry import build_model as jbuild
+from repro_torch import configs as tcfg
+from repro_torch import tree
+from repro_torch.configs import InputShape, TrainConfig
+from repro_torch.launch import dryrun
+from repro_torch.launch import mesh as tmesh
+from repro_torch.launch import steps as tsteps
+from repro_torch.models.registry import build_model as tbuild
+from test_torch_zoo_train import PARITY_OB
+
+#: the reference's reason (``repro/launch/dryrun.py``)
+LONG_REASON = ("full-attention arch: long_500k requires sub-quadratic "
+               "attention (DESIGN.md §5)")
+
+
+def _ref_param_bytes(arch, shape, names):
+    """Σ bytes / Π axis sizes over the reference's param specs."""
+    jm = jbuild(jcfg.get_config(arch))
+    mesh = AbstractMesh(shape, names)
+    sh, shapes = jsteps.param_shardings(jm, mesh)
+    sizes = dict(zip(names, shape))
+    total = 0
+    for s, x in zip(jax.tree_util.tree_leaves(sh),
+                    jax.tree_util.tree_leaves(shapes)):
+        div = 1
+        for part in s.spec:
+            for ax in ((part,) if isinstance(part, str) else part or ()):
+                div *= sizes[ax]
+        total += math.prod(x.shape) * x.dtype.itemsize // div
+    return total
+
+
+@pytest.mark.parametrize("arch", sorted(jcfg.ARCH_MODULES))
+def test_param_bytes_product_rule(arch):
+    for multi in (False, True):
+        m = tmesh.make_production_mesh(multi_pod=multi)
+        specs, shapes = tsteps.param_shardings(tbuild(tcfg.get_config(arch)),
+                                               m)
+        leaves = [dryrun._leaf(specs, keys)
+                  for keys, _ in tree.flatten_with_keys(shapes)]
+        assert dryrun.spec_bytes(shapes, leaves, m) == _ref_param_bytes(
+            arch, m.axis_sizes, m.axis_names)
+
+
+def test_zoo_train_result_and_cli(tmp_path, monkeypatch, capsys):
+    """On the (32, 8) mesh: gemma2-2b's train step (32 sequences of 64,
+    to keep the test short) is the zoo-train round with the model axis
+    split, its param bytes the product rule; whisper-base through the
+    CLI: decode_32k splits k/v over the 32 data ranks and keeps the
+    cross leaves whole, and long_500k is skipped with the reference's
+    reason; results land as JSON under the results directory."""
+    cfg = tcfg.get_config("gemma2-2b")
+    train = dryrun.measure(cfg, InputShape("t64", 64, 32, "train"),
+                           (32, 8), ("data", "model"))
+    assert train["model_axis"] == "split"
+    assert train["memory"]["params"] == _ref_param_bytes(
+        "gemma2-2b", (32, 8), ("data", "model"))
+    assert train["rows_per_card"] == 1
+    assert train["cost"]["flops"] > 0 and train["memory"]["step_peak"] > 0
+    assert set(train["collectives"]["bytes"]) == {"all_gather",
+                                                  "all_reduce"}
+    assert train["param_count"] == sum(
+        x.numel() for x in tree.leaves(tbuild(cfg).init(0, device="meta")))
+    assert train["fits"] == (train["memory"]["total"]
+                             <= dryrun.H100_80GB_BYTES)
+    monkeypatch.setattr(dryrun, "RESULTS_DIR", tmp_path)
+    assert dryrun.main(["--arch", "whisper-base", "--shape", "decode_32k",
+                        "--mesh", "single"]) == 0
+    assert capsys.readouterr().out.startswith("[ok     ] whisper-base")
+    dec = dryrun.run_combo("whisper-base", "decode_32k", False)
+    assert dec["mesh"] == "32x8" and dec["n_devices"] == 256
+    assert dec["cache_shapes"]["k"][2] == 32_768 // 32
+    assert dec["cache_shapes"]["cross_k"][2] == tcfg.get_config(
+        "whisper-base").encoder_seq_len
+    assert dec["cache_split"]["k"][2] == "data"
+    assert set(dec["collectives"]["bytes"]) == {"all_reduce",
+                                                "all_reduce_max"}
+    assert dryrun.main(["--arch", "whisper-base", "--shape", "long_500k",
+                        "--mesh", "both"]) == 0
+    assert capsys.readouterr().out.count("[skipped]") == 2
+    skip = dryrun.run_combo("whisper-base", "long_500k", False)
+    assert skip == {"status": "skipped", "reason": LONG_REASON}
+    assert len(list(tmp_path.glob("*.json"))) == 3
+
+
+def test_dense_train_flops_near_6nt():
+    cfg = tcfg.get_config("gemma2-2b")
+    res = dryrun.measure(cfg, InputShape("t512", 512, 4, "train"), (4, 1),
+                         ("data", "model"), agg="mean",
+                         tcfg=TrainConfig(aggregation="mean",
+                                          remat_policy="off"))
+    assert res["model_axis"] == "replicated" and res["rows_per_card"] == 1
+    want = 6 * res["param_count"] * 512
+    assert abs(res["cost"]["flops"] - want) <= 0.1 * want, (
+        res["cost"]["flops"], want)
+    assert res["collectives"]["bytes"]["all_reduce"] >= 4 * res[
+        "param_count"]
+
+
+def test_zoo_train_bytes_match_live_world(tmp_path):
+    """One zoo-train round of gemma2's smoke model on 2 x 2: the bytes
+    the dry run's fake world counts, by kind, equal what every rank of a
+    live gloo world counted."""
+    arch = "gemma2-2b"
+    cfg = tcfg.scaled(tcfg.get_smoke_config(arch), dtype="float32")
+    model = tbuild(cfg)
+    tc = TrainConfig(aggregation="obcsaa", cs_chunk=PARITY_OB["chunk"],
+                     cs_measure=PARITY_OB["measure"],
+                     cs_topk=PARITY_OB["topk"], cs_packed=True,
+                     compute_dtype="float32")
+    res = dryrun.measure(cfg, InputShape("t", 32, 4, "train"), (2, 2),
+                         ("data", "model"), agg="obcsaa", tcfg=tc)
+    zr = tsteps.make_zoo_train_round(model, tc, tmesh.make_zoo_mesh(2, 2),
+                                     device="cpu",
+                                     compute_dtype=torch.float32)
+    g = torch.Generator().manual_seed(0)
+    tok = torch.randint(0, cfg.vocab_size, (2, 2, 32), generator=g,
+                        dtype=torch.int32)
+    draws = zr.draws(1)(0)
+    outs = run_world("zoo_train", 4, {"args": (1e-4, 10.0, 0.05),
+                                      "dir": str(tmp_path), "cases": {
+        "c": {"arch": arch, "ob": PARITY_OB, "phi": zr.phi, "opt": "sgd",
+              "ef": False, "state": tuple(zr.init_state(
+                  zr.chunk_params(model.init(0, device="cpu")))),
+              "batch": {"tokens": tok, "targets": tok.roll(-1, -1)},
+              "draws": [tuple(draws)]}}}, tmp_path, model_parallel=2)
+    for o in outs:
+        assert o["c"]["bytes"][0] == res["collectives"]["bytes"]
+    assert res["zoo"]["n_local"] == zr.n_local
+    assert res["memory"]["master"] == zr.n_local * zr.ob.chunk * 4
+    np.testing.assert_equal(res["memory"]["params"], _port_param_bytes(
+        model, tmesh.ZooMesh(("data", "model"), (2, 2))))
+
+
+def _port_param_bytes(model, mesh):
+    specs, shapes = tsteps.param_shardings(model, mesh)
+    return dryrun.spec_bytes(shapes, [dryrun._leaf(specs, k) for k, _ in
+                                      tree.flatten_with_keys(shapes)], mesh)

@@ -296,9 +296,10 @@ def test_round_from_grads_matches_reference(arch):
 
 
 def test_blocks_change_no_round(monkeypatch, rounds):
-    """Blocks of 3 chunk rows (a cell compresses 32 rows in 11 blocks and
-    decodes 8 in 3, the last ragged) against one block a cell: the same
-    round, each chunk's
+    """Blocks of 3 chunk rows (a cell compresses its half's 32 rows in 12
+    blocks, 3 of each owner's 8 rows, and decodes its 8 in 3, the last
+    ragged) against one block of each owner's rows: the same round, each
+    chunk's
     movement within 1e-5 of its norm (the CPU's GEMMs round some rows by
     the rows in a call)."""
     _, tz = rounds["greedy_batched"]
@@ -318,6 +319,6 @@ def test_blocks_change_no_round(monkeypatch, rounds):
                      hook=lambda stage, **i: pieces.append(stage))
         outs.append((p - p0).numpy())
     assert pieces.count("decode") == 8 + 8 * 3
-    assert pieces.count("compress") == 8 + 8 * 11
+    assert pieces.count("compress") == 8 * 4 + 8 * 12
     err = np.linalg.norm(outs[0] - outs[1], axis=1)
     assert (err <= 1e-5 * np.linalg.norm(outs[0], axis=1)).all()
