@@ -59,13 +59,13 @@ result line):
 9.  lm      the LM trainer at gemma2-2b's full width (D = 2,614,222,080,
             one card = one FL worker, batch 4 x 128, the CLI's
             ``--cs-chunk 1024 --cs-measure 256 --cs-topk 64``, BIHT 10):
-            3 ``mean`` steps, the loss falling; 3 ``obcsaa`` steps, every
+            3 ``mean`` steps, the loss falling; 2 ``obcsaa`` steps, every
             decoded chunk finite, at most decode_k nonzeros and of norm
             ‖top-κ(g_chunk)‖; a timed step split into stages by CUDA
             events, the largest leaves' ms, a profiled step, peak memory;
             no launch of K1-K7 (the reference's trainer runs no Pallas
-            kernel); then ``python -m repro_torch.launch.train --arch
-            gemma2-2b --steps 1``
+            kernel); its CLI ``python -m repro_torch.launch.train --arch
+            gemma2-2b --steps 1`` runs with the CLI groups
 10. decode  the LM decode path at full width, f32: (10a) gemma2-2b, B = 2,
             ``make_seeded_prefill`` over a 4,160-token prompt (past the
             4,096 window) into a 4,176-long cache, 16 decode steps on
@@ -76,29 +76,31 @@ result line):
             experts top-6 + 2 shared, D = 16,210,324,992), B = 4, prompt
             32, capacity_factor 8, the same gate and no dropped route;
             init s, prefill ms, ms per decode step, tokens/s, peak memory
-            and the device-busy share of decode steps; (10c) ``python -m
-            repro_torch.launch.decode_demo --arch gemma2-2b --batch 4
-            --prompt-len 32 --gen 16`` in bf16; no launch of K1-K7
+            and the device-busy share of decode steps; (10c, with the CLI
+            groups) ``python -m repro_torch.launch.decode_demo --arch
+            gemma2-2b --batch 4 --prompt-len 32 --gen 16`` in bf16; no
+            launch of K1-K7
 11. family  the other model families at full width, f32: (11a)
-            mamba2-2.7b, B = 2, a 496-token prompt stepped through
+            mamba2-2.7b, B = 2, a 368-token prompt stepped through
             ``decode_step`` (an SSM has no prefill seeding) and 16 tokens
-            on their own argmax, all 512 positions against the forward
-            (two SSD chunks of 256) at the reference test's gate; (11b)
-            zamba2-7b, 240 + 16 tokens, the same gate, and the 13
+            on their own argmax, all 384 positions against the forward
+            (three SSD chunks of 128) at the reference test's gate; (11b)
+            zamba2-7b, 48 + 16 tokens, the same gate, and the 13
             shared-block layers' k/v rows against prefill's seeds, the
             other 68 layers' rows exactly zero; ms per step, tokens/s,
             forward ms, peak memory and the busy share of 4 steps; (11c)
             the trainer on mamba2-2.7b (batch 4 x 128): 2 ``mean`` steps,
             the loss falling, 1 gated ``obcsaa`` step split into stages,
-            then ``python -m repro_torch.launch.train --arch mamba2-2.7b
+            and ``python -m repro_torch.launch.train --arch mamba2-2.7b
             --agg mean --steps 2``; (11d) internvl2-1b,
             ``make_seeded_prefill`` over 256 image embeddings and a
             32-token prompt, 16 steps against the forward with the image
-            prefix, then its trainer CLI; (11e) whisper-base, ``encode``
+            prefix, and its trainer CLI; (11e) whisper-base, ``encode``
             over 1,500 frames, ``seed_cross_cache``, 32 steps against
-            ``decode_full``, then its trainer CLI; (11f) ``python -m
+            ``decode_full``, and its trainer CLI; (11f) ``python -m
             repro_torch.launch.decode_demo --arch mamba2-2.7b --batch 4
-            --prompt-len 32 --gen 16`` in bf16; no launch of K1-K7
+            --prompt-len 32 --gen 16`` in bf16 (the CLIs with the CLI
+            groups); no launch of K1-K7
 12. zoo     the zoo round (``engine/zoo.py``, ``engine/zoo_train.py``) at
             gemma2-2b's full width with benchmarks/zoo_bench.py's >=1B
             geometry (D_c = 16,384, S_c = 32, κ_c = 8, IHT 2, packed): K1-K4
@@ -114,9 +116,13 @@ result line):
             gradient row: 2 x 4, batch 1 x 32, SGD, bf16, remat full, two
             rounds (loss and budget finite, the master moved,
             params_from_master ∘ chunk_params the identity on the seed-0
-            init); (12c) ``python -m repro_torch.launch.train --zoo-train
-            --smoke`` with Adam, EF and token shards: resume ≡
-            uninterrupted bit for bit, then ``--arms 3``
+            init); (12c, with the CLI groups) ``python -m
+            repro_torch.launch.train --zoo-train --smoke`` with Adam, EF
+            and token shards: resume ≡ uninterrupted bit for bit, then
+            ``--arms 3``
+CLIs    the CLIs of phases 9-12, whose times no phase reports, after
+            phase 12 in two groups that each run at once
+            (``run_cli_groups``)
 13. fed.    the federation over processes at internvl2-1b's full width
             (D = 493,982,720), U = 4 ranks sharing the card over gloo
             (NCCL refuses two ranks on one device): (13a) the collectives
@@ -160,6 +166,25 @@ result line):
             ``main``: the ranks' checkpoint equals this process's in-turn
             carry after round 1, and round 2 from it the uninterrupted
             in-turn round 2, bit for bit; K1-K4 launch in every rank
+15. serve   the model axis of the serving path in phase 14's launch,
+            after 14c: prefill and ``decode_step`` split over the model
+            group (``models/tensor_parallel.py``; each rank 1/2 of every
+            large weight, its own share of the seed-0 init) and every
+            cache leaf laid out as ``cache_shardings`` gives it, f32 at
+            full width: (15a) 10a's gemma2-2b case, a split prefill over
+            the 4,160-token prompt into a 4,176-row cache and 8 greedy
+            steps, tokens equal to 10a's and logits within 1e-5 of their
+            max; (15b) minicpm3-4b (MLA, the latent cache split by batch
+            and columns), B = 2, prompt 32, 8 steps; (15c) mamba2-2.7b
+            (the SSM state split by batch and heads), prompt 32 stepped,
+            8 steps; 15b and 15c held the same way to the decode run
+            whole in this process before the launch wakes (the logits'
+            gate there: 1e-5, or the whole decode's own spread with its
+            rows decoded apart, where larger). Each rank's
+            parameter bytes equal the product rule over
+            ``param_shardings``, its cache blocks ``cache_shardings``';
+            ms a step, the prefill's ms, a step's collectives by group,
+            peak memory a rank; no launch of K1-K7
 
 Each path's launch counters are set to 0 just before it and read just
 after; a kernel of the path that was not launched fails the run.
@@ -1080,7 +1105,7 @@ def finish_cli(h, card, limit: float = 600.0) -> str:
                                                         - h["t0"])))
     except subprocess.TimeoutExpired:
         fail(f"{label}: python -m {module} {args} ran past {limit:.0f} s")
-    secs = time.perf_counter() - h["t0"]
+    secs = h.get("t_end", time.perf_counter()) - h["t0"]
     _STARTED.remove(h)
     for f in (h["out"], h["err"]):
         f.seek(0)
@@ -1095,12 +1120,6 @@ def finish_cli(h, card, limit: float = 600.0) -> str:
     log(f"{label} CLI: python -m {module} {args}: exit 0 in {secs:.1f} s "
         f"(start-up and init included); {card}")
     return out
-
-
-def run_cli(label, module, args, card) -> str:
-    """``python -m module args`` as a user starts it, from the checkout's
-    ``src``; fails the run on a non-zero exit. Returns its stdout."""
-    return finish_cli(start_cli(label, module, args), card)
 
 
 def run_slice(dev, task: Task):
@@ -2088,6 +2107,9 @@ LM_ARCH, LM_BATCH, LM_SEQ = "gemma2-2b", 4, 128
 LM_TRAIN = dict(learning_rate=3e-2, cs_chunk=1024, cs_measure=256,
                 cs_topk=64, biht_iters=10)
 LM_D = 2_614_222_080
+# steps of each aggregation before the ungated and the profiled obcsaa step
+# (3 mean steps: the loss must fall twice; 2 gated obcsaa steps)
+LM_STEPS = {"mean": 3, "obcsaa": 2}
 
 
 class StageClock:
@@ -2238,7 +2260,7 @@ def run_lm_phase(dev, card: str) -> dict:
             gate = LeafGate(ob, [p for p, _ in paths])
         clock = StageClock(gate)
         torch.cuda.reset_peak_memory_stats()
-        for t in range(3):
+        for t in range(LM_STEPS[agg]):
             ctx = steps_lib.default_round_ctx(seed=t, device=dev)
             ctx["hook"] = clock
             torch.cuda.synchronize()
@@ -2258,14 +2280,16 @@ def run_lm_phase(dev, card: str) -> dict:
             if not losses[agg][2] < losses[agg][1] < losses[agg][0]:
                 fail(f"lm mean: the loss does not fall: {losses[agg]}")
         else:
-            log(f"lm obcsaa gates (3 steps): {gate.chunks:,} decoded chunks "
+            log(f"lm obcsaa gates ({LM_STEPS['obcsaa']} steps): "
+                f"{gate.chunks:,} decoded chunks "
                 f"finite, at most {gate.max_nnz} nonzeros (decode_k "
                 f"{ob.decode_k}), norms = ‖top-κ(g)‖ within "
                 f"{gate.max_rel:.2e} relative, {gate.zero:,} all-zero "
                 f"chunks decoded to exactly 0")
             # one more step, ungated: host s/step and the device stages
             clock = StageClock()
-            ctx = steps_lib.default_round_ctx(seed=3, device=dev)
+            t_un = LM_STEPS["obcsaa"]
+            ctx = steps_lib.default_round_ctx(seed=t_un, device=dev)
             ctx["hook"] = clock
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
@@ -2276,7 +2300,7 @@ def run_lm_phase(dev, card: str) -> dict:
             ungated = time.perf_counter() - t0
             peak["obcsaa"] = torch.cuda.max_memory_allocated() / 2 ** 30
             st = clock.stages()
-            log(f"lm obcsaa step 3 (ungated): {ungated:.3f} s host clock, "
+            log(f"lm obcsaa step {t_un} (ungated): {ungated:.3f} s host clock, "
                 f"loss {float(m['loss']):.4f}; device ms: forward+backward "
                 f"{st['backward']:.1f}, compression {st['compress']:.1f}, "
                 f"decode {st['decode']:.1f}, update {st['update']:.1f} "
@@ -2291,7 +2315,7 @@ def run_lm_phase(dev, card: str) -> dict:
 
             def one_step():
                 nonlocal params, opt_state
-                ctx = steps_lib.default_round_ctx(seed=4, device=dev)
+                ctx = steps_lib.default_round_ctx(seed=t_un + 1, device=dev)
                 params, opt_state, _ = step(params, opt_state, batch, ctx)
 
             # CUPTI is set up by an empty profile, not by a whole step
@@ -2311,7 +2335,7 @@ def run_lm_phase(dev, card: str) -> dict:
         gc.collect()
     counts = build.launch_counts()
     expect_counts("lm (gemma2-2b, mean + obcsaa)", counts, {}, 0)
-    log(f"lm: s per step, median of steps 1-2: mean "
+    log(f"lm: s per step, median of the steps after the first: mean "
         f"{median(step_s['mean'][1:]):.3f}, obcsaa (gated) "
         f"{median(step_s['obcsaa'][1:]):.3f}; peak device memory "
         f"(max_memory_allocated): 3 mean steps {peak['mean']:.2f} GiB, the "
@@ -2319,11 +2343,8 @@ def run_lm_phase(dev, card: str) -> dict:
     del batch
     gc.collect()
     torch.cuda.empty_cache()
-
-    # the CLI as a user starts it: full width, obcsaa, on the card
-    run_cli("lm", "repro_torch.launch.train", ["--arch", LM_ARCH, "--steps",
-                                               "1"], card)
-    log(f"lm: phase 9 took {time.perf_counter() - t_phase:.1f} s")
+    log(f"lm: phase 9 took {time.perf_counter() - t_phase:.1f} s (its CLI "
+        "runs with the CLI groups after phase 12)")
     return counts
 
 
@@ -2523,13 +2544,8 @@ def run_lm_decode_phase(dev, card: str) -> dict:
     build.reset_launch_counts()
     for cell in DECODE_CELLS:
         run_decode_cell(dev, card, *cell)
-    out = run_cli("10c decode_demo", "repro_torch.launch.decode_demo",
-                  ["--arch", "gemma2-2b", "--batch", "4", "--prompt-len", "32",
-                   "--gen", "16"], card)
-    if "tok/s" not in out:
-        fail("the decode_demo CLI printed no tokens/s")
     counts = build.launch_counts()
-    # 10c's CLI runs in a process of its own, which these counters miss
+    # 10c's CLI runs with the CLI groups, in a process of its own
     expect_counts("lm decode (10a, 10b)", counts, {}, 0)
     log(f"lm decode: phase 10 took {time.perf_counter() - t_phase:.1f} s")
     return counts
@@ -2537,13 +2553,14 @@ def run_lm_decode_phase(dev, card: str) -> dict:
 
 # -- phase 11 -----------------------------------------------------------------
 
-# 11a mamba2-2.7b: a 496-token prompt stepped through decode_step (the SSM
-# families have no prefill seeding) plus 16 tokens on their own argmax: 512
-# positions, two SSD chunks of 256 in the forward it is held against; 11b
-# zamba2-7b: 240 + 16, the 13 shared-block layers' k/v rows against
-# prefill's seeds. f32 weights and compute, TF32 off.
-FAMILY_DECODE = (("11a", "mamba2-2.7b", 2, 496, 2_996_753_920),
-                 ("11b", "zamba2-7b", 2, 240, 6_673_653_584))
+# 11a mamba2-2.7b: a 368-token prompt stepped through decode_step (the SSM
+# families have no prefill seeding) plus 16 tokens on their own argmax: 384
+# positions, three SSD chunks of 128 in the forward it is held against, so
+# the state crosses chunk boundaries; 11b zamba2-7b: 48 + 16 (one SSD
+# chunk), the 13 shared-block layers' k/v rows against prefill's seeds. f32
+# weights and compute, TF32 off.
+FAMILY_DECODE = (("11a", "mamba2-2.7b", 2, 368, 2_996_753_920),
+                 ("11b", "zamba2-7b", 2, 48, 6_673_653_584))
 # 11c: the trainer's CLI defaults (as phase 9) on mamba2-2.7b
 SSM_TRAIN_ARCH = "mamba2-2.7b"
 
@@ -2855,21 +2872,10 @@ def run_families_phase(dev, card: str) -> dict:
     for cell in FAMILY_DECODE:
         run_recurrent_decode(dev, card, *cell)
     run_ssm_trainer(dev, card)
-    run_cli("11c", "repro_torch.launch.train",
-            ["--arch", SSM_TRAIN_ARCH, "--agg", "mean", "--steps", "2"], card)
     run_vlm_decode(dev, card)
-    run_cli("11d", "repro_torch.launch.train",
-            ["--arch", "internvl2-1b", "--steps", "2"], card)
     run_encdec_decode(dev, card)
-    run_cli("11e", "repro_torch.launch.train",
-            ["--arch", "whisper-base", "--steps", "2"], card)
-    out = run_cli("11f", "repro_torch.launch.decode_demo",
-                  ["--arch", "mamba2-2.7b", "--batch", "4", "--prompt-len",
-                   "32", "--gen", "16"], card)
-    if "tok/s" not in out:
-        fail("11f: the decode_demo CLI printed no tokens/s")
     counts = build.launch_counts()
-    # the CLIs run in processes of their own, which these counters miss
+    # the CLIs run with the CLI groups, in processes of their own
     expect_counts("families (11a-11e)", counts, {}, 0)
     log(f"families: phase 11 took {time.perf_counter() - t_phase:.1f} s")
     return counts
@@ -3273,17 +3279,40 @@ def _ckpt_arrays(path):
         return {k: f[k] for k in f.files}
 
 
-def run_zoo_cli(card) -> None:
-    """12c: ``python -m repro_torch.launch.train --zoo-train --smoke``
-    with Adam, EF and token shards from ``write_token_shards``: 3 rounds
-    uninterrupted, then 2 + ``--resume`` to 3 (the checkpoints equal bit
-    for bit), then ``--arms 3``."""
+def finish_clis(hs, card, limit: float = 600.0) -> list:
+    """``finish_cli`` for CLIs that run at once, each one's time taken to
+    its own exit. Returns their stdouts."""
+    t0 = min(h["t0"] for h in hs)
+    while time.perf_counter() - t0 < limit:
+        for h in hs:
+            if "t_end" not in h and h["proc"].poll() is not None:
+                h["t_end"] = time.perf_counter()
+        if all("t_end" in h for h in hs):
+            break
+        time.sleep(0.2)
+    return [finish_cli(h, card, limit) for h in hs]
+
+
+def run_cli_groups(card) -> None:
+    """The CLIs of phases 9-12, whose times no phase reports, as a user
+    starts them, in two groups that each run at once on the card (their
+    peaks fit it together): (A) 11c ``--arch mamba2-2.7b --agg mean
+    --steps 2``, 11d ``--arch internvl2-1b --steps 2``, 11e ``--arch
+    whisper-base --steps 2`` and 12c's uninterrupted 3 rounds and 2
+    rounds of ``--zoo-train --smoke`` with Adam, EF and token shards
+    from ``write_token_shards``; (B) 9's ``--arch gemma2-2b --steps 1``,
+    10c ``decode_demo --arch gemma2-2b``, 11f ``decode_demo --arch
+    mamba2-2.7b`` (bf16, batch 4, prompt 32, 16 tokens), 12c's resume of
+    the 2-round run to 3 (its checkpoint equal to the uninterrupted run's
+    bit for bit) and ``--arms 3``."""
     import tempfile
     from repro_torch.configs import get_smoke_config
     from repro_torch.data.tokens import write_token_shards
 
+    t0 = time.perf_counter()
     vocab = get_smoke_config("gemma2-2b").vocab_size
     rng = np.random.default_rng(0)
+    train, demo = "repro_torch.launch.train", "repro_torch.launch.decode_demo"
     with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
         data = write_token_shards(os.path.join(tmp, "tok"), [
             rng.integers(0, vocab, n) for n in (4096, 3000, 5000)])
@@ -3291,25 +3320,39 @@ def run_zoo_cli(card) -> None:
                 "--optimizer", "adam", "--error-feedback", "--data", data,
                 "--batch", "2", "--seq", "32"]
         a, b = os.path.join(tmp, "a"), os.path.join(tmp, "b")
-        run_cli("12c", "repro_torch.launch.train",
-                base + ["--steps", "3", "--ckpt-dir", a], card)
-        run_cli("12c", "repro_torch.launch.train",
-                base + ["--steps", "2", "--ckpt-dir", b], card)
-        out = run_cli("12c", "repro_torch.launch.train",
-                      base + ["--steps", "3", "--ckpt-dir", b, "--resume"],
-                      card)
-        if "resumed zoo-train at round 2" not in out:
+        group_a = [start_cli(*x) for x in (
+            ("11c", train, ["--arch", SSM_TRAIN_ARCH, "--agg", "mean",
+                            "--steps", "2"]),
+            ("11d", train, ["--arch", "internvl2-1b", "--steps", "2"]),
+            ("11e", train, ["--arch", "whisper-base", "--steps", "2"]),
+            ("12c", train, base + ["--steps", "3", "--ckpt-dir", a]),
+            ("12c", train, base + ["--steps", "2", "--ckpt-dir", b]))]
+        finish_clis(group_a, card)
+        group_b = [start_cli(*x) for x in (
+            ("lm", train, ["--arch", LM_ARCH, "--steps", "1"]),
+            ("10c decode_demo", demo, ["--arch", "gemma2-2b", "--batch",
+                                       "4", "--prompt-len", "32", "--gen",
+                                       "16"]),
+            ("11f", demo, ["--arch", "mamba2-2.7b", "--batch", "4",
+                           "--prompt-len", "32", "--gen", "16"]),
+            ("12c", train, base + ["--steps", "3", "--ckpt-dir", b,
+                                   "--resume"]),
+            ("12c", train, base + ["--steps", "2", "--arms", "3"]))]
+        outs = finish_clis(group_b, card)
+        for label, out in zip(("10c", "11f"), outs[1:3]):
+            if "tok/s" not in out:
+                fail(f"{label}: the decode_demo CLI printed no tokens/s")
+        if "resumed zoo-train at round 2" not in outs[3]:
             fail("12c: --resume did not resume at round 2")
         x, y = (_ckpt_arrays(os.path.join(p, "step_00000003"))
                 for p in (a, b))
         if x.keys() != y.keys() or not all(np.array_equal(x[k], y[k])
                                            for k in x):
             fail("12c: resumed != uninterrupted")
-        out = run_cli("12c", "repro_torch.launch.train",
-                      base + ["--steps", "2", "--arms", "3"], card)
-        if sum(ln.startswith("arm ") for ln in out.splitlines()) != 3:
+        if sum(ln.startswith("arm ") for ln in outs[4].splitlines()) != 3:
             fail("12c: --arms 3 did not report 3 arms")
     log(f"12c: resume ≡ uninterrupted bit for bit in all {len(x)} leaves")
+    log(f"the CLI groups of phases 9-12 took {time.perf_counter() - t0:.1f} s")
 
 
 def run_zoo_phase(dev, card: str, results: dict) -> dict:
@@ -3320,8 +3363,8 @@ def run_zoo_phase(dev, card: str, results: dict) -> dict:
     torch.cuda.empty_cache()
     paths["zoo_train"] = run_zoo_train_full(dev, card)
     torch.cuda.empty_cache()
-    run_zoo_cli(card)
-    log(f"zoo: phase 12 took {time.perf_counter() - t_phase:.1f} s")
+    log(f"zoo: phase 12 took {time.perf_counter() - t_phase:.1f} s (12c "
+        "runs with the CLI groups)")
     return paths
 
 
@@ -3793,15 +3836,18 @@ def zoo_procs_oracle(dev, path: str) -> None:
 
 
 def _wait_for(path: str, what: str, timeout: float = 600.0,
-              proc=None) -> None:
+              launch=None) -> None:
     """Wait for ``path`` to exist; fails after ``timeout`` s, or at once
-    when ``proc`` (a launch that should write it) has exited."""
+    when ``launch`` (a ``start_cli`` that should write it) has exited,
+    with its output."""
     t0 = time.perf_counter()
     while not os.path.exists(path):
         if time.perf_counter() - t0 > timeout:
             fail(f"waited {timeout:.0f} s for {what}")
-        if proc is not None and proc.poll() is not None:
-            fail(f"the launch that writes {what} exited {proc.returncode}")
+        if launch is not None and launch["proc"].poll() is not None:
+            finish_cli(launch, "")
+            fail(f"the launch that writes {what} exited "
+                 f"{launch['proc'].returncode}")
         time.sleep(0.2)
 
 
@@ -3869,6 +3915,7 @@ def zoo_rank_decode(dev, mesh, tmp, say) -> None:
     against 10a's."""
     from repro_torch.configs import get_config, scaled
     from repro_torch.dist import collectives as coll
+    from repro_torch.launch.mesh import ZooMesh
     from repro_torch.models import transformer
     from repro_torch.models.registry import build_model
     _, arch, B, P, _ = DECODE_CELLS[0]
@@ -3886,9 +3933,12 @@ def zoo_rank_decode(dev, mesh, tmp, say) -> None:
     t0 = time.perf_counter()
     prompt_state = torch.load(path, mmap=True)
     first = prompt_state["first"].to(dev)
-    cache = model.init_cache(B, total, dev, kv_group=mesh.world)
+    # the (R, 1) mesh: the K/V length over the whole world
+    length = ZooMesh(("data", "model"), (R, 1), group=mesh.world,
+                     world=mesh.world)
+    cache = model.init_cache(B, total, dev, mesh=length)
     transformer.seed_cache_from_prefill(cfg, cache, prompt_state["seeds"],
-                                        start=0, kv_group=mesh.world)
+                                        start=0, mesh=length)
     del prompt_state
     torch.cuda.synchronize()
     seed_s = time.perf_counter() - t0
@@ -3902,7 +3952,7 @@ def zoo_rank_decode(dev, mesh, tmp, say) -> None:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out, cache = model.decode_step(params, cache, tok, P + i,
-                                       kv_group=mesh.world)
+                                       mesh=length)
         torch.cuda.synchronize()
         ms.append((time.perf_counter() - t0) * 1e3)
         logits.append(out[:, 0])
@@ -3930,10 +3980,252 @@ def zoo_rank_decode(dev, mesh, tmp, say) -> None:
     torch.cuda.empty_cache()
 
 
+# -- phase 15 -----------------------------------------------------------------
+
+# the serving path's model axis: prefill and decode_step split over the
+# model group of the same 2 x 2 launch (tensor parallel: heads, hidden
+# columns, vocabulary; models/tensor_parallel.py), every cache leaf laid out
+# as cache_shardings gives it, f32 at full width. 15a 10a's gemma2-2b case
+# (the split prefill over its 4,160-token prompt, held to 10a's one-process
+# decode), 15b minicpm3-4b (MLA: the latent cache split by batch over data
+# and by columns over model), 15c mamba2-2.7b (the SSM state split by batch
+# and by heads, its prompt stepped), each held to the same decode run whole
+# in this process before the launch wakes
+SERVE_CELLS = (("15a", "gemma2-2b", 2, 4160, 2_614_222_080),
+               ("15b", "minicpm3-4b", 2, 32, 4_073_875_968),
+               ("15c", "mamba2-2.7b", 2, 32, 2_996_753_920))
+SERVE_GEN = 8
+# the bound on a whole decode's own spread (``serve_oracles``), which may
+# widen 15b's and 15c's gate past 1e-5: 1.5 times the largest reading on
+# the H100 (15c, 1.74e-05; PERF.md §6)
+SERVE_SPREAD_CAP = 2.6e-5
+
+
+def serve_prompt(cfg, B: int, P: int, dev) -> torch.Tensor:
+    """10a's prompt recipe (a CPU generator seeded 0)."""
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    return torch.randint(0, cfg.vocab_size, (B, P), generator=gen,
+                         dtype=torch.int32).to(dev)
+
+
+def serve_decode(model, params, prompt, mesh=None) -> dict:
+    """The prompt into a fresh cache (a seeded prefill for the attention
+    families, stepped through ``decode_step`` for the SSM), then
+    ``SERVE_GEN`` greedy steps, split over ``mesh`` or whole. Returns
+    the first token, the tokens fed (B, G), each step's logits over the
+    whole vocabulary (B, G, V) on the CPU, the prefill's and each step's
+    host ms (synchronised), a step's collectives by group (the greedy
+    pick's gather apart) and the cache."""
+    from repro_torch.dist import collectives as coll
+    from repro_torch.launch.steps import make_seeded_prefill
+    from repro_torch.models import tensor_parallel as tp
+    cfg = model.cfg
+    B, P = prompt.shape
+    total = P + DECODE_GEN          # 10a's cache: a multiple of the W = 2
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if cfg.family in ("dense", "moe", "vlm"):
+        lg, cache, pos = make_seeded_prefill(model, total, mesh=mesh)(
+            params, {"tokens": prompt})
+        lg = lg[:, -1]
+    else:
+        cache = model.init_cache(B, total, prompt.device, mesh=mesh)
+        for pos in range(P):
+            lg, cache = model.decode_step(params, cache,
+                                          prompt[:, pos:pos + 1], pos,
+                                          mesh=mesh)
+        lg, pos = lg[:, -1], P
+    tok = tp.greedy(lg, cfg, mesh)[:, None].to(torch.int32)
+    del lg
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    first, fed, logits, ms, by_group = tok, [], [], [], {}
+    for i in range(SERVE_GEN):
+        fed.append(tok)
+        coll.reset_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, cache = model.decode_step(params, cache, tok, pos + i,
+                                       mesh=mesh)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        for g, kinds in coll.by_group().items():
+            for k, v in kinds.items():
+                t = by_group.setdefault(g, {}).setdefault(k, [0, 0])
+                t[0] += v["bytes"]
+                t[1] += v["calls"]
+        logits.append(out[:, 0])
+        tok = tp.greedy(out[:, -1], cfg, mesh)[:, None].to(torch.int32)
+    whole = tp.gather_logits(torch.stack(logits, dim=1), cfg, mesh).cpu()
+    return {"first": first.cpu(), "fed": torch.cat(fed, dim=1).cpu(),
+            "logits": whole, "prefill_ms": prefill_ms, "ms": ms,
+            "by_group": by_group, "cache": cache}
+
+
+def serve_oracles(dev) -> dict:
+    """15b's and 15c's decodes whole in this process (15a's is 10a's):
+    {label: (fed, logits, floor)}. The floor is the whole decode's own
+    spread: its logits run again with the data split's blocks of B / W
+    rows one after the other (what a data rank runs alone), against the
+    B-row run, in units of the max: the f32 noise of a mere reordering,
+    which at mamba2-2.7b's width passes 1e-05 (PERF.md §6)."""
+    from repro_torch.configs import get_config, scaled
+    from repro_torch.models.registry import build_model
+    out = {}
+    for label, arch, B, P, _ in SERVE_CELLS[1:]:
+        t0 = time.perf_counter()
+        model = build_model(scaled(get_config(arch), dtype="float32"))
+        params = model.init(0, device=dev)
+        prompt, bl = serve_prompt(model.cfg, B, P, dev), B // ZP_W
+        whole = serve_decode(model, params, prompt)
+        rows = [serve_decode(model, params, prompt[d * bl:(d + 1) * bl])
+                for d in range(ZP_W)]
+        w_log = whole["logits"]
+        r_fed, r_log = (torch.cat([g[k] for g in rows])
+                        for k in ("fed", "logits"))
+        if not torch.equal(r_fed, whole["fed"]):
+            fail(f"{label} oracle: the whole decode's tokens change with "
+                 "its rows decoded apart")
+        floor = float((r_log - w_log).abs().max() / w_log.abs().max())
+        out[label] = (whole["fed"], w_log, floor)
+        del params, whole, rows
+        torch.cuda.empty_cache()
+        log(f"{label} oracle: {arch} whole in this process in "
+            f"{time.perf_counter() - t0:.1f} s; its logits with the "
+            f"{ZP_W} blocks of {bl} rows decoded apart within {floor:.2e} "
+            "of their max")
+    return out
+
+
+def serve_rank(dev, mesh, tmp, say) -> dict:
+    """Phase 15 on this rank: each cell's split decode from its own share
+    of the seed-0 init (``init_params``: each weight cut to the share as
+    it is drawn), its parameter and cache bytes held to the product rule over
+    ``param_shardings`` and to ``cache_shardings``' blocks, the ranks'
+    tokens equal; rank 0 writes the tokens and logits for the parent.
+    Returns this rank's launch counts (K1-K7: none)."""
+    from repro_torch import tree
+    from repro_torch.configs import get_config, scaled
+    from repro_torch.dist import collectives as coll
+    from repro_torch.dist.sharding import local_shape
+    from repro_torch.kernels import build
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import ZooMesh
+    from repro_torch.launch.steps import cache_shardings, param_shardings
+    from repro_torch.models import tensor_parallel as tp
+    from repro_torch.models.registry import build_model
+    logical = ZooMesh(("data", "model"), (ZP_W, ZP_M))
+    build.reset_launch_counts()
+    t_phase = time.perf_counter()
+    for label, arch, B, P, D_want in SERVE_CELLS:
+        cfg = scaled(get_config(arch), dtype="float32")
+        model = build_model(cfg)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = tp.init_params(model, 0, mesh, dev)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        init_peak = torch.cuda.max_memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats()
+        shapes = model.init(0, device="meta")
+        if sum(x.numel() for x in tree.leaves(shapes)) != D_want:
+            fail(f"{label} {arch}: D != {D_want:,}")
+        specs, _ = param_shardings(model, logical)
+        want_p = dryrun.spec_bytes(shapes, [dryrun._leaf(specs, k) for k, _
+                                            in tree.flatten_with_keys(
+                                                shapes)], logical)
+        got_p = sum(x.numel() * x.element_size()
+                    for x in tree.leaves(params))
+        got = serve_decode(model, params, serve_prompt(cfg, B, P, dev),
+                           mesh)
+        total = P + DECODE_GEN
+        whole = model.init_cache(B, total, "meta")
+        cspec = cache_shardings(whole, logical)
+        want_c = {k: local_shape(v.shape, cspec[k], logical)
+                  for k, v in whole.items()}
+        got_c = {k: tuple(v.shape) for k, v in got["cache"].items()}
+        if got_p != want_p or got_c != want_c:
+            fail(f"{label} rank {mesh.cell()}: parameter bytes {got_p:,} "
+                 f"(the product rule {want_p:,}) or cache blocks {got_c} "
+                 f"(cache_shardings' {want_c})")
+        cache_b = sum(x.numel() * x.element_size()
+                      for x in got["cache"].values())
+        if not coll.replicated([got["fed"].to(dev)], mesh.world):
+            fail(f"{label}: the ranks drew different tokens")
+        if coll.axis_index(mesh.world) == 0:
+            torch.save({k: got[k] for k in ("first", "fed", "logits")},
+                       os.path.join(tmp, f"serve_{label}.pt"))
+        peak = coll.all_gather(torch.tensor(
+            [torch.cuda.max_memory_allocated(dev)], device=dev), mesh.world,
+            tiled=True).tolist()
+        ms = got["ms"]
+        say(f"{label}: {arch} f32 split over the {ZP_W} x {ZP_M} ranks, B "
+            f"= {B}, prompt {P} ("
+            + ("a split prefill" if cfg.family != "ssm" else "stepped")
+            + f"), cache {total} rows: init of the share {init_s:.2f} s "
+            f"(each weight cut as it is drawn), prefill {got['prefill_ms']:.1f} ms, "
+            f"decode step median {sorted(ms)[len(ms) // 2]:.1f} ms (min "
+            f"{min(ms):.1f}, max {max(ms):.1f}; host clock, synchronised, "
+            f"rank 0); a step's collectives " + "; ".join(
+                f"{g}: " + ", ".join(
+                    f"{k} {v[1] // SERVE_GEN} calls {v[0] / SERVE_GEN / 1e3:.1f}"
+                    " kB" for k, v in sorted(kinds.items()))
+                for g, kinds in sorted(got["by_group"].items()))
+            + f"; parameters {got_p / 2**30:.3f} GiB a rank (the product "
+            f"rule's, 1/{ZP_M} of every leaf param_shardings splits; whole "
+            f"{4 * D_want / 2**30:.3f}), cache {cache_b / 2**20:.2f} MiB a "
+            f"rank (cache_shardings' blocks: " + ", ".join(
+                f"{k} {tuple(map(str, v))}" for k, v in cspec.items())
+            + "); peak of the prefill and decode by rank (GiB) "
+            + ", ".join(f"{v / 2**30:.2f}" for v in peak)
+            + f" (rank 0's init: {init_peak / 2**30:.2f}, its share and "
+            "one whole weight)")
+        del params, got
+        torch.cuda.empty_cache()
+    counts = build.launch_counts()
+    say(f"15: {time.perf_counter() - t_phase:.1f} s on rank 0")
+    return counts
+
+
+def check_serve(tmp, oracle10a, want) -> None:
+    """15a's tokens and logits against 10a's one-process decode (its first
+    ``SERVE_GEN`` steps), 15b's and 15c's against this process's whole
+    decodes: tokens equal, logits within 1e-5 of their max, or within
+    the whole decode's own spread where that is larger
+    (``serve_oracles``). The spread is itself bounded: above
+    ``SERVE_SPREAD_CAP`` the run fails, so the gate never passes
+    ``SERVE_SPREAD_CAP``."""
+    for label, arch, *_ in SERVE_CELLS:
+        got = torch.load(os.path.join(tmp, f"serve_{label}.pt"))
+        floor = 0.0
+        if label == "15a":
+            w_fed = oracle10a["fed"][:, :SERVE_GEN]
+            w_log = oracle10a["logits"][:, :SERVE_GEN]
+            if not torch.equal(got["first"], oracle10a["first"]):
+                fail("15a: the split prefill's greedy token != 10a's")
+        else:
+            w_fed, w_log, floor = want[label]
+            if floor > SERVE_SPREAD_CAP:
+                fail(f"{label} {arch}: the whole decode's own spread "
+                     f"{floor:.2e} passes its bound {SERVE_SPREAD_CAP:.1e}")
+        gate = max(1e-5, floor)
+        err = float((got["logits"] - w_log).abs().max()
+                    / w_log.abs().max())
+        if not torch.equal(got["fed"], w_fed) or err > gate:
+            fail(f"{label} {arch}: the split decode's tokens differ from the "
+                 f"whole decode's, or its logits by {err:.2e} of their max "
+                 f"(gate {gate:.2e})")
+        log(f"{label} {arch}: tokens equal the "
+            + ("10a one-process" if label == "15a" else "whole")
+            + f" decode's, logits within {err:.2e} of their max (gate "
+            f"{gate:.2e}: 1e-05, or the whole decode's own spread with its "
+            f"rows decoded apart, {floor:.2e}, where larger)")
+
+
 def zoo_rank() -> None:
-    """Phase 14 in each rank that ``torchrun`` starts (``chip_smoke.py
-    --zoo-rank DIR``): 14a and 14c in a world of the 2 x 2 mesh, then
-    14b through the trainer's CLI (``main(argv)``, which joins and
+    """Phases 14 and 15 in each rank that ``torchrun`` starts
+    (``chip_smoke.py --zoo-rank DIR``): 14a, 14c and 15 in a world of the
+    2 x 2 mesh, then 14b through the trainer's CLI (``main(argv)``, which joins and
     leaves its own world). Each rank writes its launch counts to DIR;
     rank 0 prints. Exits 1 on a mismatch."""
     sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -3958,9 +4250,10 @@ def zoo_rank() -> None:
     t0 = time.perf_counter()
     zoo_rank_decode(dev, mesh, tmp, say)
     say(f"14c: {time.perf_counter() - t0:.1f} s")
+    counts["serve_split"] = serve_rank(dev, mesh, tmp, say)
     leave_world()
     if rank == 0:
-        open(os.path.join(tmp, "done_14c"), "w").close()
+        open(os.path.join(tmp, "done_15"), "w").close()
     build.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -4043,9 +4336,13 @@ def run_zoo_procs_phase(dev, card: str, started: dict) -> dict:
         torch.save({"first": oracle["first"], "seeds": oracle["seeds"]},
                    path + ".tmp")
         os.replace(path + ".tmp", path)
+        serve_want = serve_oracles(dev)
         zoo_procs_oracle(dev, os.path.join(tmp, "oracle_14a.pt"))
-        _wait_for(os.path.join(tmp, "done_14c"), "the ranks' 14a and 14c",
-                  proc=h["proc"])
+        _wait_for(os.path.join(tmp, "done_15"),
+                  "the ranks' 14a, 14c and 15", launch=h)
+        t15 = time.perf_counter()
+        check_serve(tmp, oracle, serve_want)
+        log(f"15: held in {time.perf_counter() - t15:.1f} s")
         t0 = time.perf_counter()
         zr, rnd = zoo_train_oracle(dev)
         state = zr.init_state(zr.chunk_params(zr.model.init(0, device=dev)))
@@ -4094,7 +4391,9 @@ def run_zoo_procs_phase(dev, card: str, started: dict) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     paths = {p: {k: sum(c[p][k] for c in counts) for k in counts[0][p]}
-             for p in ("zoo_procs_surrogate", "zoo_procs_train")}
+             for p in ("zoo_procs_surrogate", "zoo_procs_train",
+                       "serve_split")}
+    expect_counts("serve split (15)", paths["serve_split"], {}, 0)
     log(f"zoo over processes: phase 14 took "
         f"{time.perf_counter() - t_phase:.1f} s")
     return paths
@@ -4170,6 +4469,7 @@ def main() -> None:
     paths["lm_decode"] = run_lm_decode_phase(dev, card)
     paths["families"] = run_families_phase(dev, card)
     paths.update(run_zoo_phase(dev, card, results))
+    run_cli_groups(card)
     paths["federation"] = run_federation_phase(dev, card)
     paths.update(run_zoo_procs_phase(dev, card, zoo_procs))
     kernels = []

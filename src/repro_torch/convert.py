@@ -7,7 +7,8 @@ draws — Φ, fades (complex64) and AWGN — into tensors, so a test can feed
 both packages the same numbers. ``lm_params_from_reference`` and
 ``lm_params_to_numpy`` do the same for an LM's nested parameter dict (the
 stacked (L, ...) layer leaves included), leaf for leaf, and for a decode
-cache. NumPy has no bfloat16 of its own: a bf16 leaf of the reference
+cache; ``lm_params_share`` cuts whole parameters into one model shard's
+share for tensor-parallel serving. NumPy has no bfloat16 of its own: a bf16 leaf of the reference
 (``ml_dtypes.bfloat16``) comes across by its bit pattern, and a bf16
 tensor goes back as f32, which holds it exactly.
 """
@@ -63,3 +64,13 @@ def lm_params_to_numpy(params):
         return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
     return tree.tree_map(to_numpy, params)
+
+
+def lm_params_share(params, cfg, model_parallel: int, shard: int):
+    """Model shard ``shard``'s share of the whole port parameters (of
+    ``cfg``; from ``lm_params_from_reference`` or the port's init) on a
+    mesh of ``model_parallel`` model shards: what a rank of a (W, M)
+    world holds for the serving path, whatever its worker row W
+    (``models.tensor_parallel.shard_params``)."""
+    from repro_torch.models.tensor_parallel import shard_params
+    return shard_params(params, cfg, model_parallel, shard)

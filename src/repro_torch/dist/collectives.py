@@ -23,7 +23,14 @@ here retries a collective or switches backend.
 collectives: a tensor's bytes for an all-reduce or a broadcast, the input
 shard's bytes for an all-gather. ``stats()`` adds each kind's time (CUDA
 events around the call for a CUDA tensor, the host clock otherwise);
-``reset_counters()`` sets everything to 0.
+``by_group()`` the same bytes and calls split by the name a group was
+given (``name_group``; ``launch.mesh.world_mesh`` names its "data" and
+"model" groups); ``reset_counters()`` sets everything to 0.
+
+The serving path's tensor parallelism (``models/tensor_parallel.py``)
+adds two: ``psum_``, a forward-only sum in place (no copy, no autograd),
+and ``argmax_split``, the greedy pick over a vocabulary whose columns
+are split in equal blocks over the model group.
 """
 from __future__ import annotations
 
@@ -39,6 +46,8 @@ BYTES: Dict[str, int] = {}
 CALLS: Dict[str, int] = {}
 _HOST_MS: Dict[str, float] = {}
 _EVENTS: List[tuple] = []
+_BY_GROUP: Dict[tuple, List[int]] = {}
+_GROUP_NAMES: Dict[object, str] = {}
 
 
 def reset_counters() -> None:
@@ -46,6 +55,23 @@ def reset_counters() -> None:
     CALLS.clear()
     _HOST_MS.clear()
     _EVENTS.clear()
+    _BY_GROUP.clear()
+
+
+def name_group(group, name: str) -> None:
+    """Count the collectives over ``group`` under ``name`` in
+    ``by_group()``."""
+    if group is not None:
+        _GROUP_NAMES[group] = name
+
+
+def by_group() -> Dict[str, Dict[str, dict]]:
+    """{group name: {kind: {"bytes": .., "calls": ..}}} since the last
+    ``reset_counters()``; a group without a name counts as "other"."""
+    out: Dict[str, Dict[str, dict]] = {}
+    for (name, kind), (nbytes, calls) in _BY_GROUP.items():
+        out.setdefault(name, {})[kind] = {"bytes": nbytes, "calls": calls}
+    return out
 
 
 def stats() -> Dict[str, dict]:
@@ -62,10 +88,15 @@ def stats() -> Dict[str, dict]:
 class _Count:
     """Counts one collective call of ``kind`` on ``x`` and times it."""
 
-    def __init__(self, kind: str, x: torch.Tensor):
+    def __init__(self, kind: str, x: torch.Tensor, group=None):
         self.kind, self.cuda = kind, x.is_cuda
-        BYTES[kind] = BYTES.get(kind, 0) + x.numel() * x.element_size()
+        n = x.numel() * x.element_size()
+        BYTES[kind] = BYTES.get(kind, 0) + n
         CALLS[kind] = CALLS.get(kind, 0) + 1
+        tally = _BY_GROUP.setdefault((_GROUP_NAMES.get(group, "other"),
+                                      kind), [0, 0])
+        tally[0] += n
+        tally[1] += 1
 
     def __enter__(self):
         if self.cuda:
@@ -98,9 +129,19 @@ def axis_size(group) -> int:
 
 def _all_reduce_(x: torch.Tensor, group) -> torch.Tensor:
     """Sum ``x`` over the group in place; ``x`` must be contiguous."""
-    with _Count("all_reduce", x):
+    with _Count("all_reduce", x, group):
         dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
     return x
+
+
+def psum_(x: torch.Tensor, group) -> torch.Tensor:
+    """Forward-only sum over the group, in place when ``x`` is
+    contiguous (a copy is summed otherwise): the reduction after a
+    row-split product, whose partial sum nothing else reads. No autograd;
+    no group: ``x``."""
+    if group is None:
+        return x
+    return _all_reduce_(x if x.is_contiguous() else x.contiguous(), group)
 
 
 def psum(x: torch.Tensor, group) -> torch.Tensor:
@@ -148,7 +189,7 @@ def pmax(x: torch.Tensor, group) -> torch.Tensor:
     if group is None:
         return x
     y = x.clone(memory_format=torch.contiguous_format)
-    with _Count("all_reduce_max", y):
+    with _Count("all_reduce_max", y, group):
         dist.all_reduce(y, op=dist.ReduceOp.MAX, group=group)
     return y
 
@@ -164,7 +205,7 @@ def broadcast(x: torch.Tensor, group, *, src: int = 0) -> torch.Tensor:
     worker, in place (the PS's downlink of the decoded gradient)."""
     if group is None:
         return x
-    with _Count("broadcast", x):
+    with _Count("broadcast", x, group):
         dist.broadcast(x, src=dist.get_global_rank(group, src), group=group)
     return x
 
@@ -193,9 +234,27 @@ def _gather(x: torch.Tensor, group) -> List[torch.Tensor]:
     x = x.contiguous()
     wire = x.view(torch.uint8) if x.dtype == torch.bfloat16 else x
     out = [torch.empty_like(wire) for _ in range(axis_size(group))]
-    with _Count("all_gather", x):
+    with _Count("all_gather", x, group):
         dist.all_gather(out, wire, group=group)
     return [o.view(x.dtype) for o in out]
+
+
+def argmax_split(x: torch.Tensor, group) -> torch.Tensor:
+    """``torch.argmax`` over the last dim of rows whose columns are split
+    in equal blocks over the group (rank r holds columns [r·n, (r+1)·n)):
+    the index in the whole row, ties to the lowest, on every rank. Each
+    rank's (max, global index) pair travels as two float64s, which hold
+    both exactly: one all-gather. No group: ``torch.argmax``."""
+    if group is None:
+        return torch.argmax(x, dim=-1)
+    n = x.shape[-1]
+    idx = torch.argmax(x, dim=-1, keepdim=True)
+    pair = torch.cat([torch.gather(x, -1, idx).to(torch.float64),
+                      (idx + axis_index(group) * n).to(torch.float64)], -1)
+    every = torch.stack(_gather(pair, group))          # (R, ..., 2)
+    # the first rank holding the max holds its lowest index
+    best = torch.argmax(every[..., 0], dim=0, keepdim=True)
+    return torch.gather(every[..., 1], 0, best)[0].to(torch.int64)
 
 
 def _join(parts, axis: int, tiled: bool) -> torch.Tensor:

@@ -15,6 +15,8 @@ of names, or None; ``()`` replicates (the reference's ``P()``).
   model axis; worker axes are never used, every FL worker holds the
   whole model. Leaves under a ``STACKED_KEYS`` collection keep their
   leading dim (the layer axis) whole.
+- ``local_shape(shape, spec, mesh)``: the block of a leaf one rank holds
+  under a spec (each dim over the product of the sizes of its axes).
 - ``constrain(x, axes)`` is the identity: one card holds every shard.
 """
 from __future__ import annotations
@@ -78,6 +80,25 @@ def best_spec(shape: Sequence[int], hints, mesh) -> tuple:
         else:
             parts.append(None)
     return tuple(parts)
+
+
+def local_shape(shape: Sequence[int], spec, mesh) -> tuple:
+    """The shape of one rank's block of a ``shape`` leaf laid out by
+    ``spec`` on ``mesh``: each dim over the product of the sizes of the
+    axes its entry names (which must divide it, as ``best_spec``'s
+    do)."""
+    sizes = _axis_sizes(mesh)
+    out = []
+    for i, dim in enumerate(shape):
+        part = spec[i] if i < len(spec) else None
+        div = 1
+        for ax in ((part,) if isinstance(part, str) else part or ()):
+            div *= sizes[ax]
+        if dim % div:
+            raise ValueError(f"local_shape: dim {i} of {tuple(shape)} does "
+                             f"not split {div} ways ({spec})")
+        out.append(dim // div)
+    return tuple(out)
 
 
 def _map_with_keys(fn, t):

@@ -20,12 +20,18 @@ of that world. The program of each kind:
   ``"model_axis": "split"``.
 - **train**, ``--agg mean``: ``launch.steps.make_train_step`` with every
   card a worker and the weights whole (``"model_axis": "replicated"``).
-- **prefill**: ``model.prefill`` on the batch shard of the data axis
-  (``global_batch / W`` sequences), the weights whole.
-- **decode**: ``model.decode_step`` with the whole batch and the K/V
-  cache split over its length on the data group (``kv_group``), the
-  MLA, SSM and cross leaves whole, the weights whole. ``long_500k`` is
-  skipped for the full-attention archs, with the reference's reason.
+- **prefill**: the split prefill (``model.prefill(mesh=)``) of rank
+  (0, 0) on the batch shard of the data axis (``global_batch / W``
+  sequences), its share of the weights (``models/tensor_parallel.py``:
+  heads, hidden columns, vocabulary rows over the model group, 1/M of
+  every leaf ``param_shardings`` splits); ``"model_axis": "split"``.
+- **decode**: the split ``model.decode_step(mesh=)`` of rank (0, 0)
+  with the whole batch, its share of the weights and its block of every
+  cache leaf as ``cache_shardings`` lays it out (``init_cache(mesh=)``:
+  the K/V length or the MLA/SSM batch over the data group, KV heads,
+  latent, channels and SSM heads over the model group);
+  ``"model_axis": "split"``. ``long_500k`` is skipped for the
+  full-attention archs, with the reference's reason.
 
 Each result records:
 
@@ -34,7 +40,8 @@ Each result records:
   (``"counts"``); XLA's ``flops`` counts every op.
 - ``memory``: bytes per card of the parameters (the product rule over
   ``launch.steps.param_shardings``' specs where the program splits the
-  model axis, the whole leaves where it does not), the zoo's master
+  model axis, which the serving share's bytes equal, the whole leaves
+  where it does not), the zoo's master
   rows, the optimizer state, the batch and the cache (by
   ``cache_shardings``' split); ``step_peak``, the most bytes of tensors
   the step itself made that were alive at once (activations, saved
@@ -235,38 +242,46 @@ def _train_mean(model, tcfg, mesh, shape):
         tree.leaves(params) + tree.leaves(opt_state) + list(batch.values())
 
 
+def _share(model, mesh):
+    """Rank (0, 0)'s share of the weights for the split serving path, and
+    its bytes: the product rule over ``param_shardings``."""
+    from repro_torch.models.tensor_parallel import shard_params
+    params = shard_params(model.init(0, device="meta"), model.cfg,
+                          mesh.shape["model"], 0)
+    return params, sum(_bytes(x) for x in tree.leaves(params))
+
+
 def _prefill(model, mesh, shape):
     W = num_workers(mesh)
     rows = max(shape.global_batch // W, 1)
-    params = model.init(0, device="meta")
+    params, nbytes = _share(model, mesh)
     batch = _meta_batch(model, shape, rows)
-    mem = {"params": sum(_bytes(x) for x in tree.leaves(params)),
-           "master": 0, "optimizer": 0,
+    mem = {"params": nbytes, "master": 0, "optimizer": 0,
            "batch": sum(_bytes(v) for v in batch.values()), "cache": 0}
 
     def run():
-        model.prefill(params, batch)
+        model.prefill(params, batch, mesh=mesh)
 
-    return mem, run, {"model_axis": "replicated", "rows_per_card": rows}, \
+    return mem, run, {"model_axis": "split", "rows_per_card": rows}, \
         tree.leaves(params) + list(batch.values())
 
 
 def _decode(model, mesh, shape):
-    params = model.init(0, device="meta")
+    params, nbytes = _share(model, mesh)
     B = shape.global_batch
-    cache = model.init_cache(B, shape.seq_len, "meta", kv_group=mesh.group)
+    cache = model.init_cache(B, shape.seq_len, "meta", mesh=mesh)
     whole = model.init_cache(B, shape.seq_len, "meta")
     split = steps_lib.cache_shardings(whole, mesh)
     tokens = torch.empty((B, 1), dtype=torch.int32, device="meta")
-    mem = {"params": sum(_bytes(x) for x in tree.leaves(params)),
-           "master": 0, "optimizer": 0, "batch": _bytes(tokens),
+    mem = {"params": nbytes, "master": 0, "optimizer": 0,
+           "batch": _bytes(tokens),
            "cache": sum(_bytes(x) for x in cache.values())}
 
     def run():
         model.decode_step(params, cache, tokens, shape.seq_len - 1,
-                          kv_group=mesh.group)
+                          mesh=mesh)
 
-    return mem, run, {"model_axis": "replicated", "rows_per_card": B,
+    return mem, run, {"model_axis": "split", "rows_per_card": B,
                       "cache_split": {k: list(map(str, v)) for k, v in
                                       split.items()},
                       "cache_shapes": {k: list(v.shape) for k, v in

@@ -38,6 +38,8 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.distributed as dist
 
+from repro_torch.dist import collectives as coll
+
 
 @dataclass(frozen=True)
 class ZooMesh:
@@ -118,6 +120,8 @@ def world_mesh(model_parallel: int = 1) -> ZooMesh:
         workers, model = cols[m], rows[d]
     mesh = ZooMesh(("data", "model"), (W, M), group=workers,
                    model_group=model, world=dist.group.WORLD)
+    coll.name_group(workers, "data")
+    coll.name_group(model, "model")
     _WORLD_MESHES[M] = mesh
     return mesh
 

@@ -58,7 +58,7 @@ from repro_torch.core.obcsaa import (OBCSAAConfig, shardmap_compress,
                                      shardmap_reconstruct)
 from repro_torch.device import resolve_device
 from repro_torch.dist import collectives as coll
-from repro_torch.dist.sharding import (best_spec, infer_param_sharding,
+from repro_torch.dist.sharding import (infer_param_sharding,
                                        infer_param_specs)
 from repro_torch.launch.mesh import ZooMesh, make_zoo_mesh, num_workers
 from repro_torch.models import transformer
@@ -528,26 +528,28 @@ def make_zoo_train_round(model: Model, tcfg: TrainConfig, mesh, **kw):
 
 # --- serve steps -------------------------------------------------------------
 
-def make_prefill_step(model: Model) -> Callable:
+def make_prefill_step(model: Model, mesh=None) -> Callable:
+    """``step(params, batch) -> (logits, cache seeds)``; with a ``mesh``
+    of M > 1 the split prefill (``model.prefill(mesh=)``)."""
     def step(params, batch):
-        return model.prefill(params, batch)
+        return model.prefill(params, batch, mesh=mesh)
 
     return step
 
 
-def make_decode_step(model: Model, kv_group=None) -> Callable:
-    """``step(params, cache, tokens, pos)``; with ``kv_group`` the cache's
-    K/V length is split over the group (``model.init_cache(...,
-    kv_group=)``)."""
+def make_decode_step(model: Model, mesh=None) -> Callable:
+    """``step(params, cache, tokens, pos)``; with a ``mesh`` the model
+    over its model group and the cache as ``cache_shardings`` lays it out
+    (``model.init_cache(..., mesh=)``; with M = 1 the K/V length over the
+    data group)."""
     def step(params, cache, tokens, pos):
-        return model.decode_step(params, cache, tokens, pos,
-                                 kv_group=kv_group)
+        return model.decode_step(params, cache, tokens, pos, mesh=mesh)
 
     return step
 
 
 def make_seeded_prefill(model: Model, total_len: int,
-                        kv_group=None) -> Callable:
+                        mesh=None) -> Callable:
     """Prefill a prompt prefix and seed a ``total_len`` decode cache.
 
     Returns ``step(params, batch) -> (logits, cache, offset)``: the
@@ -555,23 +557,24 @@ def make_seeded_prefill(model: Model, total_len: int,
     may be zero-length) runs through the full forward once, its per-layer
     cache seeds land in slots [0, offset) of a fresh cache on the tokens'
     device, and decoding continues at ``pos = offset + i``. Decode steps
-    are text-only, so an image enters through the cache. With
-    ``kv_group`` the cache's K/V length is split over the group and each
-    rank keeps its own rows of the seeds. The SSM, hybrid and audio
-    families have no positional seeds and raise
-    (``transformer.seed_cache_from_prefill``), as in the reference."""
+    are text-only, so an image enters through the cache. With a ``mesh``
+    of M = 1 the cache's K/V length is split over its data group and each
+    rank keeps its own rows of the seeds; with M > 1 the prefill is split
+    over its model group and each rank keeps its block of the seeds
+    (``transformer.seed_cache_from_prefill``). The SSM,
+    hybrid and audio families have no positional seeds and raise, as in
+    the reference."""
     cfg = model.cfg
 
     def step(params, batch):
         tokens = batch["tokens"]
-        logits, seeds = model.prefill(params, batch)
+        logits, seeds = model.prefill(params, batch, mesh=mesh)
         img = batch.get("image_embeds")
         offset = tokens.shape[1] + (img.shape[1] if img is not None else 0)
         cache = model.init_cache(tokens.shape[0], total_len, tokens.device,
-                                 kv_group=kv_group)
+                                 mesh=mesh)
         cache = transformer.seed_cache_from_prefill(cfg, cache, seeds,
-                                                    start=0,
-                                                    kv_group=kv_group)
+                                                    start=0, mesh=mesh)
         return logits, cache, offset
 
     return step
@@ -584,15 +587,9 @@ def cache_shardings(cache_shapes, mesh) -> Dict[str, tuple]:
     ``transformer.cache_shardings_hints`` (``cross_k``/``cross_v`` take
     ``k``/``v``'s), through ``dist.sharding.best_spec``: {name: spec
     tuple}. ``cache_shapes`` maps a leaf's name to a tensor (a meta one
-    allocates nothing) or a ``(shape, dtype)`` pair."""
-    hints = transformer.cache_shardings_hints()
-    hints.update({"cross_k": hints["k"], "cross_v": hints["v"]})
-    out = {}
-    for name, leaf in cache_shapes.items():
-        shape = tuple(leaf.shape if hasattr(leaf, "shape") else leaf[0])
-        out[name] = best_spec(shape, hints.get(name, (None,) * len(shape)),
-                              mesh)
-    return out
+    allocates nothing) or a ``(shape, dtype)`` pair. It is the layout
+    ``model.init_cache(mesh=)`` allocates (``transformer.cache_specs``)."""
+    return transformer.cache_specs(cache_shapes, mesh)
 
 
 def param_shardings(model: Model, mesh, sample_batch_specs=None):

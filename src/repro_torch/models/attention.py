@@ -14,6 +14,16 @@ donated cache buffer is, and the cache tensors are returned. MLA decodes
 with the absorbed-latent scores against the cached ``ckv``/``kr``.
 Cross-attention (whisper's decoder) attends over the encoder's K/V,
 without RoPE, in ``gqa_forward(kv=...)`` and ``gqa_decode(cross=True)``.
+
+Tensor-parallel serving (``models/tensor_parallel.py``) passes the model
+``group``. GQA then runs on this rank's query and KV heads (its share of
+``wq``/``wk``/``wv``/``wo``: the cache holds its KV heads) and sums the
+output over the group after ``wo``. MLA runs on its heads too; its
+``w_dq``/``w_dkv``/``w_kr`` are split by input rows, so the latent, the
+query's latent and the rope key are one summed partial product, and the
+cache's ``ckv`` holds this rank's columns of the latent: the absorbed
+decode scores this rank's heads' latent queries against them, the
+scores and the latent output being partial over the group.
 """
 from __future__ import annotations
 
@@ -131,11 +141,13 @@ def blockwise_attention(q, k, v, q_positions, k_positions, *, scale,
 
 def gqa_forward(p, x, a: AttentionConfig, *, positions, causal=True,
                 is_global: Optional[bool] = None, use_rope=True, kv=None,
-                kv_positions=None):
+                kv_positions=None, group=None):
     """Self-attention over x (B, S, d), or cross-attention from x to
     ``kv`` (B, S_kv, d), the encoder's output, at ``kv_positions``.
     With ``use_rope`` RoPE rotates q, and k unless it comes from ``kv``.
-    Returns (out, (k, v)); k/v seed a decode cache."""
+    Returns (out, (k, v)); k/v seed a decode cache. With ``group`` the
+    weights are this rank's heads: k/v are its KV heads and the output is
+    summed over the group."""
     hd = p["wq"].shape[-1]
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(x.dtype))
     src = kv if kv is not None else x
@@ -151,7 +163,7 @@ def gqa_forward(p, x, a: AttentionConfig, *, positions, causal=True,
         q, k, v, positions, k_pos, scale=1.0 / math.sqrt(hd), causal=causal,
         window=window, is_global=is_global, cap=a.logit_softcap)
     out = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype))
-    return out, (k, v)
+    return coll.psum_(out, group), (k, v)
 
 
 def decode_attention_sharded(q, k, v, pos: int, *, scale, window=None,
@@ -204,14 +216,16 @@ def decode_attention_sharded(q, k, v, pos: int, *, scale, window=None,
 def gqa_decode(p, x, a: AttentionConfig, *, cache_k, cache_v, pos: int,
                is_global: Optional[bool] = None, use_rope: bool = True,
                cross: bool = False, sharded_cache_chunks: int = 0,
-               kv_group=None):
+               kv_group=None, group=None):
     """x: (B, 1, d); cache_k/v: (B, S, KV, hd). Self-attention writes the
     new row into the cache in place at ``pos`` and attends causally;
     ``cross=True`` attends over the whole given cache (the encoder's K/V)
-    and writes nothing. With ``kv_group`` (self-attention) the cache's
-    length is split over the group: cache_k/v are this rank's S rows of
-    the R·S, at positions rank·S onward; only the rank that owns ``pos``
-    writes the new row, and the attention is ``decode_attention_sharded``
+    and writes nothing. With ``kv_group`` the cache's length is split
+    over the group: cache_k/v are this rank's S rows of the R·S, at
+    positions rank·S onward; only the rank that owns ``pos`` writes the
+    new row, and the attention is ``decode_attention_sharded`` over the
+    group (for ``cross``, unmasked). With ``group`` (tensor parallel) the
+    weights and the cache are this rank's heads and the output is summed
     over the group. Returns (out, cache_k, cache_v)."""
     hd = p["wq"].shape[-1]
     S = cache_k.shape[1]
@@ -220,7 +234,7 @@ def gqa_decode(p, x, a: AttentionConfig, *, cache_k, cache_v, pos: int,
     if use_rope:
         q = apply_rope(q, q_pos, a.rope_theta)
     offset = 0
-    if kv_group is not None and not cross:
+    if kv_group is not None:
         offset = coll.axis_index(kv_group) * S
     if not cross:
         knew = torch.einsum("bsd,dhk->bshk", x, p["wk"].to(x.dtype))
@@ -234,8 +248,10 @@ def gqa_decode(p, x, a: AttentionConfig, *, cache_k, cache_v, pos: int,
     window = a.window if a.window else None
     kw = dict(scale=1.0 / math.sqrt(hd), window=window, is_global=is_global,
               cap=a.logit_softcap)
-    if kv_group is not None and not cross:
-        out = decode_attention_sharded(q, cache_k, cache_v, pos,
+    if kv_group is not None:
+        # a cross cache is the encoder's: every key is visible
+        out = decode_attention_sharded(q, cache_k, cache_v,
+                                       (1 << 30) if cross else pos,
                                        n_chunks=sharded_cache_chunks or 1,
                                        group=kv_group, offset=offset, **kw)
     elif sharded_cache_chunks and not cross:
@@ -246,14 +262,34 @@ def gqa_decode(p, x, a: AttentionConfig, *, cache_k, cache_v, pos: int,
         out = _block_attend(q, cache_k, cache_v, q_pos, k_pos,
                             causal=not cross, **kw)
     out = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype))
-    return out, cache_k, cache_v
+    return coll.psum_(out, group), cache_k, cache_v
 
 
 # --- MLA ---------------------------------------------------------------------
 
-def _mla_q(p, x, a: AttentionConfig, positions, eps):
+def _mla_inputs(p, x, a: AttentionConfig, eps, group):
+    """(the normed latent c_kv, the rope key before RoPE, the normed query
+    latent or None): x's products with ``w_dkv``, ``w_kr`` and ``w_dq``.
+    With ``group`` the three weights are this rank's input rows: the
+    products of x's matching columns are partial, summed over the group
+    in one all-reduce."""
+    ws = [p["w_dkv"], p["w_kr"]] + ([p["w_dq"]] if a.q_lora_rank else [])
+    if group is None:
+        parts = [x @ w.to(x.dtype) for w in ws]
+    else:
+        n = ws[0].shape[0]
+        xs = x[..., coll.axis_index(group) * n:(coll.axis_index(group) + 1)
+               * n]
+        both = coll.psum_(torch.cat([xs @ w.to(x.dtype) for w in ws], -1),
+                          group)
+        parts = torch.split(both, [w.shape[-1] for w in ws], dim=-1)
+    c_kv = rmsnorm(parts[0], p["kv_norm"], eps)
+    cq = rmsnorm(parts[2], p["q_norm"], eps) if a.q_lora_rank else None
+    return c_kv, parts[1], cq
+
+
+def _mla_q(p, x, a: AttentionConfig, positions, cq):
     if a.q_lora_rank:
-        cq = rmsnorm(x @ p["w_dq"].to(x.dtype), p["q_norm"], eps)
         q = torch.einsum("bsr,rhk->bshk", cq, p["w_uq"].to(x.dtype))
     else:
         q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(x.dtype))
@@ -262,14 +298,27 @@ def _mla_q(p, x, a: AttentionConfig, positions, eps):
     return q_nope, q_rope
 
 
-def mla_forward(p, x, a: AttentionConfig, *, positions, eps=1e-6):
+def _own_cols(x, group, n: int):
+    """This rank's block of n of x's last dim (all of it without a
+    group)."""
+    if group is None:
+        return x
+    m = coll.axis_index(group)
+    return x[..., m * n:(m + 1) * n]
+
+
+def mla_forward(p, x, a: AttentionConfig, *, positions, eps=1e-6,
+                group=None):
     """Materialised-K MLA for train/prefill; the values are
     ``v_head_dim`` wide, the queries and keys ``qk_nope + qk_rope``.
-    Returns (out, (c_kv, k_rope)); the pair seeds a decode cache."""
-    q_nope, q_rope = _mla_q(p, x, a, positions, eps)
-    c_kv = rmsnorm(x @ p["w_dkv"].to(x.dtype), p["kv_norm"], eps)
-    k_rope = apply_rope((x @ p["w_kr"].to(x.dtype))[:, :, None, :],
-                        positions, a.rope_theta)           # (B,S,1,rd)
+    Returns (out, (c_kv, k_rope)); the pair seeds a decode cache. With
+    ``group`` (tensor parallel) the heads are this rank's, the output is
+    summed over the group, and c_kv is this rank's columns of the
+    latent."""
+    c_kv, kr, cq = _mla_inputs(p, x, a, eps, group)
+    q_nope, q_rope = _mla_q(p, x, a, positions, cq)
+    k_rope = apply_rope(kr[:, :, None, :], positions,
+                        a.rope_theta)                      # (B,S,1,rd)
     k_nope = torch.einsum("bsr,rhk->bshk", c_kv, p["w_uk"].to(x.dtype))
     v = torch.einsum("bsr,rhk->bshk", c_kv, p["w_uv"].to(x.dtype))
     q = torch.cat([q_nope, q_rope], dim=-1)
@@ -279,36 +328,60 @@ def mla_forward(p, x, a: AttentionConfig, *, positions, eps=1e-6):
     out = blockwise_attention(q, k, v, positions, positions, scale=scale,
                               cap=a.logit_softcap)
     out = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype))
-    return out, (c_kv, k_rope[:, :, 0, :])
+    r_own = a.kv_lora_rank // coll.axis_size(group)
+    return coll.psum_(out, group), (_own_cols(c_kv, group, r_own),
+                                    k_rope[:, :, 0, :])
 
 
 def mla_decode(p, x, a: AttentionConfig, *, cache_ckv, cache_kr, pos: int,
-               eps=1e-6):
+               eps=1e-6, group=None):
     """Absorbed-latent decode: the query is taken into the latent space
     through W_uk and scored against the cached latents; the output comes
     back through W_uv. cache_ckv: (B, S, r); cache_kr: (B, S, rd), both
-    written in place at ``pos``. Returns (out, cache_ckv, cache_kr)."""
+    written in place at ``pos``. Returns (out, cache_ckv, cache_kr).
+
+    With ``group`` cache_ckv holds this rank's r/M columns of the latent
+    and the weights its H/M heads: the heads' latent queries are gathered
+    over the group and each rank scores its columns of them against its
+    columns of the cache (its heads' rope scores added in); the group
+    sums the scores, every rank takes the softmax of all H heads, weighs
+    its latent columns, and the gathered latent output of its own heads
+    goes through W_uv and ``wo``, summed over the group."""
     S = cache_ckv.shape[1]
     q_pos = torch.full((1,), pos, dtype=torch.int32, device=x.device)
-    q_nope, q_rope = _mla_q(p, x, a, q_pos, eps)           # (B,1,H,*)
-    c_new = rmsnorm(x @ p["w_dkv"].to(x.dtype), p["kv_norm"], eps)
-    kr_new = apply_rope((x @ p["w_kr"].to(x.dtype))[:, :, None, :], q_pos,
+    c_new, kr_new, cq = _mla_inputs(p, x, a, eps, group)
+    q_nope, q_rope = _mla_q(p, x, a, q_pos, cq)           # (B,1,H,*)
+    kr_new = apply_rope(kr_new[:, :, None, :], q_pos,
                         a.rope_theta)[:, :, 0, :]
-    cache_ckv[:, pos:pos + 1] = c_new.to(cache_ckv.dtype)
+    rl = cache_ckv.shape[-1]
+    cache_ckv[:, pos:pos + 1] = _own_cols(c_new, group, rl).to(
+        cache_ckv.dtype)
     cache_kr[:, pos:pos + 1] = kr_new.to(cache_kr.dtype)
     # absorb: q_latent[h] = q_nope[h] @ W_uk[h]^T -> (B, 1, H, r)
     q_lat = torch.einsum("bthk,rhk->bthr", q_nope, p["w_uk"].to(x.dtype))
     ckv = cache_ckv.to(torch.float32)
-    scores = (torch.einsum("bthr,bsr->bhts", q_lat.to(torch.float32), ckv)
-              + torch.einsum("bthk,bsk->bhts", q_rope.to(torch.float32),
-                             cache_kr.to(torch.float32)))
+    rope = torch.einsum("bthk,bsk->bhts", q_rope.to(torch.float32),
+                        cache_kr.to(torch.float32))
+    if group is None:
+        scores = torch.einsum("bthr,bsr->bhts", q_lat.to(torch.float32),
+                              ckv) + rope
+    else:
+        hl, m = q_lat.shape[2], coll.axis_index(group)
+        q_all = _own_cols(coll.all_gather(q_lat.contiguous(), group, axis=2,
+                                          tiled=True), group, rl)
+        scores = torch.einsum("bthr,bsr->bhts", q_all.to(torch.float32), ckv)
+        scores[:, m * hl:(m + 1) * hl] += rope
+        scores = coll.psum_(scores, group)
     scores = scores * (1.0 / math.sqrt(a.qk_nope_dim + a.qk_rope_dim))
     k_pos = torch.arange(S, dtype=torch.int32, device=x.device)
     scores = torch.where((k_pos <= pos)[None, None, None], scores,
                          torch.full_like(scores, -1e30))
     w = torch.softmax(scores, dim=-1)
     out_lat = torch.einsum("bhts,bsr->bthr", w, ckv)
+    if group is not None:
+        out_lat = coll.all_gather(out_lat.contiguous(), group, axis=-1,
+                                  tiled=True)[:, :, m * hl:(m + 1) * hl]
     out = torch.einsum("bthr,rhv->bthv", out_lat.to(x.dtype),
                        p["w_uv"].to(x.dtype))
     out = torch.einsum("bthv,hvd->btd", out, p["wo"].to(x.dtype))
-    return out, cache_ckv, cache_kr
+    return coll.psum_(out, group), cache_ckv, cache_kr

@@ -5,15 +5,50 @@ Weights are f32 and every one is cast to the activations' dtype where it
 is used, as in the reference; ``rmsnorm`` and the attention scores compute
 in f32 whatever that dtype. Weights keep JAX's ``x @ w`` layout (inputs on
 the first axis), so a reference parameter dict carries over leaf for leaf.
+
+Tensor-parallel serving (``models/tensor_parallel.py``) passes a model
+``group``: ``rmsnorm`` then normalises a row whose columns are split over
+it (the sum of squares summed over the group), and ``embed`` looks up in
+a table whose vocabulary rows are (a masked lookup, then a sum). ``mlp``
+computes with whatever share of ``w1``/``w3`` columns and ``w2`` rows it
+is given; its caller sums the partial output. ``unembed`` against a
+vocabulary-split table gives this rank's columns of the logits (the
+soft-cap is per element).
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
+
+from repro_torch.dist import collectives as coll
+
+
+_DRAWN: contextvars.ContextVar = contextvars.ContextVar("drawn",
+                                                         default=None)
+
+
+@contextlib.contextmanager
+def weights_drawn_to(keep: Callable[[torch.Tensor], torch.Tensor]):
+    """Within: each weight ``he_init`` or ``lecun_init`` draws is handed
+    to ``keep`` as soon as it is made, and the init holds what ``keep``
+    returns (``tensor_parallel.init_params`` keeps a rank's share). The
+    generator runs as it does without."""
+    token = _DRAWN.set(keep)
+    try:
+        yield
+    finally:
+        _DRAWN.reset(token)
+
+
+def _drawn(w: torch.Tensor) -> torch.Tensor:
+    keep = _DRAWN.get()
+    return w if keep is None else keep(w)
 
 
 def he_init(generator: Optional[torch.Generator], shape, fan_in=None,
@@ -23,8 +58,8 @@ def he_init(generator: Optional[torch.Generator], shape, fan_in=None,
     fan_in = fan_in if fan_in is not None else shape[0]
     std = math.sqrt(2.0 / max(1, fan_in))
     # scaled in place: a full-size leaf is never held twice
-    return torch.randn(shape, generator=generator, device=device
-                       ).mul_(std).to(dtype)
+    return _drawn(torch.randn(shape, generator=generator, device=device
+                              ).mul_(std).to(dtype))
 
 
 def lecun_init(generator: Optional[torch.Generator], shape, fan_in=None,
@@ -32,16 +67,23 @@ def lecun_init(generator: Optional[torch.Generator], shape, fan_in=None,
     """N(0, 1/fan_in) weights."""
     fan_in = fan_in if fan_in is not None else shape[0]
     std = math.sqrt(1.0 / max(1, fan_in))
-    return torch.randn(shape, generator=generator, device=device
-                       ).mul_(std).to(dtype)
+    return _drawn(torch.randn(shape, generator=generator, device=device
+                              ).mul_(std).to(dtype))
 
 
-def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6
-            ) -> torch.Tensor:
-    """RMS norm in f32 with the scale 1 + w (w starts at 0), cast back."""
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6,
+            group=None) -> torch.Tensor:
+    """RMS norm in f32 with the scale 1 + w (w starts at 0), cast back.
+    With ``group`` the last dim is this rank's block of a row split over
+    it, ``scale`` its block of the scale: the mean square is the group's
+    sum over the whole row's width."""
     dt = x.dtype
     x = x.to(torch.float32)
-    var = torch.mean(torch.square(x), dim=-1, keepdim=True)
+    if group is None:
+        var = torch.mean(torch.square(x), dim=-1, keepdim=True)
+    else:
+        var = coll.psum_(torch.sum(torch.square(x), dim=-1, keepdim=True),
+                         group) / (x.shape[-1] * coll.axis_size(group))
     x = x * torch.rsqrt(var + eps)
     return (x * (1.0 + scale.to(torch.float32))).to(dt)
 
@@ -118,20 +160,36 @@ def init_embedding(generator, vocab: int, d_model: int, device=None,
                       device=device, dtype=dtype)
 
 
-def embed(embedding: torch.Tensor, tokens: torch.Tensor, dtype
-          ) -> torch.Tensor:
+def embed(embedding: torch.Tensor, tokens: torch.Tensor, dtype,
+          group=None) -> torch.Tensor:
     """Gather the f32 rows, then cast: the gradient reaches the table in
-    f32, as the reference's ``take`` then ``astype``."""
-    return F.embedding(tokens.long(), embedding).to(dtype)
+    f32, as the reference's ``take`` then ``astype``. With ``group`` the
+    table is this rank's block of rows of one split over it: each rank
+    looks up the tokens in its block (zeros elsewhere) and the group sums
+    the rows, exactly (one term is not zero)."""
+    if group is None:
+        return F.embedding(tokens.long(), embedding).to(dtype)
+    n = embedding.shape[0]
+    local = tokens.long() - coll.axis_index(group) * n
+    mine = (local >= 0) & (local < n)
+    rows = F.embedding(torch.where(mine, local, torch.zeros_like(local)),
+                       embedding) * mine[..., None].to(embedding.dtype)
+    return coll.psum_(rows, group).to(dtype)
 
 
 def unembed(x: torch.Tensor, embedding=None, lm_head=None,
             final_softcap: float = 0.0) -> torch.Tensor:
+    """Logits in f32, soft-capped. Outside autograd the cap runs in place
+    (the same three ops in the same order, so the same bits): a prefill's
+    (B, S, V) logits are then held once, not three times."""
     if lm_head is not None:
         logits = x @ lm_head.to(x.dtype)
     else:
         logits = x @ embedding.to(x.dtype).T
-    return softcap(logits.to(torch.float32), final_softcap)
+    logits = logits.to(torch.float32)
+    if final_softcap and not logits.requires_grad:
+        return logits.div_(final_softcap).tanh_().mul_(final_softcap)
+    return softcap(logits, final_softcap)
 
 
 def chunked_cross_entropy(x: torch.Tensor, targets: torch.Tensor, *,

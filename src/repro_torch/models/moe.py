@@ -26,6 +26,12 @@ averaged, as in the reference's manual worker axes. ``dp`` is an argument
 and not ambient state because a checkpointed layer recomputes its forward
 inside the backward pass, on the autograd engine's device thread: the
 recompute must dispatch as the forward did.
+
+Tensor-parallel serving (``models/tensor_parallel.py``) passes the model
+group as ``tp`` (with ``dp=None``): every routed and shared expert's hidden dim
+is this rank's block (``ew1``/``ew3`` columns, ``ew2`` rows), the router
+whole, so every rank routes as one process does and the output, partial
+over the group, is summed once.
 """
 from __future__ import annotations
 
@@ -134,12 +140,13 @@ MIN_SHARD_TOKENS = 64
 
 
 def moe_forward(p, x: torch.Tensor, m: MoEConfig, *, gated=True,
-                capacity: int = 0, dp=None
+                capacity: int = 0, dp=None, tp=None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, d). Returns (out, aux_loss), dispatched over the
     data-parallel workers ``dp = (group, W)``: the W processes of
     ``group``, or, with no group, W equal row blocks of x. ``dp=None``:
-    one worker."""
+    one worker; then ``tp`` (tensor parallel: the model group) sums the
+    experts' partial output over its ranks."""
     B, S, d = x.shape
     xf = x.reshape(B * S, d)
     group, W = dp if dp is not None else (None, 1)
@@ -161,4 +168,4 @@ def moe_forward(p, x: torch.Tensor, m: MoEConfig, *, gated=True,
             p, coll.all_gather(xf, group, tiled=True), m, gated, capacity)
         return coll.shard_slice(out, group).reshape(B, S, d), aux
     out, aux = _moe_tokens(p, xf, m, gated, capacity)
-    return out.reshape(B, S, d), aux
+    return coll.psum_(out, tp).reshape(B, S, d), aux

@@ -5,17 +5,22 @@
   init(seed, device=None) -> params
   loss_fn(params, batch, remat=..., dp=None) -> (scalar loss, aux)
   forward(params, batch, remat=...) -> logits
-  prefill(params, batch) -> (logits, cache seeds)
-  init_cache(batch_size, seq_len, device=None, kv_group=None) -> cache
-  decode_step(params, cache, tokens, pos, kv_group=None) -> (logits, cache)
+  prefill(params, batch, mesh=None) -> (logits, cache seeds)
+  init_cache(batch_size, seq_len, device=None, mesh=None) -> cache
+  decode_step(params, cache, tokens, pos, mesh=None) -> (logits, cache)
   input_specs(shape) -> {name: (shape, dtype)}
 for every decoder family (dense, MoE, SSM, hybrid, VLM; ``transformer``),
 the encoder-decoder (audio; ``encdec``) and the paper's MLP, which has no
 decode path. A VLM batch carries ``image_embeds`` (B, N, d) before its
 text, an audio batch ``frames`` (B, S_enc, d). ``prefill`` and
 ``decode_step`` run without autograd; ``decode_step`` writes the cache in
-place. ``kv_group`` splits the self-attention K/V cache's length over a
-process group (``transformer.kv_length``).
+place. A ``mesh`` (``launch.mesh.world_mesh(M)``) with M = 1 splits the
+self-attention K/V cache's length over its data group
+(``transformer.kv_length``). With M > 1 it splits the model over its
+model group and every cache leaf as ``launch.steps.cache_shardings`` lays
+it out: ``params`` are then this rank's share
+(``tensor_parallel.init_params`` or ``shard_params``), the logits its
+vocabulary columns (``tensor_parallel.greedy`` picks over all of them).
 """
 from __future__ import annotations
 
@@ -84,20 +89,20 @@ def _lm_model(cfg: ModelConfig) -> Model:
         return loss, {"aux": aux}
 
     @torch.no_grad()
-    def prefill(params, batch):
+    def prefill(params, batch, mesh=None):
         logits, _, caches = transformer.lm_forward(
             params, cfg, batch["tokens"],
             image_embeds=batch.get("image_embeds"), remat=False,
-            collect_cache=True)
+            collect_cache=True, mesh=mesh)
         return logits, caches
 
-    def init_cache(batch_size, seq_len, device=None, kv_group=None):
+    def init_cache(batch_size, seq_len, device=None, mesh=None):
         return transformer.init_lm_cache(cfg, batch_size, seq_len, device,
-                                         kv_group)
+                                         mesh)
 
-    def decode_step(params, cache, tokens, pos, kv_group=None):
+    def decode_step(params, cache, tokens, pos, mesh=None):
         return transformer.lm_decode_step(params, cfg, cache, tokens, pos,
-                                          kv_group)
+                                          mesh)
 
     def input_specs(shape: InputShape):
         return lm_input_specs(cfg, shape)
@@ -126,26 +131,26 @@ def _encdec_model(cfg: ModelConfig) -> Model:
                                      embedding=params["embedding"]), {}
 
     @torch.no_grad()
-    def prefill(params, batch):
+    def prefill(params, batch, mesh=None):
         """(logits, a decode cache as long as the tokens, its cross K/V
         seeded from the encoder)."""
         frames = batch["frames"]
-        enc = encdec.encode(params, cfg, frames)
+        enc = encdec.encode(params, cfg, frames, mesh=mesh)
         cache = encdec.init_encdec_cache(cfg, frames.shape[0],
                                          batch["tokens"].shape[1],
-                                         frames.device)
-        cache = encdec.seed_cross_cache(params, cfg, cache, enc)
+                                         frames.device, mesh=mesh)
+        cache = encdec.seed_cross_cache(params, cfg, cache, enc, mesh)
         logits = encdec.decode_full(params, cfg, batch["tokens"], enc,
-                                    remat=False)
+                                    remat=False, mesh=mesh)
         return logits, cache
 
-    def init_cache(batch_size, seq_len, device=None, kv_group=None):
+    def init_cache(batch_size, seq_len, device=None, mesh=None):
         return encdec.init_encdec_cache(cfg, batch_size, seq_len, device,
-                                        kv_group)
+                                        mesh)
 
-    def decode_step(params, cache, tokens, pos, kv_group=None):
+    def decode_step(params, cache, tokens, pos, mesh=None):
         return encdec.encdec_decode_step(params, cfg, cache, tokens, pos,
-                                         kv_group)
+                                         mesh)
 
     def input_specs(shape: InputShape):
         return lm_input_specs(cfg, shape)

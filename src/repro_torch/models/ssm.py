@@ -11,6 +11,16 @@ does not promote: the projections, the conv and C·Bᵀ run in x's dtype; dt,
 the decays and everything after C·Bᵀ is scaled by them are f32; the result
 is cast back to x's dtype. The SSM state is f32 in ``mamba2_forward`` and
 ``mamba2_decode`` alike.
+
+Tensor-parallel serving (``models/tensor_parallel.py``) passes the model
+``group`` and this rank's share of the weights: its heads (``A_log``,
+``D``, ``dt_bias``, the ``gate_norm`` and ``out_proj`` rows of their
+channels) and, in ``in_proj`` and the conv, its own channels [z | x | B |
+C | dt] and [x | B | C], taken by head and by group of B/C (the heads
+of a group stay on one rank). The dims are read off the weights; the
+gated norm's mean square over d_inner is summed over the group and the
+output after ``out_proj`` too. The conv state then holds this rank's
+channels and the SSM state its heads.
 """
 from __future__ import annotations
 
@@ -20,6 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import SSMConfig
+from repro_torch.dist import collectives as coll
 from repro_torch.models.layers import he_init, rmsnorm
 
 
@@ -141,15 +152,25 @@ def ssd_chunked(x, dt, A, B, C, chunk: int, init_state=None):
     return y.to(x.dtype), carry
 
 
+def _local_dims(p, s: SSMConfig):
+    """(d_inner, heads, groups) of the given weights: the whole model's,
+    or one tensor-parallel rank's share."""
+    n_heads = p["A_log"].shape[-1]
+    d_inner = p["out_proj"].shape[-2]
+    groups = (p["conv_b"].shape[-1] - d_inner) // (2 * s.d_state)
+    return d_inner, n_heads, groups
+
+
 def mamba2_forward(p, x, s: SSMConfig, *, init_conv=None, init_ssm=None,
-                   eps=1e-6):
+                   eps=1e-6, group=None):
     """x: (B, S, d). Returns (out, (conv_state, ssm_state)); ``init_conv``
     and ``init_ssm`` continue from a cache. The chunk is
-    ``min(chunk_size, S)``, halved until it divides S."""
-    d_inner, n_heads, _ = ssm_dims(x.shape[-1], s)
-    gs = s.n_groups * s.d_state
+    ``min(chunk_size, S)``, halved until it divides S. ``group``: tensor
+    parallel (module docstring)."""
+    d_inner, n_heads, n_groups = _local_dims(p, s)
+    gs = n_groups * s.d_state
     zxbcdt = x @ p["in_proj"].to(x.dtype)
-    z, xs, B, C, dt = _split_proj(zxbcdt, d_inner, s.n_groups, s.d_state,
+    z, xs, B, C, dt = _split_proj(zxbcdt, d_inner, n_groups, s.d_state,
                                   n_heads)
     xbc = torch.cat([xs, B, C], dim=-1)
     xbc, conv_state = _causal_conv(xbc, p["conv_w"].to(x.dtype),
@@ -158,8 +179,8 @@ def mamba2_forward(p, x, s: SSMConfig, *, init_conv=None, init_ssm=None,
     dt = F.softplus(dt.to(torch.float32) + p["dt_bias"].to(torch.float32))
     bsz, S = x.shape[0], x.shape[1]
     xh = xs.reshape(bsz, S, n_heads, s.head_dim)
-    Bg = B.reshape(bsz, S, s.n_groups, s.d_state)
-    Cg = C.reshape(bsz, S, s.n_groups, s.d_state)
+    Bg = B.reshape(bsz, S, n_groups, s.d_state)
+    Cg = C.reshape(bsz, S, n_groups, s.d_state)
     chunk = min(s.chunk_size, S)
     while S % chunk:
         chunk //= 2
@@ -167,18 +188,21 @@ def mamba2_forward(p, x, s: SSMConfig, *, init_conv=None, init_ssm=None,
                                chunk, init_state=init_ssm)
     y = y + xh * p["D"].to(y.dtype)[None, None, :, None]
     y = y.reshape(bsz, S, d_inner)
-    y = rmsnorm(y * F.silu(z), p["gate_norm"], eps)
-    return y @ p["out_proj"].to(x.dtype), (conv_state, ssm_state)
+    y = rmsnorm(y * F.silu(z), p["gate_norm"], eps, group)
+    return (coll.psum_(y @ p["out_proj"].to(x.dtype), group),
+            (conv_state, ssm_state))
 
 
-def mamba2_decode(p, x, s: SSMConfig, *, conv_state, ssm_state, eps=1e-6):
+def mamba2_decode(p, x, s: SSMConfig, *, conv_state, ssm_state, eps=1e-6,
+                  group=None):
     """One token's recurrent step. x: (B, 1, d); conv_state: (B, W − 1,
     conv_dim); ssm_state: (B, h, p, n) f32. Returns (out, (conv_state,
-    ssm_state)), new tensors."""
-    d_inner, n_heads, _ = ssm_dims(x.shape[-1], s)
-    gs = s.n_groups * s.d_state
+    ssm_state)), new tensors. ``group``: tensor parallel (module
+    docstring)."""
+    d_inner, n_heads, n_groups = _local_dims(p, s)
+    gs = n_groups * s.d_state
     zxbcdt = x @ p["in_proj"].to(x.dtype)
-    z, xs, B, C, dt = _split_proj(zxbcdt, d_inner, s.n_groups, s.d_state,
+    z, xs, B, C, dt = _split_proj(zxbcdt, d_inner, n_groups, s.d_state,
                                   n_heads)
     xbc = torch.cat([xs, B, C], dim=-1)                   # (B,1,conv_dim)
     xbc, conv_state = _causal_conv(xbc, p["conv_w"].to(x.dtype),
@@ -187,17 +211,18 @@ def mamba2_decode(p, x, s: SSMConfig, *, conv_state, ssm_state, eps=1e-6):
     f32 = torch.float32
     dt = F.softplus(dt.to(f32) + p["dt_bias"].to(f32))[:, 0]     # (B,h)
     A = -torch.exp(p["A_log"].to(f32))                    # (h,)
-    rep = n_heads // s.n_groups
+    rep = n_heads // n_groups
     xh = xs[:, 0].reshape(-1, n_heads, s.head_dim).to(f32)
     Bh = torch.repeat_interleave(
-        B[:, 0].reshape(-1, s.n_groups, s.d_state).to(f32), rep, dim=1)
+        B[:, 0].reshape(-1, n_groups, s.d_state).to(f32), rep, dim=1)
     Ch = torch.repeat_interleave(
-        C[:, 0].reshape(-1, s.n_groups, s.d_state).to(f32), rep, dim=1)
+        C[:, 0].reshape(-1, n_groups, s.d_state).to(f32), rep, dim=1)
     decay = torch.exp(dt * A[None])                       # (B,h)
     ssm_state = (ssm_state * decay[..., None, None]
                  + (dt[..., None] * xh)[..., None] * Bh[:, :, None, :])
     y = torch.einsum("bhpn,bhn->bhp", ssm_state, Ch)
     y = y + xh * p["D"].to(f32)[None, :, None]
     y = y.reshape(x.shape[0], 1, d_inner).to(x.dtype)
-    y = rmsnorm(y * F.silu(z), p["gate_norm"], eps)
-    return y @ p["out_proj"].to(x.dtype), (conv_state, ssm_state)
+    y = rmsnorm(y * F.silu(z), p["gate_norm"], eps, group)
+    return (coll.psum_(y @ p["out_proj"].to(x.dtype), group),
+            (conv_state, ssm_state))

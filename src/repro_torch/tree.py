@@ -33,24 +33,36 @@ def _is_node(x) -> bool:
     return x is None or isinstance(x, (dict, tuple, list))
 
 
+def _walk_paths(node, path, out):
+    if node is None:
+        return None
+    if not _is_node(node):
+        out.append((path, node))
+        return "*"
+    defs = [_walk_paths(v, path + p, out) for p, v in _children(node)]
+    if isinstance(node, dict):
+        return (dict, [k for k in sorted(node)], defs)
+    return (type(node), None, defs)
+
+
 def flatten_with_paths(tree) -> Tuple[List[Tuple[str, Any]], Any]:
-    """([(key path, leaf)], treedef): the leaves in walk order."""
+    """([(key path, leaf)], treedef): the leaves in walk order. (The walks
+    here are module functions, not recursive closures: a closure that
+    calls itself is a reference cycle, which would hold the leaves, a
+    model's weights, until the garbage collector runs.)"""
     out: List[Tuple[str, Any]] = []
-
-    def walk(node, path):
-        if node is None:
-            return None
-        if not _is_node(node):
-            out.append((path, node))
-            return "*"
-        kids = _children(node)
-        defs = [walk(v, path + p) for p, v in kids]
-        if isinstance(node, dict):
-            return (dict, [k for k in sorted(node)], defs)
-        return (type(node), None, defs)
-
-    treedef = walk(tree, "")
+    treedef = _walk_paths(tree, "", out)
     return out, treedef
+
+
+def _walk_keys(node, keys, out):
+    if node is None:
+        return
+    if not _is_node(node):
+        out.append((keys, node))
+        return
+    for k, _, v in _keyed_children(node):
+        _walk_keys(v, keys + (k,), out)
 
 
 def flatten_with_keys(tree) -> List[Tuple[Tuple[Any, ...], Any]]:
@@ -58,17 +70,7 @@ def flatten_with_keys(tree) -> List[Tuple[Tuple[Any, ...], Any]]:
     field names and indices from the root to the leaf (what a JAX key
     path's entries hold)."""
     out: List[Tuple[Tuple[Any, ...], Any]] = []
-
-    def walk(node, keys):
-        if node is None:
-            return
-        if not _is_node(node):
-            out.append((keys, node))
-            return
-        for k, _, v in _keyed_children(node):
-            walk(v, keys + (k,))
-
-    walk(tree, ())
+    _walk_keys(tree, (), out)
     return out
 
 
@@ -82,24 +84,24 @@ def leaves(tree) -> List[Any]:
     return flatten(tree)[0]
 
 
+def _build(d, it):
+    if d is None:
+        return None
+    if d == "*":
+        return next(it)
+    kind, keys, defs = d
+    kids = [_build(c, it) for c in defs]
+    if kind is dict:
+        return dict(zip(keys, kids))
+    if issubclass(kind, tuple) and hasattr(kind, "_fields"):
+        return kind(*kids)
+    return kind(kids)
+
+
 def unflatten(treedef, leaves: List[Any]):
     """The tree of ``treedef`` with ``leaves`` in walk order."""
     it = iter(leaves)
-
-    def build(d):
-        if d is None:
-            return None
-        if d == "*":
-            return next(it)
-        kind, keys, defs = d
-        kids = [build(c) for c in defs]
-        if kind is dict:
-            return dict(zip(keys, kids))
-        if issubclass(kind, tuple) and hasattr(kind, "_fields"):
-            return kind(*kids)
-        return kind(kids)
-
-    out = build(treedef)
+    out = _build(treedef, it)
     if next(it, None) is not None:
         raise ValueError("unflatten: more leaves than the tree holds")
     return out

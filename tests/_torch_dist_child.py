@@ -1,7 +1,7 @@
 """One rank of the port's multi-process CPU tests
 (``tests/test_torch_collectives.py``, ``tests/test_torch_workers.py``,
 ``tests/test_torch_zoo_procs.py``, ``tests/test_torch_shardings.py``,
-``tests/test_torch_dryrun.py``). It imports torch and ``repro_torch``
+``tests/test_torch_dryrun.py``, ``tests/test_torch_serve_model_axis.py``). It imports torch and ``repro_torch``
 only, never JAX: the tests compute the reference's oracles in their own
 process.
 
@@ -237,38 +237,44 @@ def zoo_cli(inp, rank, tmp_dir):
     return {"logs": logs}
 
 
-def lm_decode(model, params, tok, stub, P, G, total, group):
-    """Prompt ``tok[:, :P]`` into a ``total``-long cache whose K/V length
-    is split over ``group`` (seeded from a prefill for the attention
-    families, stepped for the others; audio after ``seed_cross_cache``),
-    then G greedy tokens, each from the logits before it. Returns
-    (tokens (B, G), those logits (G, B, V))."""
+def lm_decode(model, params, tok, stub, P, G, total, mesh=None,
+              keep=None):
+    """Prompt ``tok[:, :P]`` into a ``total``-long cache (seeded from a
+    prefill for the attention families, stepped for the others; audio
+    after ``seed_cross_cache``), then G greedy tokens, each from the
+    logits before it. With a ``mesh`` of M = 1 the cache's K/V length is
+    split over its data group; with M > 1 the model and the cache are
+    split over it (``params`` this rank's share) and the greedy pick is
+    over the split vocabulary; with
+    ``keep`` (a dict) the cache's leaf shapes land in ``keep["cache"]``.
+    Returns (tokens (B, G), those logits (G, B, V), whole)."""
     from repro_torch.launch import steps
     from repro_torch.models import encdec
+    from repro_torch.models import tensor_parallel as tp
     cfg = model.cfg
+    kw = {"mesh": mesh}
     if cfg.family in ("dense", "moe", "vlm"):
-        lg, cache, pos = steps.make_seeded_prefill(model, total, group)(
+        lg, cache, pos = steps.make_seeded_prefill(model, total, **kw)(
             params, {"tokens": tok[:, :P], **stub})
     else:
-        cache = model.init_cache(tok.shape[0], total, tok.device,
-                                 kv_group=group)
+        cache = model.init_cache(tok.shape[0], total, tok.device, **kw)
         if cfg.family == "audio":
             encdec.seed_cross_cache(params, cfg, cache, encdec.encode(
-                params, cfg, stub["frames"]))
+                params, cfg, stub["frames"], mesh=mesh), mesh)
         for pos in range(P):
             lg, cache = model.decode_step(params, cache,
-                                          tok[:, pos:pos + 1], pos,
-                                          kv_group=group)
+                                          tok[:, pos:pos + 1], pos, **kw)
         pos = P
     out, logits = [], []
     for _ in range(G):
         lg = lg[:, -1]
-        nxt = torch.argmax(lg, dim=-1)[:, None].to(torch.int32)
+        nxt = tp.greedy(lg, cfg, mesh)[:, None].to(torch.int32)
         out.append(nxt)
-        logits.append(lg)
-        lg, cache = model.decode_step(params, cache, nxt, pos,
-                                      kv_group=group)
+        logits.append(tp.gather_logits(lg, cfg, mesh))
+        lg, cache = model.decode_step(params, cache, nxt, pos, **kw)
         pos += 1
+    if keep is not None:
+        keep["cache"] = {k: tuple(v.shape) for k, v in cache.items()}
     return torch.cat(out, 1), torch.stack(logits)
 
 
@@ -285,9 +291,102 @@ def decode(inp, mesh, dev):
         coll.reset_counters()
         toks, logits = lm_decode(build_model(cfg), case["params"],
                                  case["tok"], case["stub"], case["P"],
-                                 case["G"], case["total"], mesh.group)
+                                 case["G"], case["total"], mesh)
         out[name] = {"tokens": toks, "logits": logits,
                      "bytes": coll.stats()["bytes"]}
+    return out
+
+
+def serve_split(inp, mesh, dev):
+    """The serving path split over the (W, M) mesh for each case: this
+    rank's share of the reference's weights (``convert.lm_params_share``)
+    through ``lm_decode`` with the mesh; the split prefill's logits over
+    the whole vocabulary; the cache's leaf shapes; whether this rank's
+    own seed-0 init (``tensor_parallel.init_params``) equals its slice of
+    the whole init, bit for bit; the parameters' bytes this rank holds;
+    the MoE routes dropped; the collectives' bytes by group."""
+    from repro_torch import configs, tree
+    from repro_torch.convert import lm_params_share
+    from repro_torch.dist import collectives as coll
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.models import tensor_parallel as tp
+    from repro_torch.models.registry import build_model
+    d, m = mesh.cell()
+    M = mesh.shape["model"]
+    dropped = [0]
+    dispatch = moe_lib._dispatch
+
+    def counted(idx, E, capacity):
+        flat, slot, keep = dispatch(idx, E, capacity)
+        dropped[0] += int((~keep).sum())
+        return flat, slot, keep
+
+    moe_lib._dispatch = counted
+    out = {}
+    for name, case in inp["cases"].items():
+        cfg = configs.scaled(configs.get_smoke_config(case["arch"]),
+                             dtype="float32")
+        model = build_model(cfg)
+        params = lm_params_share(case["params"], cfg, M, m)
+        own = tp.init_params(model, 0, mesh, dev)
+        want = lm_params_share(model.init(0, device=dev), cfg, M, m)
+        res = {"init_equal": all(torch.equal(a, b) for a, b in zip(
+            tree.leaves(own), tree.leaves(want))),
+            "param_bytes": sum(x.numel() * x.element_size()
+                               for x in tree.leaves(params)),
+            "param_shapes": [tuple(x.shape) for x in tree.leaves(params)]}
+        dropped[0] = 0
+        coll.reset_counters()
+        keep = {}
+        res["tokens"], res["logits"] = lm_decode(
+            model, params, case["tok"], case["stub"], case["P"], case["G"],
+            case["total"], mesh, keep)
+        res["by_group"] = coll.by_group()
+        res["bytes"] = coll.stats()["bytes"]
+        res["cache"], res["dropped"] = keep["cache"], dropped[0]
+        batch = {"tokens": case["tok"][:, :case["P"]], **case["stub"]}
+        res["prefill"] = tp.gather_logits(model.prefill(
+            params, batch, mesh=mesh)[0], cfg, mesh)
+        out[name] = res
+    moe_lib._dispatch = dispatch
+    return out
+
+
+def serve_bytes(inp, mesh, dev):
+    """Each case's split prefill over ``rows`` zero sequences of
+    ``seq``, and one split decode step of a ``batch`` x ``seq`` cache at
+    its last position, from this rank's share of the seed-0 init: the
+    collectives' bytes by kind of each, and the bytes of the share and
+    of the cache this rank holds."""
+    from repro_torch import configs, tree
+    from repro_torch.configs import InputShape
+    from repro_torch.dist import collectives as coll
+    from repro_torch.models import tensor_parallel as tp
+    from repro_torch.models.registry import build_model
+    out = {}
+    for name, case in inp["cases"].items():
+        cfg = configs.scaled(configs.get_smoke_config(case["arch"]),
+                             dtype="float32")
+        model = build_model(cfg)
+        params = tp.init_params(model, 0, mesh, dev)
+        specs = model.input_specs(InputShape("p", case["seq"], case["rows"],
+                                             "prefill"))
+        batch = {k: torch.zeros(s, dtype=d, device=dev)
+                 for k, (s, d) in specs.items()}
+        coll.reset_counters()
+        model.prefill(params, batch, mesh=mesh)
+        res = {"prefill": coll.stats()["bytes"]}
+        cache = model.init_cache(case["batch"], case["seq"], dev, mesh=mesh)
+        tokens = torch.zeros((case["batch"], 1), dtype=torch.int32,
+                             device=dev)
+        coll.reset_counters()
+        model.decode_step(params, cache, tokens, case["seq"] - 1, mesh=mesh)
+        res["decode"] = coll.stats()["bytes"]
+        res["params"] = sum(x.numel() * x.element_size()
+                            for x in tree.leaves(params))
+        res["cache"] = sum(x.numel() * x.element_size()
+                           for x in cache.values())
+        out[name] = res
     return out
 
 
@@ -309,7 +408,8 @@ def main(argv) -> int:
                                                                 "store"))
     out = {"collectives": collectives, "aggregate": aggregate,
            "train": train, "zoo": zoo, "zoo_train": zoo_train,
-           "decode": decode}[case](inp, mesh, dev)
+           "decode": decode, "serve_split": serve_split,
+           "serve_bytes": serve_bytes}[case](inp, mesh, dev)
     torch.save(out, os.path.join(tmp_dir, f"out_{rank}.pt"))
     leave_world()
     return 0

@@ -9,8 +9,9 @@ Tolerances:
   reference's param specs on the (32, 8) and (2, 32, 8) meshes, for
   every config and in a zoo-train result; the zoo-train round's
   collective bytes by kind against the counters of a live 2 x 2 gloo
-  world running the same round; the long_500k skip and its reason; the
-  decode's cache split.
+  world running the same round, and so the split prefill's and split
+  decode step's, with the parameter and cache bytes a rank holds; the
+  long_500k skip and its reason; the decode's cache split.
 - ``cost.flops`` of a dense train step (gemma2-2b at full width, remat
   off, one sequence of 512 a card) within 10% of 6·N·T.
 """
@@ -100,7 +101,11 @@ def test_zoo_train_result_and_cli(tmp_path, monkeypatch, capsys):
     assert dec["cache_shapes"]["cross_k"][2] == tcfg.get_config(
         "whisper-base").encoder_seq_len
     assert dec["cache_split"]["k"][2] == "data"
-    assert set(dec["collectives"]["bytes"]) == {"all_reduce",
+    assert dec["model_axis"] == "split"
+    # the k/v partial softmaxes over the data group; the heads' and
+    # hidden columns' sums and the norms' and odd vocabulary's gathers
+    # over the model group
+    assert set(dec["collectives"]["bytes"]) == {"all_gather", "all_reduce",
                                                 "all_reduce_max"}
     assert dryrun.main(["--arch", "whisper-base", "--shape", "long_500k",
                         "--mesh", "both"]) == 0
@@ -163,3 +168,35 @@ def _port_param_bytes(model, mesh):
     specs, shapes = tsteps.param_shardings(model, mesh)
     return dryrun.spec_bytes(shapes, [dryrun._leaf(specs, k) for k, _ in
                                       tree.flatten_with_keys(shapes)], mesh)
+
+
+def test_serve_bytes_match_live_world(tmp_path):
+    """The split prefill (gemma2's smoke model, 2 sequences of 32 a card)
+    and the split decode step (minicpm3's, MLA, a 4 x 32 cache) on 2 x 2:
+    the dry run records ``"model_axis": "split"``, and the bytes its fake
+    world counts by kind, the parameter bytes (the product rule) and the
+    cache bytes equal what every rank of a live gloo world counted and
+    held."""
+    cases = {"prefill": ("gemma2-2b", InputShape("p32", 32, 4, "prefill")),
+             "decode": ("minicpm3-4b", InputShape("d32", 32, 4, "decode"))}
+    res = {k: dryrun.measure(tcfg.scaled(tcfg.get_smoke_config(a),
+                                         dtype="float32"), shape, (2, 2),
+                             ("data", "model"))
+           for k, (a, shape) in cases.items()}
+    outs = run_world("serve_bytes", 4, {"cases": {
+        k: {"arch": a, "seq": shape.seq_len, "rows": shape.global_batch // 2,
+            "batch": shape.global_batch} for k, (a, shape) in cases.items()}},
+        tmp_path, model_parallel=2)
+    for kind, (arch, _) in cases.items():
+        r = res[kind]
+        assert r["model_axis"] == "split"
+        model = tbuild(tcfg.scaled(tcfg.get_smoke_config(arch),
+                                   dtype="float32"))
+        assert r["memory"]["params"] == _port_param_bytes(
+            model, tmesh.ZooMesh(("data", "model"), (2, 2)))
+        for o in outs:
+            assert o[kind][kind] == r["collectives"]["bytes"], kind
+            assert o[kind]["params"] == r["memory"]["params"]
+            if kind == "decode":
+                assert o[kind]["cache"] == r["memory"]["cache"]
+    assert res["decode"]["cache_shapes"]["ckv"] == [2, 2, 32, 32]

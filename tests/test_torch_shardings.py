@@ -166,7 +166,7 @@ def _close_to_max(got, want, tol=1e-5):
 @pytest.mark.parametrize("arch", sorted(DECODE_ARCHS))
 def test_split_decode_matches_one_process_and_reference(split_decode, arch):
     """Both ranks draw the same greedy tokens as the one-process decode
-    (``kv_group=None``, the cache whole) and as the reference's argmax;
+    (no mesh, the cache whole) and as the reference's argmax;
     their logits within 1e-5 of the max of either's. Every rank moved
     its partial softmax over the group (``all_reduce_max`` and
     ``all_reduce`` bytes), nothing of the cache."""
@@ -195,6 +195,10 @@ def test_split_cache_leaves_and_seeds():
         def __init__(self, r):
             self.r = r
 
+    def half(r):
+        """The (2, 1) mesh of rank r, its data group the stand-in."""
+        return tmesh.ZooMesh(("data", "model"), (2, 1), group=Half(r))
+
     import repro_torch.dist.collectives as coll
     orig = (coll.axis_index, coll.axis_size)
     cfg = tcfg.scaled(tcfg.get_smoke_config("internvl2-1b"),
@@ -213,7 +217,7 @@ def test_split_cache_leaves_and_seeds():
         coll.axis_index = lambda g: 0 if g is None else g.r
         coll.axis_size = lambda g: 1 if g is None else 2
         for r in range(2):
-            _, part, off = tsteps.make_seeded_prefill(model, total, Half(r))(
+            _, part, off = tsteps.make_seeded_prefill(model, total, mesh=half(r))(
                 params, {"tokens": tok, **stub})
             assert off == cfg.num_image_tokens + 8
             for name in ("k", "v"):
@@ -221,11 +225,11 @@ def test_split_cache_leaves_and_seeds():
                 assert torch.equal(part[name], whole[name][
                     :, :, r * total // 2:(r + 1) * total // 2])
         with pytest.raises(ValueError, match="does not split over 2"):
-            model.init_cache(2, 41, "cpu", kv_group=Half(0))
+            model.init_cache(2, 41, "cpu", mesh=half(0))
         for arch in ("deepseek-v2-lite-16b", "zamba2-7b", "whisper-base"):
             m = tbuild(tcfg.get_smoke_config(arch))
-            one, two = (m.init_cache(2, 40, "meta", kv_group=g)
-                        for g in (None, Half(1)))
+            one, two = (m.init_cache(2, 40, "meta", mesh=g)
+                        for g in (None, half(1)))
             for name, x in one.items():
                 want = list(x.shape)
                 if name in ("k", "v"):
