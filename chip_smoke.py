@@ -185,6 +185,26 @@ CLIs    the CLIs of phases 9-12, whose times no phase reports, after
             ``param_shardings``, its cache blocks ``cache_shardings``';
             ms a step, the prefill's ms, a step's collectives by group,
             peak memory a rank; no launch of K1-K7
+16. split   the train step's model axis in phase 14's launch, after 14b:
+            the plain trainer's CLI ``--model-parallel 2
+            --check-replicas`` through its own ``main`` at internvl2-1b's
+            full width (bf16, batch 2 x 128: one sequence a worker, W = 2,
+            M = 2, each rank 1/2 of every weight ``param_shardings``
+            splits): (16a) ``--agg mean --optimizer adam --steps 2``, the
+            ranks' checkpoint after step 2 equal bit for bit to this
+            process's two steps with the weights whole and the workers in
+            turn (each worker's gradient, summed, over 2, Adam), moments
+            included; (16b) ``--agg obcsaa --steps 2 --ckpt-every 1``,
+            each step again in this process with ``make_train_step`` on
+            ``make_zoo_mesh(2, 1)`` from the ranks' carry before it: bit
+            for bit, or ĝ by NMSE and support and the parameters within
+            1e-4 of their movement (≤ 1% of its chunks parted), the ulps
+            printed; each rank's parameter and optimizer bytes equal the
+            product rule, the loss finite, s a step, the gathers' (per
+            layer, and the uplink's), the all-reduce's and the
+            broadcast's ms, MB and calls, peak memory per rank beside
+            the dry run's estimate for 16a's configuration; no launch of
+            K1-K7 (alone: ``python3 chip_smoke.py --split-train``)
 
 Each path's launch counters are set to 0 just before it and read just
 after; a kernel of the path that was not launched fails the run.
@@ -3526,7 +3546,8 @@ def _ulps(a, b, before) -> tuple:
     an element that the step brings near 0 is not counted in the ulps of
     its tiny result."""
     scale = torch.maximum(before.abs(), b.abs())
-    step = torch.nextafter(scale, torch.tensor(float("inf"))) - scale
+    step = torch.nextafter(scale, torch.full_like(scale, float("inf"))) \
+        - scale
     d = (a - b).abs()
     return int((d > 0).sum()), float((d / step).max())
 
@@ -4223,10 +4244,10 @@ def check_serve(tmp, oracle10a, want) -> None:
 
 
 def zoo_rank() -> None:
-    """Phases 14 and 15 in each rank that ``torchrun`` starts
+    """Phases 14, 15 and 16 in each rank that ``torchrun`` starts
     (``chip_smoke.py --zoo-rank DIR``): 14a, 14c and 15 in a world of the
-    2 x 2 mesh, then 14b through the trainer's CLI (``main(argv)``, which joins and
-    leaves its own world). Each rank writes its launch counts to DIR;
+    2 x 2 mesh, then 14b, 16a and 16b through the trainer's CLI
+    (``main(argv)``, which joins and leaves its own world each time). Each rank writes its launch counts to DIR;
     rank 0 prints. Exits 1 on a mismatch."""
     sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch.kernels import build
@@ -4270,6 +4291,7 @@ def zoo_rank() -> None:
         f"rank 0 {used}; peak "
         f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB on rank 0")
     counts["peak_14b"] = torch.cuda.max_memory_allocated(dev)
+    split_train_rank(dev, tmp, rank, counts)
     with open(os.path.join(tmp, f"counts_{rank}.json"), "w") as f:
         json.dump(counts, f)
 
@@ -4321,8 +4343,11 @@ def run_zoo_procs_phase(dev, card: str, started: dict) -> dict:
     14b, then holds: 14c's tokens and logits against 10a's one-process
     decode, the ranks' 14b checkpoint against the in-turn carry after
     round 1 (bit for bit), and round 2 from that checkpoint against the
-    uninterrupted in-turn round 2 (bit for bit). Returns the ranks'
-    summed launch counts by path."""
+    uninterrupted in-turn round 2 (bit for bit). Phase 16: the parent's
+    oracles (``split_train_oracles``) once its 14b rounds are done, which
+    wake the ranks' 16a and 16b, then their gates (``check_split_train``)
+    once the launch has ended. Returns the ranks' summed launch counts by
+    path."""
     import gc
 
     from repro_torch import tree
@@ -4356,7 +4381,12 @@ def run_zoo_procs_phase(dev, card: str, started: dict) -> dict:
         log(f"14b in turn: rounds 0-{ZP_ROUNDS} in "
             f"{time.perf_counter() - t0:.1f} s beside the ranks' 14b (round "
             f"{ZP_ROUNDS - 1} loss {float(st.loss):.4f})")
+        want16 = split_train_oracles(dev, tmp)
+        t16 = time.perf_counter()
+        check_split_16a(dev, tmp, want16, h)
         out = finish_cli(h, card, limit=ZP_LIMIT)
+        log(f"16: the launch ended {time.perf_counter() - t16:.1f} s after "
+            "the ranks' go")
         counts = [json.load(open(os.path.join(tmp, f"counts_{r}.json")))
                   for r in range(ZP_W * ZP_M)]
         fed, logits = torch.load(os.path.join(tmp, "decode_14c.pt"))
@@ -4387,16 +4417,381 @@ def run_zoo_procs_phase(dev, card: str, started: dict) -> dict:
                 f"{c['peak_14b'] / 2**30:.2f}" for c in counts))
         if "resumed" in out:
             fail("14b: the CLI resumed from a checkpoint it should not have")
-        del got, whole
+        del got, whole, zr, rnd
+        gc.collect()
+        torch.cuda.empty_cache()
+        check_split_train(dev, card, tmp, want16, counts)
     gc.collect()
     torch.cuda.empty_cache()
     paths = {p: {k: sum(c[p][k] for c in counts) for k in counts[0][p]}
              for p in ("zoo_procs_surrogate", "zoo_procs_train",
-                       "serve_split")}
+                       "serve_split", "split_16a", "split_16b")}
     expect_counts("serve split (15)", paths["serve_split"], {}, 0)
     log(f"zoo over processes: phase 14 took "
         f"{time.perf_counter() - t_phase:.1f} s")
     return paths
+
+
+# -- phase 16 -----------------------------------------------------------------
+
+# the train step's model axis: the plain trainer's CLI under the same 2 x 2
+# launch, after 14b, at internvl2-1b's full width with the CLI's defaults
+# (bf16, SGD unless stated), one sequence of 128 a worker. 16a: mean with
+# Adam, held bit for bit to the whole weights' steps with the workers in
+# turn; 16b: obcsaa, each step held to make_train_step on make_zoo_mesh(2,
+# 1) from the ranks' carry before it
+P16_W, P16_M = 2, 2
+P16_ARGV = ["--arch", FED_ARCH, "--model-parallel", str(P16_M), "--batch",
+            str(P16_W), "--seq", "128", "--steps", "2", "--check-replicas"]
+P16_RUNS = {"16a": ["--agg", "mean", "--optimizer", "adam"],
+            "16b": ["--agg", "obcsaa", "--ckpt-every", "1"]}
+P16_STEP = re.compile(r"step +(\d+) loss=(\S+) \(([\d.]+)s\) wire: (.*)$")
+
+
+def split_train_args(label: str):
+    """(args, TrainConfig) of phase 16's run ``label`` as the CLI parses
+    them."""
+    from repro_torch.launch import train
+    args = train.build_parser().parse_args(P16_ARGV + P16_RUNS[label])
+    return args, train.train_config(args)
+
+
+def split_train_rank(dev, tmp, rank: int, counts: dict) -> None:
+    """Phase 16 on this rank: 16a and 16b through the trainer's CLI
+    (``main``, which joins and leaves a world of its own), once the
+    parent's oracles are ready. Rank 0 writes the CLI's lines to
+    ``out_16x.txt`` and prints them."""
+    from repro_torch.kernels import build
+    from repro_torch.launch import train
+    _wait_for(os.path.join(tmp, "go_16"), "phase 16's oracles",
+              timeout=ZP_LIMIT)
+    for label, extra in P16_RUNS.items():
+        build.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            train.main(P16_ARGV + extra + [
+                "--ckpt-dir", os.path.join(tmp, f"ck_{label}"),
+                "--init-method", "file://" + os.path.join(
+                    tmp, f"store_{label}")])
+        secs = time.perf_counter() - t0
+        counts[f"split_{label}"] = build.launch_counts()
+        counts[f"peak_{label}"] = torch.cuda.max_memory_allocated(dev)
+        if rank == 0:
+            with open(os.path.join(tmp, f"out_{label}.txt"), "w") as f:
+                f.write(buf.getvalue())
+            for line in buf.getvalue().splitlines():
+                log(f"{label}: {line}")
+            log(f"{label}: the CLI in {secs:.1f} s on rank 0 (its world's "
+                "start, the init, the steps and the checkpoints)")
+
+
+def split_train_alone() -> None:
+    """Phase 16 alone (``chip_smoke.py --split-train``, ~200 s): its
+    4-rank launch (``--split-train-rank DIR``), the oracles and the
+    gates, as in phase 14's launch."""
+    import tempfile
+    if sys.argv[1] == "--split-train-rank":
+        tmp, counts = sys.argv[2], {}
+        rank = int(os.environ["RANK"])
+        split_train_rank(torch.device("cuda", int(os.environ["LOCAL_RANK"])
+                                      % torch.cuda.device_count()),
+                         tmp, rank, counts)
+        with open(os.path.join(tmp, f"counts_{rank}.json"), "w") as f:
+            json.dump(counts, f)
+        return
+    card, dev = banner(), torch.device("cuda")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        h = start_torchrun("16", P16_W * P16_M, [
+            os.path.join(ROOT, "chip_smoke.py"), "--split-train-rank", tmp])
+        want = split_train_oracles(dev, tmp)
+        check_split_16a(dev, tmp, want, h)
+        finish_cli(h, card, limit=ZP_LIMIT)
+        counts = [json.load(open(os.path.join(tmp, f"counts_{r}.json")))
+                  for r in range(P16_W * P16_M)]
+        check_split_train(dev, card, tmp, want, counts)
+    log(f"phase 16 alone: {time.perf_counter() - t0:.1f} s; {card}")
+
+
+def split_train_oracles(dev, tmp) -> dict:
+    """Before phase 16 (the ranks wait for ``go_16``): the dry run of
+    16a's configuration on the meta device (a "fake" world of 4 ranks in
+    this process); 16a's two steps with the weights whole, the W workers
+    in turn (each worker's gradient of its own rows, summed, over W,
+    Adam); and 16b's step 0 from the init with ``make_train_step`` on
+    ``make_zoo_mesh(2, 1)``. Returns them, on the card."""
+    import gc
+
+    from repro_torch import tree
+    from repro_torch.configs import InputShape, get_config
+    from repro_torch.kernels import build
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.launch.mesh import make_zoo_mesh
+    from repro_torch.launch.train import make_batch
+    from repro_torch.models.registry import build_model
+
+    t0 = time.perf_counter()
+    args, tcfg = split_train_args("16a")
+    cfg = get_config(FED_ARCH)
+    # the VLM's sequence: the image embeddings, then the CLI's tokens
+    dry = dryrun.measure(cfg, InputShape("16a", cfg.num_image_tokens
+                                         + args.seq, args.batch, "train"),
+                         (P16_W, P16_M), ("data", "model"), agg="mean",
+                         tcfg=tcfg)
+    if dry["model_axis"] != "split":
+        fail(f"16a dry run: model_axis {dry['model_axis']}, want split")
+    mem = dry["memory"]
+    log(f"16a dry run (meta device, rank (0, 0) of a fake 2 x 2 world, "
+        f"{time.perf_counter() - t0:.1f} s): params "
+        f"{mem['params'] / 2**30:.3f} GiB, optimizer "
+        f"{mem['optimizer'] / 2**30:.3f} GiB, step_peak "
+        f"{mem['step_peak'] / 2**30:.3f} GiB, total "
+        f"{mem['total'] / 2**30:.3f} GiB; collectives a step "
+        + ", ".join(f"{k} {v / 1e6:.1f} MB in {dry['collectives']['calls'][k]}"
+                    f" calls" for k, v in dry["collectives"]["bytes"].items()))
+    t0 = time.perf_counter()
+    model = build_model(cfg)
+    params = model.init(0, device=dev)
+    opt = steps_lib.make_optimizer(tcfg)
+    state = opt.init(params)
+    batch = make_batch(cfg, args.batch, args.seq, device=dev)
+    build.reset_launch_counts()
+    losses = []
+    for _ in range(args.steps):
+        gs, ls = [], []
+        for u in range(P16_W):
+            loss, g = steps_lib.loss_and_grads(
+                model, tcfg, params, steps_lib.shard_batch(batch, u, P16_W))
+            gs.append(g)
+            ls.append(float(loss))
+        with torch.no_grad():
+            grads = tree.tree_map(lambda a, b: (a + b).div_(P16_W), *gs)
+            del gs
+            params, state = opt.update(grads, state, params,
+                                       tcfg.learning_rate)
+        del grads
+        losses.append(sum(ls) / len(ls))
+    # kept on the card (6 GB) until the ranks' checkpoint is read
+    want = {"leaves": tree.leaves(params) + tree.leaves(state),
+            "losses": losses, "dry": dry}
+    del params, state
+    log(f"16a in turn: {args.steps} steps with the weights whole in "
+        f"{time.perf_counter() - t0:.1f} s, losses "
+        + ", ".join(f"{v:.4f}" for v in losses))
+    t0 = time.perf_counter()
+    _, tcfg = split_train_args("16b")
+    mesh = make_zoo_mesh(P16_W, 1)
+    params = model.init(0, device=dev)
+    want["before0"] = _flat([p.float() for p in tree.leaves(params)])
+    params, _, m = steps_lib.make_train_step(model, tcfg, mesh)(
+        params, (), batch, steps_lib.default_round_ctx(seed=0, device=dev,
+                                                       mesh=mesh))
+    want["after0"] = _flat([p.float() for p in tree.leaves(params)])
+    want["loss0"] = float(m["loss"])
+    expect_counts("16a and 16b step 0 in turn", build.launch_counts(), {},
+                  0)
+    del params, batch, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"16b in turn: step 0 from the init in "
+        f"{time.perf_counter() - t0:.1f} s")
+    open(os.path.join(tmp, "go_16"), "w").close()
+    return want
+
+
+def _split_lines(tmp, label: str, card: str) -> list:
+    """16x's CLI lines on rank 0: the steps (s, loss finite, the
+    collectives), the replicas' and the shares' lines; each step
+    printed."""
+    with open(os.path.join(tmp, f"out_{label}.txt")) as f:
+        text = f.read()
+    steps = [m for m in map(P16_STEP.search, text.splitlines()) if m]
+    if len(steps) != 2 or not all(np.isfinite(float(m.group(2)))
+                                  for m in steps):
+        fail(f"{label}: want 2 steps with finite losses: {text}")
+    for need in ("replicas: parameter shares bit-identical on the 2 ranks "
+                 "of each worker group", "the product rule over "
+                 "param_shardings", "peak memory by rank"):
+        if need not in text:
+            fail(f"{label}: the CLI printed no '{need}': {text}")
+    for m in steps:
+        log(f"{label}: step {m.group(1)}: {float(m.group(3)):.2f} s on rank "
+            f"0, loss {m.group(2)}; collectives {m.group(4)}; {card}")
+    return steps
+
+
+def _chunks_parted(got, want, before, rel: float = 1e-4) -> tuple:
+    """(1024-chunks of the movement ``want − before`` that ``got`` parts
+    from by more than ``rel`` of their own norm, chunks)."""
+    n = want.numel()
+    pad = (-n) % 1024
+    d = torch.nn.functional.pad(got - want, (0, pad)).reshape(-1, 1024)
+    mv = torch.nn.functional.pad(want - before, (0, pad)).reshape(-1, 1024)
+    apart = torch.linalg.vector_norm(d, dim=1) > rel * \
+        torch.linalg.vector_norm(mv, dim=1)
+    return int(apart.sum()), int(apart.numel())
+
+
+def check_split_16a(dev, tmp, want: dict, launch) -> None:
+    """16a's gate, while the ranks run 16b: the ranks' checkpoint after
+    step 2 (on disk once rank 0 has written ``out_16a.txt``) against the
+    whole weights' steps with the workers in turn, bit for bit, every
+    parameter and Adam moment."""
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.models.registry import build_model
+
+    _wait_for(os.path.join(tmp, "out_16a.txt"), "16a's checkpoint",
+              timeout=ZP_LIMIT, launch=launch)
+    t0 = time.perf_counter()
+    args, tcfg = split_train_args("16a")
+    got = steps_lib.restore_train_state(os.path.join(tmp, "ck_16a"),
+                                        build_model(get_config(FED_ARCH)),
+                                        tcfg, dev)
+    if got is None or got[2] != args.steps:
+        fail(f"16a: no checkpoint of step {args.steps}")
+    mine = tree.leaves(got[0]) + tree.leaves(got[1])
+    theirs = want.pop("leaves")
+    differ = [i for i, (a, b) in enumerate(zip(mine, theirs))
+              if not torch.equal(a, b)]
+    if differ or len(mine) != len(theirs):
+        i = differ[0] if differ else 0
+        n, ulps = _ulps(mine[i].float().reshape(-1),
+                        theirs[i].float().reshape(-1),
+                        theirs[i].float().reshape(-1))
+        fail(f"16a: {len(differ)} of {len(theirs)} leaves of the ranks' "
+             f"checkpoint differ from the whole steps' (leaf {i}: {n:,} "
+             f"elements, at most {ulps:.1f} ulp)")
+    log(f"16a: the ranks' checkpoint after step {args.steps} ≡ the whole "
+        f"weights' steps with the workers in turn, bit for bit in all "
+        f"{len(theirs)} leaves (parameters and Adam's moments); losses in "
+        f"turn " + ", ".join(f"{v:.4f}" for v in want["losses"])
+        + f" (held in {time.perf_counter() - t0:.1f} s beside the ranks' "
+        "16b)")
+    del got, mine, theirs
+    torch.cuda.empty_cache()
+
+
+def _held_16b(t: int, before, ours, theirs, lr: float, loss: float) -> None:
+    """16b's step t from the ranks' carry ``before``: this process's
+    ``ours`` against the ranks' ``theirs`` (flat f32 on the card), bit
+    for bit, or ĝ by NMSE and support and the parameters within 1e-4 of
+    their movement (≤ 1% of its chunks parted), with the ulps."""
+    if torch.equal(ours, theirs):
+        log(f"16b: step {t} from the ranks' carry ≡ make_train_step on "
+            f"make_zoo_mesh(2, 1) bit for bit (loss in turn {loss:.4f})")
+        return
+    nmse, overlap = _nmse_support((before - ours) / lr,
+                                  (before - theirs) / lr)
+    share = float(torch.linalg.vector_norm(ours - theirs)
+                  / torch.linalg.vector_norm(theirs - before))
+    parted, chunks = _chunks_parted(ours, theirs, before)
+    n_diff, ulps = _ulps(ours, theirs, before)
+    log(f"16b: step {t} from the ranks' carry against make_train_step on "
+        f"make_zoo_mesh(2, 1): ĝ NMSE {nmse:.3e}, support overlap "
+        f"{overlap:.6f}; parameters {share:.3e} of their movement apart, "
+        f"{parted:,} of {chunks:,} chunks parted; the witness: {n_diff:,} "
+        f"of {ours.numel():,} elements differ, by at most {ulps:.1f} ulp "
+        f"(loss in turn {loss:.4f})")
+    if not (nmse <= FED_GHAT_NMSE and overlap >= FED_SUPPORT):
+        fail(f"16b step {t}: ĝ NMSE {nmse:.3e} (gate {FED_GHAT_NMSE}), "
+             f"support overlap {overlap:.6f} (gate {FED_SUPPORT})")
+    if share > FED_PARAM_TOL and parted > chunks // 100:
+        fail(f"16b step {t}: parameters {share:.3e} of their movement "
+             f"apart (gate {FED_PARAM_TOL}), {parted} of {chunks} chunks "
+             "parted (gate 1%)")
+
+
+def check_split_train(dev, card, tmp, want: dict, counts: list) -> None:
+    """Phase 16's other gates once the launch has ended
+    (``split_train_rank``): the CLI's lines, no launch of K1-K7 in any
+    rank, the peaks beside the dry run's estimate; 16b's steps, each
+    from the ranks' carry before it, against ``make_train_step`` on
+    ``make_zoo_mesh(2, 1)`` (step 0's from ``split_train_oracles``)."""
+    import gc
+
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.launch.mesh import make_zoo_mesh
+    from repro_torch.launch.train import make_batch
+    from repro_torch.models.registry import build_model
+
+    t0 = time.perf_counter()
+    for label in P16_RUNS:
+        _split_lines(tmp, label, card)
+        summed = {k: sum(c[f"split_{label}"][k] for c in counts)
+                  for k in counts[0][f"split_{label}"]}
+        expect_counts(f"split train ({label})", summed, {}, 0)
+        dry = want["dry"]["memory"]
+        log(f"{label}: peak by rank (GiB) " + ", ".join(
+            f"{c[f'peak_{label}'] / 2**30:.2f}" for c in counts)
+            + f"; the dry run's 16a estimate: total "
+            f"{dry['total'] / 2**30:.2f} GiB, step_peak "
+            f"{dry['step_peak'] / 2**30:.2f} GiB (live storages, no "
+            "allocator rounding; the CLI's init and checkpoints not in "
+            "it)")
+    args, tcfg = split_train_args("16b")
+    cfg = get_config(FED_ARCH)
+    model = build_model(cfg)
+    ck = os.path.join(tmp, "ck_16b")
+    lr = tcfg.learning_rate
+    carry1 = _flat(_ckpt_params(ck, 1)).to(dev)
+    _held_16b(0, want.pop("before0"), want.pop("after0"), carry1, lr,
+              want["loss0"])
+    mesh = make_zoo_mesh(P16_W, 1)
+    leaves, treedef = tree.flatten(model.init(0, device="meta"))
+    off = 0
+    for i, p in enumerate(leaves):
+        leaves[i] = carry1[off:off + p.numel()].reshape(p.shape).to(p.dtype)
+        off += p.numel()
+    build.reset_launch_counts()
+    params, _, m = steps_lib.make_train_step(model, tcfg, mesh)(
+        tree.unflatten(treedef, leaves), (), make_batch(
+            cfg, args.batch, args.seq, device=dev),
+        steps_lib.default_round_ctx(seed=1, device=dev, mesh=mesh))
+    expect_counts("16b step 1 in turn", build.launch_counts(), {}, 0)
+    ours = _flat([p.float() for p in tree.leaves(params)])
+    del params, leaves
+    _held_16b(1, carry1, ours, _flat(_ckpt_params(ck, 2)).to(dev), lr,
+              float(m["loss"]))
+    del carry1, ours
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"16: held in {time.perf_counter() - t0:.1f} s")
+    split_rows_witness(dev, tcfg)
+
+
+def split_rows_witness(dev, tcfg) -> None:
+    """Why 16b may part from M = 1: Φ's product with a model shard's
+    half of a leaf's chunk rows, against those rows of the product with
+    all of them, for the largest leaves' chunk counts of internvl2-1b
+    (N(0, 1) rows, the step's Φ)."""
+    from repro_torch.launch.steps import _row_block, obcsaa_config
+    ob = obcsaa_config(tcfg)
+    phi = ob.phi(dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    out = []
+    for n in (132_699, 102_144, 18_816):
+        x = torch.randn((n, ob.chunk), generator=gen, device=dev)
+        whole = x @ phi.T
+        for m in range(P16_M):
+            a, b = _row_block(n, P16_M, m)
+            part = x[a:b] @ phi.T
+            out.append(f"n {n:,} rows [{a:,}, {b:,}): "
+                       + ("equal" if torch.equal(part, whole[a:b]) else
+                          f"{int((part != whole[a:b]).sum()):,} of "
+                          f"{part.numel():,} differ, by at most "
+                          f"{float((part - whole[a:b]).abs().max()):.2e}"))
+    del x, whole, part
+    torch.cuda.empty_cache()
+    log("16b witness (cuBLAS, f32, TF32 off): a shard's rows of x Φᵀ "
+        "alone against the whole product's: " + "; ".join(out))
 
 
 SOURCES = {
@@ -4432,6 +4827,10 @@ def main() -> None:
         return
     if sys.argv[1:2] == ["--zoo-rank"]:
         zoo_rank()
+        return
+    if sys.argv[1:2] in (["--split-train"], ["--split-train-rank"]):
+        sys.path.insert(0, os.path.join(ROOT, "src"))
+        split_train_alone()
         return
     src = os.path.join(ROOT, "src")
     if not os.path.isdir(os.path.join(src, "repro_torch")):

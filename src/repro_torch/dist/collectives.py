@@ -21,8 +21,10 @@ here retries a collective or switches backend.
 
 ``BYTES`` and ``CALLS`` count, by kind, what this process hands to the
 collectives: a tensor's bytes for an all-reduce or a broadcast, the input
-shard's bytes for an all-gather. ``stats()`` adds each kind's time (CUDA
-events around the call for a CUDA tensor, the host clock otherwise);
+shard's bytes for an all-gather (``gather_tiled`` names its own kind:
+the split train step's uplink counts its gathers apart). ``stats()``
+adds each kind's time (CUDA events around the call for a CUDA tensor,
+the host clock otherwise);
 ``by_group()`` the same bytes and calls split by the name a group was
 given (``name_group``; ``launch.mesh.world_mesh`` names its "data" and
 "model" groups); ``reset_counters()`` sets everything to 0.
@@ -227,14 +229,15 @@ def replicated(tensors, group) -> bool:
     return int(_all_reduce_(flag, group)) == 0
 
 
-def _gather(x: torch.Tensor, group) -> List[torch.Tensor]:
-    """Every worker's ``x``, in rank order. bfloat16 travels as its
-    bytes (a gather copies, so the bits are the value; gloo takes no
-    bfloat16)."""
+def _gather(x: torch.Tensor, group, kind: str = "all_gather"
+            ) -> List[torch.Tensor]:
+    """Every worker's ``x``, in rank order, counted as ``kind``. bfloat16
+    travels as its bytes (a gather copies, so the bits are the value;
+    gloo takes no bfloat16)."""
     x = x.contiguous()
     wire = x.view(torch.uint8) if x.dtype == torch.bfloat16 else x
     out = [torch.empty_like(wire) for _ in range(axis_size(group))]
-    with _Count("all_gather", x, group):
+    with _Count(kind, x, group):
         dist.all_gather(out, wire, group=group)
     return [o.view(x.dtype) for o in out]
 
@@ -289,6 +292,15 @@ def all_gather(x: torch.Tensor, group, *, axis: int = 0,
     if group is None:
         return x if tiled else x.unsqueeze(axis)
     return _AllGather.apply(x, group, axis, tiled)
+
+
+def gather_tiled(x: torch.Tensor, group, *, axis: int = 0,
+                 kind: str = "all_gather") -> torch.Tensor:
+    """The group's blocks of a tensor concatenated along ``axis``,
+    counted as ``kind`` (no autograd); no group: ``x``."""
+    if group is None:
+        return x
+    return torch.cat(_gather(x, group, kind), axis)
 
 
 class _ReplicatedGather(torch.autograd.Function):

@@ -16,7 +16,9 @@ of names, or None; ``()`` replicates (the reference's ``P()``).
   whole model. Leaves under a ``STACKED_KEYS`` collection keep their
   leading dim (the layer axis) whole.
 - ``local_shape(shape, spec, mesh)``: the block of a leaf one rank holds
-  under a spec (each dim over the product of the sizes of its axes).
+  under a spec (each dim over the product of the sizes of its axes);
+  ``spec_bytes`` the bytes a rank holds of a tree of leaves (the product
+  rule).
 - ``constrain(x, axes)`` is the identity: one card holds every shard.
 """
 from __future__ import annotations
@@ -99,6 +101,22 @@ def local_shape(shape: Sequence[int], spec, mesh) -> tuple:
                              f"not split {div} ways ({spec})")
         out.append(dim // div)
     return tuple(out)
+
+
+def spec_bytes(shapes, specs, mesh) -> int:
+    """Bytes a card holds of the leaves ``shapes`` (tensors) under the
+    partition ``specs`` (one spec tuple per leaf, in leaf order): each
+    leaf's bytes over the product of the sizes of the axes its spec
+    names."""
+    sizes = _axis_sizes(mesh)
+    total = 0
+    for x, spec in zip(tree.leaves(shapes), specs):
+        div = 1
+        for part in spec:
+            for ax in ((part,) if isinstance(part, str) else part or ()):
+                div *= sizes[ax]
+        total += x.numel() * x.element_size() // div
+    return total
 
 
 def _map_with_keys(fn, t):

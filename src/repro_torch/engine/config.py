@@ -63,9 +63,8 @@ class FLConfig:
 
     def __post_init__(self):
         if self.aggregator not in AGGREGATORS:
-            raise NotImplementedError(
-                f"aggregator {self.aggregator!r} is not ported yet; one of "
-                f"{AGGREGATORS}")
+            raise ValueError(f"unknown aggregator {self.aggregator!r}; one "
+                             f"of {AGGREGATORS}")
         if self.scheduler not in SCHEDULERS:
             raise ValueError(f"unknown scheduler {self.scheduler!r}; one of "
                              f"{SCHEDULERS}")

@@ -21,8 +21,8 @@ eq. 3 gradients of a model from ``models/registry``:
   ``shard_map`` body (``zoo_train.py:183-230``): it gathers its section
   over the worker group in ``compute_dtype`` and views it as per-leaf
   shards (``section_to_tree``). The forward is redundant over the model
-  axis: ``_materialize`` gathers each non-stacked leaf once and
-  ``_layer_resolver`` one layer's weights at a time, both through
+  axis: ``dist.shares.ModelAxis`` gathers each non-stacked leaf once and
+  one layer's weights at a time, both through
   ``collectives.replicated_gather`` over the model group, whose adjoint
   is the local slice, so the backward's cotangents are this rank's
   section block (``tree_to_section``), laid straight into compression.
@@ -48,7 +48,9 @@ half (``local_state`` cuts them from a whole carry).
 ``round_train`` updates the carry's tensors in place and returns the
 carry; ``reference_round_train`` is the same round on a copy, the
 single-device oracle on one card. ``run_sweep`` is a host loop over
-rounds × arms in one process (a CUDA graph of it is later work).
+rounds × arms, in one process or on every rank of a cell, each rank
+running every arm on its rows of the arm-stacked carry (a CUDA graph of
+it is later work).
 ``save_state`` / ``restore_state`` write the reference's checkpoint
 format, the whole carry, so either package resumes the other's: over
 processes rank 0 writes it a block of rows at a time, gathered from
@@ -68,7 +70,7 @@ from repro_torch.core.obcsaa import OBCSAAConfig, compress_chunks
 from repro_torch.core.sparsify import topk_sparsify, topk_sparsify_bisect
 from repro_torch.dist import collectives as coll
 from repro_torch.dist.flat_layout import FlatShardLayout
-from repro_torch.dist.sharding import STACKED_KEYS, param_shard_dims
+from repro_torch.dist.shares import ModelAxis
 from repro_torch.engine.zoo import ZooDraws, ZooRound, ZooStats, host_stats
 from repro_torch.launch.mesh import num_workers
 from repro_torch.optim import optimizers as optim
@@ -146,82 +148,25 @@ class ZooTrainRound(ZooRound):
                          phi=phi)
         self._opt_shapes = self.optimizer.init(torch.empty(
             (self.n_chunks, ob.chunk), dtype=torch.float32, device="meta"))
-        # the model-axis gather dim of each leaf; a stacked collection's
-        # per-layer dims (dim 0, the layer axis, sliced off), keyed by the
-        # key paths of its per-layer tree
-        self._dims_tree = param_shard_dims(shapes, mesh)
-        self._resolver_dims = {}
-        for key in STACKED_KEYS:
-            if key in shapes:
-                paths = tuple(p for p, _ in
-                              tree.flatten_with_paths(shapes[key])[0])
-                self._resolver_dims[paths] = [
-                    max(d - 1, -1) for d in tree.leaves(self._dims_tree[key])]
-
-    # -- weight resolution over the model group -----------------------------
-
-    def _gather_leaf(self, x, dim: int):
-        if self.n_model == 1 or dim < 0:
-            return x
-        return coll.replicated_gather(self.mgroup, self.n_model, dim=dim)(x)
-
-    def _layer_resolver(self, lp):
-        """Shards -> full weights of one layer (inside the remat boundary,
-        so the backward gathers them again rather than keep them)."""
-        flat, td = tree.flatten_with_paths(lp)
-        dims = self._resolver_dims.get(tuple(p for p, _ in flat))
-        if dims is None:
-            raise KeyError(
-                f"zoo-train layer resolver saw an unknown per-layer "
-                f"structure {[p for p, _ in flat][:4]}...; stacked "
-                f"collections must be registered under "
-                f"dist.sharding.STACKED_KEYS {STACKED_KEYS}")
-        return tree.unflatten(td, [self._gather_leaf(x, d) for (_, x), d
-                                   in zip(flat, dims)])
-
-    def _materialize(self, shards):
-        """Non-stacked leaves gathered to full weights once; stacked
-        collections stay sharded for the per-layer resolver."""
-        return {key: sub if key in STACKED_KEYS else tree.tree_map(
-                    self._gather_leaf, sub, self._dims_tree[key])
-                for key, sub in shards.items()}
+        # the model axis's gathers over processes (dist.shares)
+        self.axis = ModelAxis(shapes, mesh)
 
     def _local_loss_and_grads(self, pl, batch_u):
         """Over processes: (loss, this rank's (n_half, D_c) gradient
         block in compute dtype) from its master rows ``pl``: the section
-        gathered over the worker group, the forward and backward with
-        the model-axis gathers, the cotangents laid out as the section.
-
-        Non-stacked leaves are gathered once, before the forward
-        (``_materialize``), and the gradient is taken of the full leaf,
-        then sliced to this rank's part (``replicated_gather``'s
-        adjoint): a leaf used in several places (a tied embedding, the
-        hybrid's shared block) then sums its cotangents in the same
-        order as the in-turn path's full tree, so the two agree bit for
-        bit."""
-        m = self.cell[1]
+        gathered over the worker group and viewed as the leaves' shares,
+        the forward and backward on them (``dist.shares.ModelAxis``: the
+        model-axis gathers, the gradient of a non-stacked leaf taken
+        whole and sliced, so the shares' gradients are the in-turn
+        path's blocks bit for bit), laid out as the section."""
         with torch.no_grad():
             sect = coll.all_gather(pl.to(self.compute_dtype), self.wgroup,
                                    tiled=True)
-            p = self._materialize(self.layout.section_to_tree(sect))
-        leaves, td = tree.flatten(p)
-        req = [x.detach().requires_grad_() for x in leaves]
-        resolver = self._layer_resolver if self._resolver_dims else None
-        with torch.enable_grad():
-            loss, _ = self.model.loss_fn(tree.unflatten(td, req), batch_u,
-                                         remat=self.remat,
-                                         layer_resolver=resolver)
-            grads = torch.autograd.grad(loss, req)
-        del sect, req
-        local = []
-        for (keys, x), g, d in zip(tree.flatten_with_keys(p), grads,
-                                   tree.leaves(self._dims_tree)):
-            if keys[0] not in STACKED_KEYS and d >= 0 and self.n_model > 1:
-                k = x.shape[d] // self.n_model
-                g = g.narrow(d, m * k, k)
-            local.append(g)
-        return loss.detach(), self.layout.tree_to_section(
-            tree.unflatten(td, local))
+            shares = self.layout.section_to_tree(sect)
+        loss, grads = self.axis.loss_and_grads(self.model, shares, batch_u,
+                                               remat=self.remat)
+        del sect, shares
+        return loss, self.layout.tree_to_section(grads)
 
     # -- gradients -----------------------------------------------------------
 
@@ -307,15 +252,22 @@ class ZooTrainRound(ZooRound):
 
     def init_sweep_state(self, masters) -> ZooTrainState:
         """Arm-stacked carry for (A, n_chunks, D_c) masters: per-arm
-        moments and residuals; Adam's step counter becomes (A,)."""
-        masters = torch.as_tensor(masters).to(self.device, torch.float32)
+        moments and residuals; Adam's step counter becomes (A,). Over
+        processes the carry of this rank's rows of every arm (the masters
+        may be the whole ones or the rank's (A, n_local, D_c) rows)."""
+        masters = torch.as_tensor(masters)
+        if self.cell is not None and masters.shape[1] == self.n_chunks:
+            masters = masters[:, self.row0:self.row0 + self.n_local]
+        masters = masters.to(self.device, torch.float32,
+                             copy=self.cell is not None)
         A = int(masters.shape[0])
         opt = tree.tree_map(
             lambda l: l if _rowwise(l) else torch.zeros(
                 (A,) + tuple(l.shape), dtype=l.dtype, device=l.device),
             self.optimizer.init(masters))
-        res = (torch.zeros((A, self.U, self.n_chunks, self.ob.chunk),
-                           dtype=torch.float32, device=self.device)
+        res_shape = ((A, self.U, self.n_chunks, self.ob.chunk)
+                     if self.cell is None else (A, self.n_half, self.ob.chunk))
+        res = (torch.zeros(res_shape, dtype=torch.float32, device=self.device)
                if self.error_feedback else None)
         return ZooTrainState(master=masters, opt=opt, residual=res)
 
@@ -381,8 +333,25 @@ class ZooTrainRound(ZooRound):
         expected geometry."""
         res = state.residual
         if self.cell is not None:
-            want = (self.n_half, self.ob.chunk) if self.error_feedback \
-                else None
+            # this rank's rows: the master (lead, n_local, D_c), each
+            # moment the master's shape, the residual (lead, n_half, D_c);
+            # lead is () or an arm-stacked carry's (A,)
+            master = tuple(state.master.shape)
+            lead = master[:-2]
+            if master[-2:] != (self.n_local, self.ob.chunk):
+                raise ValueError(
+                    f"ZooTrainRound over processes: the carry's master is "
+                    f"{master}, expected (..., n_local, D_c) = (..., "
+                    f"{self.n_local}, {self.ob.chunk}) (this rank's rows; "
+                    f"local_state cuts them from a whole carry)")
+            for x in tree.leaves(state.opt):
+                if _rowwise(x) and tuple(x.shape) != master:
+                    raise ValueError(
+                        f"ZooTrainRound over processes: an optimizer "
+                        f"moment is {tuple(x.shape)}, expected the "
+                        f"master's {master}")
+            want = (lead + (self.n_half, self.ob.chunk)
+                    if self.error_feedback else None)
             got = None if res is None else tuple(res.shape)
             if got != want:
                 raise ValueError(
@@ -585,17 +554,19 @@ class ZooTrainRound(ZooRound):
         stateless round); ``arms``: dict of (A,) ``noise_var`` / ``p_max``
         / ``lr``; ``draws``: optional callable t -> ZooDraws (every arm of
         round t shares its draws, as the reference's arms share the
-        round's key). Returns (states, ZooTrainStats of NumPy arrays
-        stacked (rounds, A))."""
-        if self.cell is not None:
-            raise NotImplementedError(
-                "ZooTrainRound.run_sweep runs its arms in one process; over "
-                "processes run one arm a launch")
+        round's key). Over processes each rank runs every arm on its
+        rows of the carry (``init_sweep_state``'s), and the stats come
+        back on every rank. Returns (states, ZooTrainStats of NumPy
+        arrays stacked (rounds, A))."""
         states = self.as_state(states)
         self._check_state(states)
         nv, pm, lr = (np.asarray(torch.as_tensor(arms[k]).cpu(), np.float32)
                       for k in ("noise_var", "p_max", "lr"))
         A = int(nv.shape[0])
+        if tuple(states.master.shape[:-2]) != (A,):
+            raise ValueError(
+                f"run_sweep: {A} arms, but the carry's master is "
+                f"{tuple(states.master.shape)}, expected (A, rows, D_c)")
         rows = []
         for t in range(int(t0), int(t0) + int(rounds)):
             dr = draws(t) if draws is not None else None
@@ -649,19 +620,22 @@ class ZooTrainRound(ZooRound):
 
     def _streamed(self, state: ZooTrainState) -> ZooTrainState:
         """The whole carry as ``RowBlocks`` leaves: each leaf's rows in
-        order, every owner's block broadcast from it over the world (rank
-        0 writes them). Rank d·M + m owns master rows m·n_half + d·n_local
-        and worker d's residual rows of half m."""
+        order (an arm-stacked carry's arm by arm), every owner's block
+        broadcast from it over the world (rank 0 writes them). Rank
+        d·M + m owns master rows m·n_half + d·n_local and worker d's
+        residual rows of half m."""
         W, M = self.U, self.n_model
         me = coll.axis_index(self.world)
 
         def rows_of(local, owners):
             def blocks():
-                for src in owners:
-                    for a, b in self._blocks(0, local.shape[0]):
-                        buf = (local[a:b].contiguous() if me == src
-                               else torch.empty_like(local[a:b]))
-                        yield coll.broadcast(buf, self.world, src=src)
+                for lead in np.ndindex(*local.shape[:-2]):
+                    x = local[lead]
+                    for src in owners:
+                        for a, b in self._blocks(0, x.shape[0]):
+                            buf = (x[a:b].contiguous() if me == src
+                                   else torch.empty_like(x[a:b]))
+                            yield coll.broadcast(buf, self.world, src=src)
             return blocks
 
         by_rows = [d * M + m for m in range(M) for d in range(W)]
@@ -670,13 +644,16 @@ class ZooTrainRound(ZooRound):
         def leaf(x):
             if not _rowwise(x):
                 return x
-            return checkpoint.RowBlocks((self.n_chunks, self.ob.chunk),
-                                        x.dtype, rows_of(x, by_rows))
+            return checkpoint.RowBlocks(
+                tuple(x.shape[:-2]) + (self.n_chunks, self.ob.chunk),
+                x.dtype, rows_of(x, by_rows))
 
         res = state.residual
         if res is not None:
-            res = checkpoint.RowBlocks((self.U, self.n_chunks, self.ob.chunk),
-                                       res.dtype, rows_of(res, by_res))
+            res = checkpoint.RowBlocks(
+                tuple(res.shape[:-2]) + (self.U, self.n_chunks,
+                                         self.ob.chunk),
+                res.dtype, rows_of(res, by_res))
         return ZooTrainState(master=leaf(state.master),
                              opt=tree.tree_map(leaf, state.opt),
                              residual=res)
@@ -695,11 +672,12 @@ class ZooTrainRound(ZooRound):
                 "t_next": torch.empty((), dtype=torch.int32, device="meta")}
         rows = None
         if self.cell is not None:
-            # this rank's rows of each leaf, memory-mapped
+            # this rank's rows of each leaf (of every arm), memory-mapped
             d, _ = self.cell
-            own = slice(self.row0, self.row0 + self.n_local)
-            half = (d, slice(self.half0, self.half0 + self.n_half))
-            rows = [own if x.ndim == 2 else half if x.ndim == 3 else None
+            lead = () if arms is None else (slice(None),)
+            own = lead + (slice(self.row0, self.row0 + self.n_local),)
+            half = lead + (d, slice(self.half0, self.half0 + self.n_half))
+            rows = [{2: own, 3: half}.get(x.ndim - len(lead))
                     for x in tree.leaves(like)]
         got = checkpoint.restore(ckpt_dir, step, like, rows=rows)
         state = tree.tree_map(lambda x: x.to(self.device), got["state"])

@@ -18,8 +18,14 @@ of that world. The program of each kind:
   the port's path with the model axis across ranks: rank (0, 0) of the
   (W, 8) mesh, its worker's batch of ``global_batch / W`` sequences;
   ``"model_axis": "split"``.
-- **train**, ``--agg mean``: ``launch.steps.make_train_step`` with every
-  card a worker and the weights whole (``"model_axis": "replicated"``).
+- **train**, ``--agg mean``: ``launch.steps.make_train_step`` of rank
+  (0, 0) of the (W, M) world, its worker's ``global_batch / W``
+  sequences: with M > 1 the split step, on the rank's shares of the
+  weights and the optimizer state, the layers'
+  weights gathered over the model group, the gradient shares summed over
+  the worker group (``"model_axis": "split"``, the parameter bytes the
+  product rule over ``param_shardings``); with M = 1 every card a worker
+  and the weights whole (``"replicated"``).
 - **prefill**: the split prefill (``model.prefill(mesh=)``) of rank
   (0, 0) on the batch shard of the data axis (``global_batch / W``
   sequences), its share of the weights (``models/tensor_parallel.py``:
@@ -78,6 +84,8 @@ from repro_torch import tree
 from repro_torch.configs import (ASSIGNED_ARCHS, INPUT_SHAPES, TrainConfig,
                                  get_config)
 from repro_torch.dist import collectives as coll
+from repro_torch.dist.sharding import infer_param_specs, spec_bytes
+from repro_torch.dist.shares import ModelAxis
 from repro_torch.launch import steps as steps_lib
 from repro_torch.launch.mesh import (leave_world, make_production_mesh,
                                      num_workers, world_mesh)
@@ -151,22 +159,6 @@ def _bytes(x) -> int:
     return x.numel() * x.element_size()
 
 
-def spec_bytes(shapes, specs, mesh) -> int:
-    """Bytes a card holds of the leaves ``shapes`` (tensors) under the
-    partition ``specs`` (one spec tuple per leaf, in leaf order): each
-    leaf's bytes over the product of the sizes of the axes its spec
-    names."""
-    sizes = dict(mesh.shape)
-    total = 0
-    for x, spec in zip(tree.leaves(shapes), specs):
-        div = 1
-        for part in spec:
-            for ax in ((part,) if isinstance(part, str) else part or ()):
-                div *= sizes[ax]
-        total += _bytes(x) // div
-    return total
-
-
 def _meta_batch(model, shape, rows: int):
     """The model's inputs for ``rows`` sequences of ``shape``, as meta
     tensors."""
@@ -222,13 +214,19 @@ def _leaf(t, keys):
 
 
 def _train_mean(model, tcfg, mesh, shape):
+    """``make_train_step`` on rank (0, 0): its memory and the call. With a
+    model axis the split step on the rank's shares (``dist.shares``),
+    their bytes the product rule over ``param_shardings``."""
     W = num_workers(mesh)
-    params = model.init(0, device="meta")
-    opt = steps_lib.make_optimizer(tcfg)
-    opt_state = opt.init(params)
+    shapes = model.init(0, device="meta")
+    params = ModelAxis(shapes, mesh).shard_tree(shapes)
+    opt_state = steps_lib.make_optimizer(tcfg).init(params)
     batch = _meta_batch(model, shape, shape.global_batch)
     step = steps_lib.make_train_step(model, tcfg, mesh)
-    mem = {"params": sum(_bytes(x) for x in tree.leaves(params)),
+    split = mesh.model_group is not None
+    mem = {"params": (spec_bytes(shapes, infer_param_specs(shapes, mesh),
+                                 mesh) if split else
+                      sum(_bytes(x) for x in tree.leaves(params))),
            "master": 0,
            "optimizer": sum(_bytes(x) for x in tree.leaves(opt_state)),
            "batch": sum(_bytes(v) for v in batch.values()) // W,
@@ -237,7 +235,7 @@ def _train_mean(model, tcfg, mesh, shape):
     def run():
         step(params, opt_state, batch, None)
 
-    return mem, run, {"model_axis": "replicated",
+    return mem, run, {"model_axis": "split" if split else "replicated",
                       "rows_per_card": shape.global_batch // W}, \
         tree.leaves(params) + tree.leaves(opt_state) + list(batch.values())
 
@@ -303,7 +301,8 @@ def measure(cfg, shape, mesh_shape, axis_names, *, agg: str = "obcsaa",
         if shape.kind == "train" and agg == "obcsaa" and M > 1:
             built = _train_zoo(model, tcfg, world_mesh(M), shape)
         elif shape.kind == "train":
-            built = _train_mean(model, tcfg, world_mesh(1), shape)
+            built = _train_mean(model, tcfg, world_mesh(
+                M if agg == "mean" else 1), shape)
         elif shape.kind == "prefill":
             built = _prefill(model, world_mesh(M), shape)
         else:

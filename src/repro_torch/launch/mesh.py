@@ -17,9 +17,9 @@ one group per axis: ``group``, the ranks of r's model column (the same
 m: the FL workers, whose all-reduce is the MAC), ``model_group``, the
 ranks of r's worker row (the same d: the model shards of one worker),
 and ``world``. A group of one rank is None, which the collectives take
-as the identity. The LM train step (``launch/steps.py``) runs over the
-worker group with M = 1; the zoo rounds (``engine/zoo.py``,
-``engine/zoo_train.py``) run over both.
+as the identity. The LM train step (``launch/steps.py``), the zoo
+rounds (``engine/zoo.py``, ``engine/zoo_train.py``) and the split
+serving path run over both.
 
 ``make_production_mesh`` is the H100 cluster spec ``launch/dryrun.py``
 estimates one card of: its shape, no groups.

@@ -25,6 +25,14 @@ folds i into the step's key). Only one leaf's temporaries are alive at a
 time, and a large leaf's only for a block of its chunks
 (``BLOCK_ROWS``). The loss is the workers' mean.
 
+The model axis. On a ``launch.mesh.world_mesh(M)`` of M > 1 rank
+d·M + m holds model shard m of every weight and moment
+(``dist.shares``: ``param_shardings``' layout), its model group gathers
+the weights for worker d's forward and backward, and the update runs on
+the shares; the checkpoints stay whole
+(``save_train_state`` streams each leaf to rank 0, ``restore_train_state``
+reads a rank's share), so a run saved at one M resumes at any.
+
 ``mean``: the gradient of the global batch's mean loss, as the
 reference's GSPMD step takes it; over processes the all-reduced sum of
 the shards' gradients over U. The two agree when every row has the same
@@ -58,6 +66,7 @@ from repro_torch.core.obcsaa import (OBCSAAConfig, shardmap_compress,
                                      shardmap_reconstruct)
 from repro_torch.device import resolve_device
 from repro_torch.dist import collectives as coll
+from repro_torch.dist.shares import ModelAxis
 from repro_torch.dist.sharding import (infer_param_sharding,
                                        infer_param_specs)
 from repro_torch.launch.mesh import ZooMesh, make_zoo_mesh, num_workers
@@ -103,21 +112,60 @@ def _shard_aligned_perm(leaf_shape, spec, model_axis="model"):
 BLOCK_ROWS = 1 << 17
 
 
-def _send_leaf(ob: OBCSAAConfig, leaf: torch.Tensor, phi, group=None, *,
-               k_weight, beta_i, b_t, wire_dtype=torch.float32, perm=None):
-    """This worker's compression of one leaf, superposed over ``group``,
-    in blocks of ``BLOCK_ROWS`` chunks: a list of ``shardmap_compress``'s
-    (y, ksum, mag_sum), one a block."""
+def _chunk_rows(ob: OBCSAAConfig, leaf: torch.Tensor, perm=None
+                ) -> torch.Tensor:
+    """A leaf (its dims permuted by ``perm`` first) flattened row-major
+    in f32, zero-padded to whole chunks: (n_chunks, D_c)."""
     leaf_t = leaf.permute(perm) if perm is not None else leaf
     flat = leaf_t.reshape(-1).to(torch.float32)
     rem = (-flat.shape[0]) % ob.chunk
     if rem:
         flat = torch.nn.functional.pad(flat, (0, rem))
-    chunks = flat.reshape(-1, ob.chunk)
-    return [shardmap_compress(ob, chunks[r:r + BLOCK_ROWS], group,
+    return flat.reshape(-1, ob.chunk)
+
+
+def _from_chunks(ghat: torch.Tensor, leaf: torch.Tensor, perm=None
+                 ) -> torch.Tensor:
+    """``_chunk_rows``' inverse: the flat padded chunks ``ghat`` cut back
+    to ``leaf``'s shape and dtype (``leaf`` may be a meta tensor)."""
+    shape = (tuple(leaf.shape[i] for i in perm) if perm is not None
+             else tuple(leaf.shape))
+    out = ghat[:leaf.numel()].reshape(shape).to(leaf.dtype)
+    if perm is not None:
+        out = out.permute(tuple(int(i) for i in np.argsort(perm)))
+    return out
+
+
+def _compress_rows(ob: OBCSAAConfig, rows: torch.Tensor, phi, group=None,
+                   *, k_weight, beta_i, b_t, wire_dtype=torch.float32):
+    """This worker's compression of chunk rows, superposed over
+    ``group``, in blocks of ``BLOCK_ROWS``: a list of
+    ``shardmap_compress``'s (y, ksum, mag_sum), one a block."""
+    return [shardmap_compress(ob, rows[r:r + BLOCK_ROWS], group,
                               k_weight=k_weight, beta_i=beta_i, b_t=b_t,
                               phi=phi, wire_dtype=wire_dtype)
-            for r in range(0, chunks.shape[0], BLOCK_ROWS)]
+            for r in range(0, rows.shape[0], BLOCK_ROWS)]
+
+
+def _decode_into(ob: OBCSAAConfig, out: torch.Tensor, sent, noise, *, phi,
+                 b_t) -> None:
+    """The PS's AWGN, post-processing and decode of the superposed
+    blocks ``sent`` (``_compress_rows``', taken as they go) into the rows
+    of ``out``, whose AWGN rows are ``noise``'s."""
+    for r in range(0, out.shape[0], BLOCK_ROWS):
+        y, ksum, mag_sum = sent.pop(0)
+        out[r:r + BLOCK_ROWS] = shardmap_reconstruct(
+            ob, y, ksum, mag_sum, b_t=b_t, phi=phi,
+            noise=noise[r:r + BLOCK_ROWS]).reshape(-1, ob.chunk)
+
+
+def _send_leaf(ob: OBCSAAConfig, leaf: torch.Tensor, phi, *, k_weight,
+               beta_i, b_t, wire_dtype=torch.float32, perm=None):
+    """One worker's compression of one leaf (``_compress_rows`` of all
+    its chunks), for the workers in turn."""
+    return _compress_rows(ob, _chunk_rows(ob, leaf, perm), phi,
+                          k_weight=k_weight, beta_i=beta_i, b_t=b_t,
+                          wire_dtype=wire_dtype)
 
 
 def _add_sent(acc, sent):
@@ -128,60 +176,83 @@ def _add_sent(acc, sent):
             for x, y in zip(acc, sent)]
 
 
-def _receive_leaf(ob: OBCSAAConfig, leaf: torch.Tensor, sent, phi,
-                  group=None, *, b_t, generator=None, noise=None, perm=None,
-                  hook=None, index: int = 0) -> torch.Tensor:
-    """The PS's half for one leaf: AWGN, post-processing and decode of
-    the superposed blocks ``sent`` on rank 0 of ``group``, broadcast to
-    every rank; the decoded leaf in ``leaf``'s shape and dtype (``leaf``
-    may be a meta tensor of them). ``hook`` is called with "decode", the
-    leaf (None for a meta one) and its decoded chunks (flat and padded,
-    before the cut back to the leaf's size)."""
-    leaf_t = leaf.permute(perm) if perm is not None else leaf
-    D = leaf_t.numel()
-    n = -(-D // ob.chunk)
+def _receive_leaf(ob: OBCSAAConfig, leaf: torch.Tensor, sent, phi, *, b_t,
+                  generator=None, noise=None, perm=None, hook=None,
+                  index: int = 0) -> torch.Tensor:
+    """The PS's half for one leaf, for the workers in turn: AWGN,
+    post-processing and decode of the summed blocks ``sent``; the decoded
+    leaf in ``leaf``'s shape and dtype (``leaf`` may be a meta tensor of
+    them). ``hook`` is called with "decode", the leaf (None for a meta
+    one) and its decoded chunks (flat and padded, before the cut back to
+    the leaf's size)."""
+    n = -(-leaf.numel() // ob.chunk)
     dev = sent[0][0].device
     ghat = torch.empty((n, ob.chunk), dtype=torch.float32, device=dev)
-    if coll.axis_index(group) == 0:
-        if noise is None:
-            noise = chan.draw_noise(generator, (n, ob.measure),
-                                    ob.noise_var, device=dev)
-        for r in range(0, n, BLOCK_ROWS):
-            y, ksum, mag_sum = sent.pop(0)
-            ghat[r:r + BLOCK_ROWS] = shardmap_reconstruct(
-                ob, y, ksum, mag_sum, b_t=b_t, phi=phi,
-                noise=noise[r:r + BLOCK_ROWS]).reshape(-1, ob.chunk)
-    sent.clear()
-    ghat = coll.broadcast(ghat, group).reshape(-1)
-    out = ghat[:D].reshape(leaf_t.shape).to(leaf.dtype)
-    if perm is not None:
-        out = out.permute(tuple(int(i) for i in np.argsort(perm)))
+    if noise is None:
+        noise = chan.draw_noise(generator, (n, ob.measure), ob.noise_var,
+                                device=dev)
+    _decode_into(ob, ghat, sent, noise, phi=phi, b_t=b_t)
+    ghat = ghat.reshape(-1)
+    out = _from_chunks(ghat, leaf, perm)
     if hook is not None:
         hook("decode", index, None if leaf.is_meta else leaf, ghat)
     return out
 
 
-def _aggregate_leaf(ob: OBCSAAConfig, leaf: torch.Tensor, phi, group=None,
-                    *, k_weight, beta_i, b_t, generator=None, noise=None,
-                    wire_dtype=torch.float32, perm=None, hook=None,
-                    index: int = 0) -> torch.Tensor:
-    """Compress one gradient leaf on this worker, superpose over
-    ``group``, decode at the PS. ``hook(stage, index, grad, decoded)``,
-    when given, is called after the compression ("compress") and after
-    the decode ("decode")."""
-    sent = _send_leaf(ob, leaf, phi, group, k_weight=k_weight,
-                      beta_i=beta_i, b_t=b_t, wire_dtype=wire_dtype,
-                      perm=perm)
+def _row_block(n: int, M: int, m: int) -> tuple:
+    """Model shard m's chunk rows [a, b) of a leaf's n: blocks of ⌈n/M⌉,
+    the last ones short or empty, as GSPMD pads a split dim."""
+    c = -(-n // M)
+    return min(m * c, n), min((m + 1) * c, n)
+
+
+def _split_leaf(ob: OBCSAAConfig, full: torch.Tensor, phi, group=None,
+                mgroup=None, *, k_weight, beta_i, b_t, generator=None,
+                noise=None, wire_dtype=torch.float32, perm=None, hook=None,
+                index: int = 0) -> torch.Tensor:
+    """One gradient leaf through the uplink, this worker's whole gradient
+    ``full`` in, the decoded leaf whole out (``full``'s shape and dtype).
+    The leaf's chunk rows split over the model group ``mgroup`` (None:
+    one model shard): this rank compresses its row block
+    (``_row_block``), the MAC is the all-reduce of those rows over the
+    worker group ``group`` (None: one worker), the PS of the column (its
+    rank 0) decodes them and broadcasts them over the column, and the
+    model group gathers the rows back. The PS draws the leaf's whole
+    (n_chunks, S_c) AWGN and takes its rows, so the columns' generators
+    stay in step. ``hook("compress", index)`` follows the compression,
+    ``hook("decode", index, full, ĝ)`` sees the whole decoded chunks
+    (flat and padded)."""
+    M, m = coll.axis_size(mgroup), coll.axis_index(mgroup)
+    chunks = _chunk_rows(ob, full, perm)
+    n = chunks.shape[0]
+    a, b = _row_block(n, M, m)
+    sent = _compress_rows(ob, chunks[a:b], phi, group, k_weight=k_weight,
+                          beta_i=beta_i, b_t=b_t, wire_dtype=wire_dtype)
+    del chunks
     if hook is not None:
         hook("compress", index, None, None)
-    return _receive_leaf(ob, leaf, sent, phi, group, b_t=b_t,
-                         generator=generator, noise=noise, perm=perm,
-                         hook=hook, index=index)
+    mine = torch.zeros((-(-n // M), ob.chunk), dtype=torch.float32,
+                       device=full.device)
+    if coll.axis_index(group) == 0:
+        if noise is None:
+            noise = chan.draw_noise(generator, (n, ob.measure),
+                                    ob.noise_var, device=full.device)
+        _decode_into(ob, mine[:b - a], sent, noise[a:b], phi=phi, b_t=b_t)
+    sent.clear()
+    if b > a:
+        mine = coll.broadcast(mine, group)
+    ghat = coll.gather_tiled(mine, mgroup, kind="all_gather_ghat")[
+        :n].reshape(-1)
+    out = _from_chunks(ghat, full, perm)
+    if hook is not None:
+        hook("decode", index, full, ghat)
+    return out
 
 
-def _perms(leaves, specs):
-    return [(_shard_aligned_perm(leaf.shape, specs[i])
-             if specs is not None else None) for i, leaf in enumerate(leaves)]
+def _perms(shapes, specs):
+    return [(_shard_aligned_perm(tuple(shape), specs[i])
+             if specs is not None else None)
+            for i, shape in enumerate(shapes)]
 
 
 def obcsaa_aggregate_tree(ob: OBCSAAConfig, grads, group=None, *, k_weight,
@@ -191,20 +262,21 @@ def obcsaa_aggregate_tree(ob: OBCSAAConfig, grads, group=None, *, k_weight,
                           phi: Optional[torch.Tensor] = None,
                           wire_dtype=torch.float32,
                           specs: Optional[list] = None, hook=None):
-    """The decoded gradient tree, leaf by leaf, superposed over ``group``
-    (None: one worker). ``noises[i]`` (leaf i's AWGN, (n_chunks_i, S_c))
-    and ``phi`` replace the draws; ``specs`` gives each leaf's partition
-    spec, in leaf order, for the shard-aligned chunking."""
+    """The decoded gradient tree, leaf by leaf (``_split_leaf``),
+    superposed over ``group`` (None: one worker). ``noises[i]`` (leaf
+    i's AWGN, (n_chunks_i, S_c)) and ``phi`` replace the draws; ``specs``
+    gives each leaf's partition spec, in leaf order, for the
+    shard-aligned chunking."""
     leaves, treedef = tree.flatten(grads)
     if phi is None:
         phi = ob.phi(leaves[0].device)
-    out = []
-    for i, (leaf, perm) in enumerate(zip(leaves, _perms(leaves, specs))):
-        out.append(_aggregate_leaf(
-            ob, leaf, phi, group, k_weight=k_weight, beta_i=beta_i, b_t=b_t,
-            generator=generator,
-            noise=noises[i] if noises is not None else None,
-            wire_dtype=wire_dtype, perm=perm, hook=hook, index=i))
+    perms = _perms([x.shape for x in leaves], specs)
+    out = [_split_leaf(ob, leaf, phi, group, k_weight=k_weight,
+                       beta_i=beta_i, b_t=b_t, generator=generator,
+                       noise=noises[i] if noises is not None else None,
+                       wire_dtype=wire_dtype, perm=perms[i], hook=hook,
+                       index=i)
+           for i, leaf in enumerate(leaves)]
     return tree.unflatten(treedef, out)
 
 
@@ -254,29 +326,61 @@ def make_train_step(model: Model, tcfg: TrainConfig,
     ``batch`` is the global batch; ``round_ctx`` is
     ``default_round_ctx``'s dict (or a scheduled one: ``beta`` (U,),
     ``b_t``, and a ``generator`` or a ``seed``); it may also hold ``phi``,
-    ``noise`` (one AWGN tensor per leaf) and ``hook``
-    (``_aggregate_leaf``'s, also called with "backward" after a worker's
-    gradient and "update" after the optimizer step).
+    ``noise`` (one AWGN tensor per leaf) and ``hook`` (``_split_leaf``'s,
+    also called with "backward" after a worker's gradient and "update"
+    after the optimizer step).
 
-    With the mesh's ``group`` this process is worker ``rank`` of U; the
-    group must have U ranks. Without one, U > 1 workers run in turn."""
+    Without the mesh's ``group``, U > 1 workers run in turn in one
+    process, the weights whole. With it this process is worker d of U,
+    the group's rank d (it must have U ranks), and with a ``model_group``
+    too (``launch.mesh.world_mesh(M)``, M > 1) the model axis is split:
+    the reference's step, manual over the worker axes, ``model`` left to
+    GSPMD (``repro/launch/steps.py:122-170``). Rank d·M + m is worker
+    d's model shard m; ``params`` and ``opt_state`` are its shares
+    (``dist.shares.ModelAxis``: ``param_shardings``' GSPMD layout; an
+    optimizer's moments split with their leaves, Adam's counter
+    replicated). Every rank of worker d's model group runs the forward
+    and backward on worker d's rows of the batch, the weights gathered
+    over the group: a non-stacked leaf once, a stacked collection a layer
+    at a time inside the remat boundary. At M = 1 the shares are the
+    whole leaves and nothing is gathered.
+
+    ``mean``: each gradient share summed over the worker group, over U,
+    then the optimizer step on the shares; a leaf's gradient is its block
+    of the whole gradient bit for bit, so M changes no bit.
+
+    ``obcsaa``: leaf by leaf (``_split_leaf``): the rank takes its
+    worker's whole gradient of the leaf (a stacked leaf's gathered over
+    the model group; the backward takes a non-stacked one whole),
+    compresses its 1/M of the chunk rows, the MAC sums them over the
+    worker group, the PS of the column decodes them and broadcasts them
+    over it, the model group gathers ĝ's rows, and the rank keeps its
+    share. Peak above the shares: one leaf's whole gradient and whole
+    ĝ, and the non-stacked leaves' whole gradients. Φ and each leaf's
+    AWGN do not depend on M; with ``cs_shard_aligned`` the perms come
+    from this mesh, as the reference's do, so the chunking at M > 1 is
+    not M = 1's. (Where the shares are whole chunks of the permuted
+    leaf, a rank's row block is its own share; the route gathers all
+    the same.)"""
     mesh = mesh or make_zoo_mesh(1, 1)
-    U, group = num_workers(mesh), mesh.group
+    U, group, mgroup = num_workers(mesh), mesh.group, mesh.model_group
     if group is not None and coll.axis_size(group) != U:
-        raise ValueError(f"the mesh has {U} workers but its group "
+        raise ValueError(f"the mesh has {U} workers but its worker group "
                          f"{coll.axis_size(group)} ranks")
+    in_turn = group is None and U > 1
     rank = coll.axis_index(group)
+    shapes = model.init(0, device="meta")
+    # a logical mesh's model axis is a layout only: the weights stay whole
+    axis = ModelAxis(shapes, mesh if mgroup is not None
+                     else make_zoo_mesh(1, 1))
     opt = make_optimizer(tcfg)
-    grad_specs = None
-    if tcfg.cs_shard_aligned:
-        grad_specs = infer_param_specs(model.init(0, device="meta"), mesh)
 
     if tcfg.aggregation == "mean":
         def step(params, opt_state, batch, round_ctx=None):
-            loss, grads = loss_and_grads(
-                model, tcfg, params,
+            loss, grads = axis.loss_and_grads(
+                model, params,
                 batch if group is None else shard_batch(batch, rank, U),
-                dp=(group, U))
+                remat=tcfg.remat_mode, dp=(group, U))
             with torch.no_grad():
                 if group is not None:
                     leaves, treedef = tree.flatten(grads)
@@ -296,12 +400,14 @@ def make_train_step(model: Model, tcfg: TrainConfig,
     ob = obcsaa_config(tcfg)
     wire_dtype = (torch.bfloat16 if tcfg.wire_dtype == "bfloat16"
                   else torch.float32)
+    perms = _perms(axis.shapes, infer_param_specs(shapes, mesh)
+                   if tcfg.cs_shard_aligned else None)
 
     def aggregate_in_turn(params, batch, round_ctx, phi, gen, hook):
         """The U workers one after another: each one's compressed leaves
         are added into the MAC's sums (its gradient freed leaf by leaf),
         then the PS decodes every leaf."""
-        losses, sums = [], None
+        losses, sums, likes = [], [None] * len(axis.shapes), None
         for u in range(U):
             loss, grads = loss_and_grads(model, tcfg, params,
                                          shard_batch(batch, u, U))
@@ -311,9 +417,7 @@ def make_train_step(model: Model, tcfg: TrainConfig,
             with torch.no_grad():
                 leaves = tree.leaves(grads)
                 del grads
-                if sums is None:
-                    sums, perms = [None] * len(leaves), _perms(leaves,
-                                                               grad_specs)
+                if likes is None:
                     likes = [torch.empty_like(x, device="meta")
                              for x in leaves]
                 for i in range(len(leaves)):
@@ -326,12 +430,38 @@ def make_train_step(model: Model, tcfg: TrainConfig,
                         hook("compress", i, None, None)
         noises = round_ctx.get("noise")
         with torch.no_grad():
-            out = [_receive_leaf(ob, likes[i], sums[i], phi,
+            out = [_receive_leaf(ob, like, sums[i], phi,
                                  b_t=round_ctx["b_t"], generator=gen,
                                  noise=noises[i] if noises else None,
                                  perm=perms[i], hook=hook, index=i)
-                   for i in range(len(likes))]
+                   for i, like in enumerate(likes)]
         return torch.mean(torch.stack(losses)), out
+
+    def aggregate(params, batch, round_ctx, phi, gen, hook):
+        """This rank's worker (and model shard): its gradient, then each
+        leaf through ``_split_leaf``, the rank's share of ĝ kept."""
+        loss, grads = axis.loss_and_grads(
+            model, params, shard_batch(batch, rank, U),
+            remat=tcfg.remat_mode, whole_unstacked=True)
+        if hook is not None:
+            hook("backward", -1, None, None)
+        noises = round_ctx.get("noise")
+        with torch.no_grad():
+            leaves = tree.leaves(grads)
+            del grads
+            for i in range(len(leaves)):
+                full = (axis.whole_leaf(leaves[i], i, "all_gather_grad")
+                        if axis.stacked[i] else leaves[i])
+                leaves[i] = None        # only ``full`` holds it now
+                leaves[i] = axis.share_leaf(_split_leaf(
+                    ob, full, phi, group, mgroup, k_weight=1.0,
+                    beta_i=round_ctx["beta"][rank], b_t=round_ctx["b_t"],
+                    generator=gen, noise=noises[i] if noises else None,
+                    wire_dtype=wire_dtype, perm=perms[i], hook=hook,
+                    index=i), i)
+                del full
+            loss = coll.pmean(loss, group)
+        return loss, leaves
 
     def step(params, opt_state, batch, round_ctx):
         hook = round_ctx.get("hook")
@@ -339,27 +469,12 @@ def make_train_step(model: Model, tcfg: TrainConfig,
         phi = round_ctx.get("phi")
         phi = ob.phi(dev) if phi is None else phi
         gen = _round_generator(round_ctx, dev)
-        if group is None and U > 1:
-            loss, out = aggregate_in_turn(params, batch, round_ctx, phi,
-                                          gen, hook)
-            ghat = tree.unflatten(tree.flatten(params)[1], out)
-        else:
-            loss, grads = loss_and_grads(model, tcfg, params,
-                                         shard_batch(batch, rank, U))
-            if hook is not None:
-                hook("backward", -1, None, None)
-            with torch.no_grad():
-                # this worker's β; K_i = 1 (equal shards, as the reference)
-                ghat = obcsaa_aggregate_tree(
-                    ob, grads, group, k_weight=1.0,
-                    beta_i=round_ctx["beta"][rank], b_t=round_ctx["b_t"],
-                    generator=gen, noises=round_ctx.get("noise"), phi=phi,
-                    wire_dtype=wire_dtype, specs=grad_specs, hook=hook)
-                del grads
-                loss = coll.pmean(loss, group)
+        loss, out = (aggregate_in_turn if in_turn else aggregate)(
+            params, batch, round_ctx, phi, gen, hook)
         with torch.no_grad():
-            params, opt_state = opt.update(ghat, opt_state, params,
-                                           tcfg.learning_rate)
+            params, opt_state = opt.update(
+                tree.unflatten(tree.flatten(params)[1], out), opt_state,
+                params, tcfg.learning_rate)
         if hook is not None:
             hook("update", -1, None, None)
         return params, opt_state, {"loss": loss}
@@ -602,24 +717,70 @@ def param_shardings(model: Model, mesh, sample_batch_specs=None):
 
 # --- trainer checkpointing ---------------------------------------------------
 
-def save_train_state(ckpt_dir: str, step: int, params, opt_state) -> str:
+def state_axis(model: Model, tcfg: TrainConfig, mesh) -> ModelAxis:
+    """The ``ModelAxis`` of the trainer's carry {"params", "opt_state"}
+    on ``mesh``: each moment split as its parameter, as the reference's
+    ``infer_param_sharding`` of the optimizer state lays it out."""
+    pshapes = model.init(0, device="meta")
+    return ModelAxis({"params": pshapes,
+                      "opt_state": make_optimizer(tcfg).init(pshapes)},
+                     mesh)
+
+
+def save_train_state(ckpt_dir: str, step: int, params, opt_state, *,
+                     model: Optional[Model] = None,
+                     tcfg: Optional[TrainConfig] = None,
+                     mesh: Optional[ZooMesh] = None) -> str:
     """Snapshot params + optimizer state at ``step`` (one atomic step
-    directory, the reference's format: either package restores it)."""
-    return checkpoint.save(ckpt_dir, step,
-                           {"params": params, "opt_state": opt_state})
+    directory, the reference's format: either package restores it).
+
+    Over a split mesh (a ``model_group``; ``model`` and ``tcfg`` give the
+    whole shapes) the carry is this rank's shares: the checkpoint still
+    holds the whole leaves, streamed to rank 0 one leaf at a time, each
+    gathered over worker 0's model group; every rank calls it (the other
+    workers' ranks hold replicas and only wait for rank 0's word that the
+    step is on disk)."""
+    obj = {"params": params, "opt_state": opt_state}
+    if mesh is None or mesh.model_group is None:
+        return checkpoint.save(ckpt_dir, step, obj)
+    d, m = mesh.cell()
+    leaves, treedef = tree.flatten(obj)
+    if d == 0:
+        axis = state_axis(model, tcfg, mesh)
+        streamed = [checkpoint.RowBlocks(
+            axis.shapes[i], x.dtype, lambda i=i, x=x: iter([
+                axis.whole_leaf(x, i)])) if axis.split(i) else x
+            for i, x in enumerate(leaves)]
+        if m == 0:
+            checkpoint.save(ckpt_dir, step, tree.unflatten(treedef,
+                                                           streamed))
+        for leaf in streamed if m else ():
+            if isinstance(leaf, checkpoint.RowBlocks):
+                for _ in leaf.blocks():
+                    pass
+    # rank 0's word that the step is on disk
+    coll.broadcast(torch.zeros(1, device=leaves[0].device), mesh.world)
+    return checkpoint.step_dir(ckpt_dir, step)
 
 
 def restore_train_state(ckpt_dir: str, model: Model, tcfg: TrainConfig,
-                        device=None):
+                        device=None, mesh: Optional[ZooMesh] = None):
     """(params, opt_state, step) from the latest checkpoint, on
-    ``device``; None when ``ckpt_dir`` holds no steps yet."""
+    ``device``; None when ``ckpt_dir`` holds no steps yet. Over a split
+    mesh each rank reads only its shares, memory-mapped. The checkpoint
+    holds whole leaves, so any checkpoint resumes on any mesh, as the
+    reference places any checkpoint on any mesh."""
     step = checkpoint.latest_step(ckpt_dir)
     if step is None:
         return None
     dev = resolve_device(device)
     pshapes = model.init(0, device="meta")
-    oshapes = make_optimizer(tcfg).init(pshapes)
-    got = checkpoint.restore(ckpt_dir, step,
-                             {"params": pshapes, "opt_state": oshapes})
+    like = {"params": pshapes,
+            "opt_state": make_optimizer(tcfg).init(pshapes)}
+    rows = None
+    if mesh is not None and mesh.model_group is not None:
+        axis = state_axis(model, tcfg, mesh)
+        rows = [axis.share_index(i) for i in range(len(axis.shapes))]
+    got = checkpoint.restore(ckpt_dir, step, like, rows=rows)
     got = tree.tree_map(lambda t: t.to(dev), got)
     return got["params"], got["opt_state"], step

@@ -35,6 +35,19 @@ solve (``make_scheduled_round_span``, greedy) and advances N rounds a
 call (``make_scan_train_step``), with a checkpoint at every chunk
 boundary when ``--ckpt-dir`` is set.
 
+With ``--model-parallel M`` the W·M ranks are the ``(W, M)`` mesh
+(``launch.mesh.world_mesh``): rank d·M + m holds 1/M of every weight
+that ``param_shardings`` splits (each drawn at init as the rank's share),
+worker d's M ranks gather a layer's weights over their model group for
+the forward and backward, and the update runs on the shares
+(``launch.steps.make_train_step`` on the mesh's model group).
+Checkpoints hold the whole leaves, so a run saved at one M resumes at
+another:
+
+    PYTHONPATH=src python -m torch.distributed.run --standalone \
+        --nproc-per-node 4 -m repro_torch.launch.train --device cpu \
+        --smoke --model-parallel 2 --agg obcsaa --steps 2 --check-replicas
+
 ``--zoo-train`` trains through the chunked zoo round instead
 (``engine/zoo_train.py``, ``run_zoo_train``): the master as the
 flat-shard (n_chunks, D_c) tensor, every worker of the logical mesh
@@ -50,11 +63,12 @@ Under ``torchrun`` ``--zoo-train`` runs one cell of the zoo a rank: the
 W·M ranks are the ``(W, M)`` mesh, M = ``--model-parallel``, worker d
 training on its own token stream (``make_zoo_batch``), its M ranks
 splitting the model axis. Rank 0 prints and writes the checkpoints,
-every rank restores its own rows (one arm a launch):
+every rank restores its own rows; with ``--arms`` every rank runs every
+arm on its rows:
 
     PYTHONPATH=src python -m torch.distributed.run --standalone \
         --nproc-per-node 4 -m repro_torch.launch.train --device cpu \
-        --zoo-train --model-parallel 2 --smoke --steps 2
+        --zoo-train --model-parallel 2 --smoke --steps 2 --arms 3
 
 ``--serve`` hands the remaining arguments to the scheduling service
 (``repro_torch.serve.cli``).
@@ -62,6 +76,7 @@ every rank restores its own rows (one arm a launch):
 from __future__ import annotations
 
 import argparse
+import math
 import os
 import sys
 import time
@@ -76,10 +91,13 @@ from repro_torch.configs import TrainConfig, get_config, get_smoke_config
 from repro_torch.data.synthetic import token_stream
 from repro_torch.device import resolve_device
 from repro_torch.dist import collectives as coll
+from repro_torch.dist.sharding import infer_param_specs, spec_bytes
+from repro_torch.dist.shares import ModelAxis
 from repro_torch.launch import steps as steps_lib
 from repro_torch.launch.mesh import (join_world, leave_world,
                                      make_host_mesh, make_zoo_mesh,
                                      num_workers)
+from repro_torch.models.layers import init_cut
 from repro_torch.models.registry import build_model
 
 
@@ -106,6 +124,15 @@ def make_zoo_batch(cfg, U, B, S, rng_seed=0, device=None):
     per = [make_batch(cfg, B, S, rng_seed=rng_seed * 1000 + u,
                       device=device) for u in range(U)]
     return {k: torch.stack([p[k] for p in per]) for k in per[0]}
+
+
+def sweep_arms(tcfg, lr: float, A: int) -> dict:
+    """``--arms A``: σ² from the config's up 100x and lr down 10x, each
+    log-spaced over the A arms, P^Max the config's."""
+    return {"noise_var": np.float32(tcfg.noise_var)
+            * np.logspace(0, 2, A, dtype=np.float32),
+            "p_max": np.full((A,), tcfg.p_max, np.float32),
+            "lr": np.float32(lr) * np.logspace(0, -1, A, dtype=np.float32)}
 
 
 def run_zoo_train(args, cfg, tcfg, model, mesh, device) -> int:
@@ -151,11 +178,7 @@ def run_zoo_train(args, cfg, tcfg, model, mesh, device) -> int:
 
     if args.arms > 1:
         A = args.arms
-        arms = {"noise_var": np.float32(tcfg.noise_var)
-                * np.logspace(0, 2, A, dtype=np.float32),
-                "p_max": np.full((A,), tcfg.p_max, np.float32),
-                "lr": np.float32(args.lr)
-                * np.logspace(0, -1, A, dtype=np.float32)}
+        arms = sweep_arms(tcfg, args.lr, A)
         states = zr.init_sweep_state(
             master[None].expand((A,) + tuple(master.shape)).clone())
         del master
@@ -273,62 +296,79 @@ def build_parser() -> argparse.ArgumentParser:
                          "whole run in one batched greedy solve; "
                          "checkpoints at every chunk boundary")
     ap.add_argument("--model-parallel", type=int, default=1,
-                    help="under torchrun with --zoo-train: the model axis "
-                         "M of the (W, M) mesh the W*M ranks form "
-                         "(launch.mesh.make_host_mesh's model_parallel)")
+                    help="under torchrun: the model axis M of the (W, M) "
+                         "mesh the W*M ranks form "
+                         "(launch.mesh.world_mesh); each rank holds 1/M "
+                         "of every split weight")
     ap.add_argument("--init-method", default="env://",
                     help="under torchrun: the process group's init method "
                          "(default env://, what torchrun sets; file://PATH "
                          "for a file store)")
     ap.add_argument("--check-replicas", action="store_true",
-                    help="under torchrun, end by checking that every rank "
-                         "holds the same parameters bit for bit (broadcasts "
-                         "every parameter from rank 0)")
+                    help="under torchrun, end by checking that the ranks of "
+                         "each worker group hold the same parameters (with "
+                         "--model-parallel: shares) bit for bit (broadcasts "
+                         "every leaf from the group's rank 0)")
     return ap
 
 
 def _wire(stats) -> str:
-    """The collectives of one step: MB and ms by kind."""
-    return ", ".join(f"{k} {stats['bytes'][k] / 1e6:.1f} MB "
-                     f"{stats['ms'].get(k, 0.0):.1f} ms"
-                     for k in sorted(stats["bytes"]))
+    """The collectives of one step: MB and ms by kind, then the calls."""
+    kinds = sorted(stats["bytes"])
+    return (", ".join(f"{k} {stats['bytes'][k] / 1e6:.1f} MB "
+                      f"{stats['ms'].get(k, 0.0):.1f} ms" for k in kinds)
+            + " (calls: " + ", ".join(f"{k} {stats['calls'][k]}"
+                                      for k in kinds) + ")")
+
+
+def _bytes(leaves) -> int:
+    return sum(x.numel() * x.element_size() for x in leaves)
 
 
 def train(args, cfg, tcfg, model, mesh, dev) -> int:
-    """The stepped or ``--scan-rounds`` loop of one worker of ``mesh``
-    (one process, or rank r of the mesh's group)."""
-    group = mesh.group
-    U, rank = num_workers(mesh), coll.axis_index(group)
+    """The stepped or ``--scan-rounds`` loop of one rank of ``mesh`` (one
+    process; rank r of the mesh's worker group; or, with a model group,
+    rank d·M + m: worker d's model shard m, holding its shares)."""
+    group, split = mesh.group, mesh.model_group is not None
+    U, rank = num_workers(mesh), coll.axis_index(mesh.world)
+    M = mesh.shape.get("model", 1)
 
     def say(msg: str) -> None:
         if rank == 0:
             print(msg, flush=True)
 
     def save(step: int, params, opt_state) -> None:
-        if rank == 0:
-            path = steps_lib.save_train_state(args.ckpt_dir, step, params,
-                                              opt_state)
-            print(f"saved checkpoint: {path}", flush=True)
+        if split or rank == 0:
+            path = steps_lib.save_train_state(
+                args.ckpt_dir, step, params, opt_state, model=model,
+                tcfg=tcfg, mesh=mesh if split else None)
+            say(f"saved checkpoint: {path}")
 
     if args.batch % U:
         raise SystemExit(f"--batch {args.batch} does not split over {U} "
                          "workers")
-    params = model.init(0, device=dev)
+    axis = ModelAxis(model.init(0, device="meta"), mesh)
+    params = init_cut(model, 0, axis.cut, device=dev)
     opt_state = steps_lib.make_optimizer(tcfg).init(params)
-    D = sum(p.numel() for p in tree.leaves(params))
+    D = sum(math.prod(s) for s in axis.shapes)
     say(f"{cfg.name}: D={D:,} on {dev}, agg={args.agg}, "
         f"optimizer={args.optimizer}, remat={tcfg.remat_mode}")
-    if group is not None:
+    if split:
+        say(f"world: {U} x {M} ranks over {dist.get_backend(mesh.world)} "
+            f"(the model split over {M} ranks), batch {args.batch} = {U} x "
+            f"{args.batch // U}")
+    elif group is not None:
         say(f"world: {U} workers over {dist.get_backend(group)}, "
             f"batch {args.batch} = {U} x {args.batch // U}")
     t_start = 0
     if args.resume:
         restored = steps_lib.restore_train_state(args.ckpt_dir, model, tcfg,
-                                                 dev)
+                                                 dev, mesh=mesh)
         if restored is not None:
             params, opt_state, t_start = restored
             say(f"resumed from step {t_start}")
     batch = make_batch(cfg, args.batch, args.seq, device=dev)
+    wire = mesh.world is not None
     if args.scan_rounds > 0:
         n = args.scan_rounds
         if t_start % n:
@@ -356,7 +396,7 @@ def train(args, cfg, tcfg, model, mesh, dev) -> int:
             beta = ctxs["beta"].to(torch.int32).tolist()
             say(f"rounds {t0_round:4d}..{t0_round + m - 1} loss={loss:.4f} "
                 f"beta={beta} ({dt:.2f}s)"
-                + (f" wire: {_wire(coll.stats())}" if group else ""))
+                + (f" wire: {_wire(coll.stats())}" if wire else ""))
             if args.ckpt_dir:
                 save(t0_round + m, params, opt_state)
     else:
@@ -369,26 +409,51 @@ def train(args, cfg, tcfg, model, mesh, dev) -> int:
             loss = float(metrics["loss"])
             dt = time.perf_counter() - t0
             say(f"step {t:4d} loss={loss:.4f} ({dt:.2f}s)"
-                + (f" wire: {_wire(coll.stats())}" if group else ""))
+                + (f" wire: {_wire(coll.stats())}" if wire else ""))
             if args.ckpt_dir and args.ckpt_every \
                     and (t + 1) % args.ckpt_every == 0:
                 save(t + 1, params, opt_state)
         saved = args.ckpt_every and args.steps % args.ckpt_every == 0
         if args.ckpt_dir and not (saved and args.steps > t_start):
             save(args.steps, params, opt_state)
-    if group is not None:
+    if mesh.world is not None:
         if args.check_replicas:
             if not coll.replicated(tree.leaves(params), group):
                 raise RuntimeError("the ranks' parameters differ after the "
                                    "run")
-            say(f"replicas: parameters bit-identical on all {U} ranks")
+            say(f"replicas: parameter shares bit-identical on the {U} ranks "
+                f"of each worker group" if split else
+                f"replicas: parameters bit-identical on all {U} ranks")
+        if split:
+            _report_shares(say, model, tcfg, mesh, params, opt_state, dev)
         if dev.type == "cuda":
             peak = coll.all_gather(torch.tensor(
-                [torch.cuda.max_memory_allocated(dev)], device=dev), group,
-                tiled=True)
+                [torch.cuda.max_memory_allocated(dev)], device=dev),
+                mesh.world, tiled=True)
             say("peak memory by rank (GiB): " + ", ".join(
                 f"{v / 2**30:.2f}" for v in peak.tolist()))
     return 0
+
+
+def _report_shares(say, model, tcfg, mesh, params, opt_state, dev) -> None:
+    """Each rank's parameter and optimizer bytes beside the product rule
+    over ``param_shardings``' specs (the optimizer state's as the
+    reference lays it out); raises where a rank's bytes differ."""
+    pshapes = model.init(0, device="meta")
+    oshapes = steps_lib.make_optimizer(tcfg).init(pshapes)
+    want = [spec_bytes(x, infer_param_specs(x, mesh), mesh)
+            for x in (pshapes, oshapes)]
+    mine = torch.tensor([_bytes(tree.leaves(params)),
+                         _bytes(tree.leaves(opt_state))], dtype=torch.int64,
+                        device=dev)
+    every = coll.all_gather(mine, mesh.world).tolist()
+    say("shares by rank (MB): " + ", ".join(
+        f"params {p / 1e6:.3f} optimizer {o / 1e6:.3f}" for p, o in every)
+        + f"; the product rule over param_shardings: params "
+        f"{want[0] / 1e6:.3f} optimizer {want[1] / 1e6:.3f}")
+    if any([p, o] != want for p, o in every):
+        raise RuntimeError(f"a rank's shares are not the product rule's "
+                           f"bytes: {every} != {want}")
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
@@ -400,10 +465,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     if args.resume and not args.ckpt_dir:
         raise SystemExit("--resume needs --ckpt-dir")
     under_torchrun = "RANK" in os.environ and "WORLD_SIZE" in os.environ
-    if args.model_parallel != 1 and not (under_torchrun and args.zoo_train):
-        raise SystemExit("--model-parallel splits the model axis over "
-                         "torchrun's ranks in --zoo-train only; the plain "
-                         "train step keeps the weights whole on every rank")
+    if args.model_parallel != 1 and not under_torchrun:
+        raise SystemExit("--model-parallel splits the model axis over the "
+                         "ranks of torchrun's world: run it under torchrun")
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     tcfg = train_config(args)
     model = build_model(cfg)

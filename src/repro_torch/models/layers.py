@@ -19,13 +19,15 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
+import functools
 import math
-from typing import Callable, Optional
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import tree
 from repro_torch.dist import collectives as coll
 
 
@@ -37,8 +39,8 @@ _DRAWN: contextvars.ContextVar = contextvars.ContextVar("drawn",
 def weights_drawn_to(keep: Callable[[torch.Tensor], torch.Tensor]):
     """Within: each weight ``he_init`` or ``lecun_init`` draws is handed
     to ``keep`` as soon as it is made, and the init holds what ``keep``
-    returns (``tensor_parallel.init_params`` keeps a rank's share). The
-    generator runs as it does without."""
+    returns (``init_cut`` keeps a rank's share). The generator runs as it
+    does without."""
     token = _DRAWN.set(keep)
     try:
         yield
@@ -49,6 +51,44 @@ def weights_drawn_to(keep: Callable[[torch.Tensor], torch.Tensor]):
 def _drawn(w: torch.Tensor) -> torch.Tensor:
     keep = _DRAWN.get()
     return w if keep is None else keep(w)
+
+
+@functools.lru_cache(maxsize=32)
+def _draw_order(cfg) -> Tuple[Optional[tuple], ...]:
+    """The key path of each weight ``he_init``/``lecun_init`` draws in
+    ``cfg``'s init, in the order it draws them (None for a draw that is
+    not a leaf)."""
+    from repro_torch.models.registry import build_model
+    drawn = []
+    with weights_drawn_to(lambda w: drawn.append(w) or w):
+        whole = build_model(cfg).init(0, device="meta")
+    at = {id(leaf): tuple(k) for k, leaf in tree.flatten_with_keys(whole)}
+    return tuple(at.get(id(w)) for w in drawn)
+
+
+def init_cut(model, seed: int, cut: Callable, device=None):
+    """``model.init(seed)`` with each leaf replaced by ``cut(key, w)``, its
+    key path and the whole leaf (a rank's share of it, or ``w`` itself):
+    a weight the init draws is cut as soon as it is made, and the leaves
+    made otherwise are cut after. The generator runs as it does for the
+    whole init, so the result is the cut of ``model.init(seed)`` bit for
+    bit, and a process holds the cut leaves and at most one whole
+    weight."""
+    order, drawn = iter(_draw_order(model.cfg)), set()
+
+    def keep(w):
+        k = next(order)
+        if k is None:
+            return w
+        drawn.add(k)
+        return cut(k, w)
+
+    with weights_drawn_to(keep):
+        params = model.init(seed, device=device)
+    flat, treedef = tree.flatten(params)
+    keys = [tuple(k) for k, _ in tree.flatten_with_keys(params)]
+    return tree.unflatten(treedef, [leaf if k in drawn else cut(k, leaf)
+                                    for k, leaf in zip(keys, flat)])
 
 
 def he_init(generator: Optional[torch.Generator], shape, fan_in=None,

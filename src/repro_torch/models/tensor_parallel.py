@@ -51,7 +51,7 @@ from repro_torch import tree
 from repro_torch.configs.base import ModelConfig
 from repro_torch.dist import collectives as coll
 from repro_torch.dist.sharding import STACKED_KEYS, _best_model_dim
-from repro_torch.models.layers import weights_drawn_to
+from repro_torch.models.layers import init_cut
 from repro_torch.models.ssm import ssm_dims
 
 BLOCK, OWN, GATHER = "block", "own", "gather"
@@ -265,45 +265,18 @@ def split_of(cfg: ModelConfig, mesh) -> Optional[Split]:
     return Split(cfg, mesh)
 
 
-@functools.lru_cache(maxsize=32)
-def _draw_order(cfg: ModelConfig) -> Tuple[Optional[tuple], ...]:
-    """The key path of each weight ``he_init``/``lecun_init`` draws in
-    ``cfg``'s init, in the order it draws them (None for a draw that is
-    not a leaf)."""
-    from repro_torch.models.registry import build_model
-    drawn = []
-    with weights_drawn_to(lambda w: drawn.append(w) or w):
-        whole = build_model(cfg).init(0, device="meta")
-    at = {id(leaf): tuple(k) for k, leaf in tree.flatten_with_keys(whole)}
-    return tuple(at.get(id(w)) for w in drawn)
-
-
 def init_params(model, seed: int, mesh, device=None):
     """This rank's share of ``model.init(seed)``, exactly the slice of the
-    whole: the init runs as it does whole, but each weight it draws is
-    cut to this rank's share as soon as it is made
-    (``layers.weights_drawn_to``) and the small leaves made otherwise are
-    cut after. A rank holds its share and at most one whole weight; the
-    ranks need not take turns. Without a model axis: the whole init."""
+    whole: each weight cut to this rank's share as the init draws it
+    (``layers.init_cut``). A rank holds its share and at most one whole
+    weight; the ranks need not take turns. Without a model axis: the
+    whole init."""
     sp = split_of(model.cfg, mesh)
     if sp is None:
         return model.init(seed, device=device)
-    cfg, order = model.cfg, iter(_draw_order(model.cfg))
-
-    def keep(w):
-        k = next(order)
-        return w if k is None else share_of(w, sp.rules.get(k), cfg, sp.M,
-                                            sp.m, k[-1])
-
-    with weights_drawn_to(keep):
-        params = model.init(seed, device=device)
-    flat, treedef = tree.flatten(params)
-    keys = [tuple(k) for k, _ in tree.flatten_with_keys(params)]
-    for i, (k, leaf) in enumerate(zip(keys, flat)):
-        r = sp.rules.get(k)
-        if r is not None and tuple(leaf.shape) == r.shape:
-            flat[i] = share_of(leaf, r, cfg, sp.M, sp.m, k[-1])
-    return tree.unflatten(treedef, flat)
+    cfg = model.cfg
+    return init_cut(model, seed, lambda k, w: share_of(
+        w, sp.rules.get(k), cfg, sp.M, sp.m, k[-1]), device=device)
 
 
 def greedy(logits: torch.Tensor, cfg: ModelConfig, mesh) -> torch.Tensor:

@@ -1,7 +1,8 @@
 """One rank of the port's multi-process CPU tests
 (``tests/test_torch_collectives.py``, ``tests/test_torch_workers.py``,
 ``tests/test_torch_zoo_procs.py``, ``tests/test_torch_shardings.py``,
-``tests/test_torch_dryrun.py``, ``tests/test_torch_serve_model_axis.py``). It imports torch and ``repro_torch``
+``tests/test_torch_dryrun.py``, ``tests/test_torch_serve_model_axis.py``,
+``tests/test_torch_train_model_axis.py``). It imports torch and ``repro_torch``
 only, never JAX: the tests compute the reference's oracles in their own
 process.
 
@@ -18,6 +19,7 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import torch
 
 ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
@@ -135,6 +137,91 @@ def train(inp, mesh, dev):
     return out
 
 
+def train_split(inp, mesh, dev):
+    """The train step with the model axis split over the (W, M) world
+    (``make_train_step`` on its model group) for each case, from this rank's shares
+    of the whole ``params``: the shares after each step, each step's
+    decoded leaves (the whole ĝ, from the hook), loss and collectives'
+    bytes by kind. With ``m1``, the same steps at M = 1 over
+    this rank's worker group (W workers, whole weights), run by every
+    model column at once. The whole parameters after the steps, gathered
+    from the shares (``whole_tree``). With ``ckpt``: the split carry saved after the
+    steps (rank 0 writing the whole leaves), each rank's restore of it
+    against its shares, and the M = 1 carry saved by world rank 0 and
+    restored by every rank as its shares."""
+    from repro_torch import configs, tree
+    from repro_torch.dist import collectives as coll
+    from repro_torch.dist.shares import shard_tree, whole_tree
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import ZooMesh
+    from repro_torch.models.registry import build_model
+    import torch.distributed as dist
+    W = mesh.shape["data"]
+    column = ZooMesh(("data", "model"), (W, 1), group=mesh.group,
+                     world=mesh.group)
+
+    def run(model, tcfg, m, params, case):
+        step = steps.make_train_step(model, tcfg, m)
+        opt_state = steps.make_optimizer(tcfg).init(params)
+        res = {"params": [], "decoded": [], "losses": [], "bytes": []}
+        for ctx in case["ctxs"]:
+            coll.reset_counters()
+            got = {}
+            ctx = dict(_to(ctx, dev),
+                       hook=lambda stage, i, grad, dec, got=got:
+                       got.__setitem__(i, dec.to("cpu", copy=True))
+                       if stage == "decode" else None)
+            params, opt_state, met = step(params, opt_state,
+                                          _to(case["batch"], dev), ctx)
+            res["params"].append([p.cpu().clone()
+                                  for p in tree.leaves(params)])
+            res["decoded"].append([got[i] for i in sorted(got)])
+            res["losses"].append(float(met["loss"]))
+            res["bytes"].append(coll.stats()["bytes"])
+        res["opt"] = [x.cpu().clone() for x in tree.leaves(opt_state)]
+        return res, params, opt_state
+
+    out = {}
+    for name, case in inp["cases"].items():
+        cfg = configs.scaled(configs.get_smoke_config(case["arch"]),
+                             dtype="float32")
+        model = build_model(cfg)
+        tcfg = configs.TrainConfig(aggregation=case["agg"],
+                                   optimizer=case.get("opt", "sgd"),
+                                   cs_shard_aligned=case.get("aligned",
+                                                             False),
+                                   **inp["cs"])
+        whole = _to(case["params"], dev)
+        res, params, opt_state = run(model, tcfg, mesh,
+                                     shard_tree(whole, mesh), case)
+        res["whole"] = [x.cpu() for x in
+                        tree.leaves(whole_tree(params, model, mesh))]
+        if case.get("m1"):
+            res["m1"], wp, wo = run(model, tcfg, column, whole, case)
+        if case.get("ckpt"):
+            ck = os.path.join(inp["dir"], name)
+            steps.save_train_state(os.path.join(ck, "m2"), 2, params,
+                                   opt_state, model=model, tcfg=tcfg,
+                                   mesh=mesh)
+            if dist.get_rank() == 0:
+                steps.save_train_state(os.path.join(ck, "m1"), 2, wp, wo)
+            dist.barrier()
+            got = steps.restore_train_state(os.path.join(ck, "m2"), model,
+                                            tcfg, dev, mesh=mesh)
+            res["restored_m2"] = got[2] == 2 and all(torch.equal(a, b) for
+                                                     a, b in zip(
+                tree.leaves((got[0], got[1])),
+                tree.leaves((params, opt_state))))
+            got = steps.restore_train_state(os.path.join(ck, "m1"), model,
+                                            tcfg, dev, mesh=mesh)
+            want = shard_tree({"params": wp, "opt_state": wo}, mesh)
+            res["restored_m1"] = all(torch.equal(a, b) for a, b in zip(
+                tree.leaves((got[0], got[1])),
+                tree.leaves((want["params"], want["opt_state"]))))
+        out[name] = res
+    return out
+
+
 def _stats(st) -> dict:
     """A round's stats as plain numbers (the parent loads weights only)."""
     out = {k: float(getattr(st, k)) for k in ("b_t", "ghat_norm")}
@@ -217,6 +304,46 @@ def zoo_train(inp, mesh, dev):
             torch.equal(a, b) for a, b in zip(tree.leaves(got),
                                               tree.leaves(state)))
         out[name] = res
+    return out
+
+
+def zoo_sweep(inp, mesh, dev):
+    """``ZooTrainRound.run_sweep`` on this rank's rows of the arm-stacked
+    carry of ``inp["masters"]`` (A, n_chunks, D_c), each round's draws
+    injected: the carry after the sweep, the stats of every round and
+    arm; then the carry saved by the ranks (rank 0 writing it) and
+    restored by each (``arms=A``) against its own; then the messages with
+    which ``run_sweep`` refuses a carry a row short in its master and in
+    its residual."""
+    from repro_torch import tree
+    from repro_torch.engine import zoo as tzoo
+    case = inp["case"]
+    zr = _zoo_train_round(case, mesh, dev)
+    states = zr.init_sweep_state(inp["masters"])
+    states, st = zr.run_sweep(
+        states, case["batch"], inp["arms"], len(case["draws"]), key=0,
+        draws=lambda t: tzoo.ZooDraws(*case["draws"][t]))
+    out = {"state": tuple(tree.tree_map(torch.clone, states)),
+           "stats": {k: np.asarray(getattr(st, k)).tolist() for k in
+                     ("loss", "b_t", "ghat_norm", "n_scheduled")}}
+    A = int(states.master.shape[0])
+    path = zr.save_state(inp["dir"], len(case["draws"]), states,
+                         t_next=len(case["draws"]))
+    got, t_next = zr.restore_state(inp["dir"], arms=A)
+    out["path"] = path
+    out["restored_equal"] = t_next == len(case["draws"]) and all(
+        torch.equal(a, b) for a, b in zip(tree.leaves(got),
+                                          tree.leaves(states)))
+    # a carry with a row short (master, then residual) is refused before
+    # any collective runs
+    out["refused"] = []
+    for bad in (states._replace(master=states.master[:, 1:]),
+                states._replace(residual=states.residual[:, 1:])):
+        try:
+            zr.run_sweep(bad, case["batch"], inp["arms"], 1, key=0)
+            out["refused"].append("")
+        except ValueError as e:
+            out["refused"].append(str(e))
     return out
 
 
@@ -407,7 +534,8 @@ def main(argv) -> int:
                            init_method="file://" + os.path.join(tmp_dir,
                                                                 "store"))
     out = {"collectives": collectives, "aggregate": aggregate,
-           "train": train, "zoo": zoo, "zoo_train": zoo_train,
+           "train": train, "train_split": train_split, "zoo": zoo,
+           "zoo_train": zoo_train, "zoo_sweep": zoo_sweep,
            "decode": decode, "serve_split": serve_split,
            "serve_bytes": serve_bytes}[case](inp, mesh, dev)
     torch.save(out, os.path.join(tmp_dir, f"out_{rank}.pt"))

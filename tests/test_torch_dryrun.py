@@ -7,7 +7,7 @@ CPU. The reference's ``repro.launch.dryrun`` is never imported (it sets
 Tolerances:
 - exact: per-card parameter bytes, the product rule over the
   reference's param specs on the (32, 8) and (2, 32, 8) meshes, for
-  every config and in a zoo-train result; the zoo-train round's
+  every config and in a zoo-train and a split ``mean`` train result; the zoo-train round's
   collective bytes by kind against the counters of a live 2 x 2 gloo
   world running the same round, and so the split prefill's and split
   decode step's, with the parameter and cache bytes a rank holds; the
@@ -127,6 +127,30 @@ def test_dense_train_flops_near_6nt():
         res["cost"]["flops"], want)
     assert res["collectives"]["bytes"]["all_reduce"] >= 4 * res[
         "param_count"]
+
+
+@pytest.mark.parametrize("shape,names", [((32, 8), ("data", "model")),
+                                         ((2, 32, 8),
+                                          ("pod", "data", "model"))])
+def test_mean_train_split_product_rule(shape, names):
+    """gemma2-2b's ``mean`` train row (64 sequences of 64, to keep the
+    test short) with a model axis is the split train step: ``"model_axis":
+    "split"``, its parameter bytes the product rule over the reference's
+    param specs on the mesh, the optimizer state (SGD) empty, and its
+    collectives the layers' gathers and the gradient shares' sum (their
+    bytes against a live world: ``test_torch_train_model_axis.py``)."""
+    res = dryrun.measure(tcfg.get_config("gemma2-2b"),
+                         InputShape("t64", 64, 64, "train"), shape, names,
+                         agg="mean")
+    assert res["model_axis"] == "split"
+    assert res["rows_per_card"] == 64 // math.prod(shape[:-1])
+    assert res["memory"]["params"] == _ref_param_bytes("gemma2-2b", shape,
+                                                       names)
+    assert res["memory"]["optimizer"] == 0
+    assert set(res["collectives"]["bytes"]) == {"all_gather", "all_reduce"}
+    # every gradient share summed once, and the loss
+    assert res["collectives"]["bytes"]["all_reduce"] == res["memory"][
+        "params"] + 4
 
 
 def test_zoo_train_bytes_match_live_world(tmp_path):

@@ -192,6 +192,16 @@ def test_config_modes_and_refusals():
         TFL(mode="jit")
 
 
+def test_unknown_aggregator_refused():
+    """An unknown aggregator is a ValueError naming it and the three
+    aggregators, as the reference's round rejects one
+    (``repro/engine/core.py:242``); the port refuses it at
+    construction."""
+    with pytest.raises(ValueError, match=r"unknown aggregator 'fedavg'; "
+                       r"one of \('obcsaa', 'topk_aa', 'perfect'\)"):
+        TFL(aggregator="fedavg")
+
+
 def test_arm_scalars_as_tensors_leave_floats_unchanged():
     """σ² and P^Max as 0-d tensors (an arm's) give the float path's bits."""
     rng = np.random.default_rng(4)

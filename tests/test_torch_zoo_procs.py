@@ -16,6 +16,10 @@ Tolerances:
   carry the ranks save against the in-turn carry, and restored by them;
   the CLI's run stopped at round 2 and resumed to 3 against its
   uninterrupted run.
+- exact: the sweep of 3 arms x 2 rounds on the ranks, every carry leaf
+  and stat, against the in-turn ``reference_sweep``; its checkpoint
+  both ways; the CLI's ``--arms 3`` per-arm losses against the in-turn
+  sweep of the CLI's own configuration, and its resume.
 - ‖ĝ‖ rtol 1e-6 (a statistic: the world's all-reduce adds the ranks'
   parts in its own order).
 - against the reference, from the same carry: the surrogate rounds as
@@ -300,6 +304,111 @@ def _whole(tz, parts):
             d, m = r // 2, r % 2
             res[d, m * tz.n_half:(m + 1) * tz.n_half] = p[2]
     return tzt.ZooTrainState(master, tree.unflatten(td, opt), res)
+
+
+# --- the sweep ----------------------------------------------------------------
+
+SWEEP_ARMS = {"noise_var": torch.tensor([1e-4, 1e-3, 1e-2]),
+              "p_max": torch.tensor([10.0, 10.0, 10.0]),
+              "lr": torch.tensor([0.1, 0.05, 0.02])}
+
+
+def test_sweep_ranks_match_in_turn_bitwise(tmp_path):
+    """``run_sweep`` over 3 arms x 2 rounds (gemma2, Adam and EF) on the
+    2 x 2 ranks, each rank every arm on its rows of the arm-stacked
+    carry, each round's draws shared by its arms: every carry leaf of
+    every rank (master, moments, Adam's per-arm counter, residual) bit
+    for bit the in-turn ``reference_sweep``'s on the logical 2 x 2 mesh,
+    every stat on every rank (‖ĝ‖ rtol 1e-6); the carry the ranks saved
+    with ``save_state`` equals the in-turn carry, and each rank's
+    ``restore_state(arms=3)`` its own rows; a carry a row short in its
+    master or its residual is refused with a ValueError naming it."""
+    c = _case("gemma2-2b", "adam", True)
+    masters = torch.from_numpy(_np(c.chunked))[None].expand(
+        (3,) + tuple(c.chunked.shape)).clone()
+    masters[1:] += 0.01 * torch.randn(masters[1:].shape,
+                                      generator=torch.Generator()
+                                      .manual_seed(5))
+    draws = [tuple(c.draws(t)) for t in range(2)]
+    outs = run_world("zoo_sweep", 4, {
+        "case": {"arch": "gemma2-2b", "ob": PARITY_OB, "phi": c.tz.phi,
+                 "opt": "adam", "ef": True, "batch": c.batch,
+                 "draws": draws},
+        "masters": masters, "arms": SWEEP_ARMS, "dir": str(tmp_path)},
+        tmp_path, model_parallel=2)
+    with one_thread():
+        states, st = c.tz.reference_sweep(
+            c.tz.init_sweep_state(masters), c.batch, SWEEP_ARMS, 2, key=0,
+            draws=lambda t: tzoo.ZooDraws(*draws[t]))
+    for r, o in enumerate(outs):
+        d, m = r // 2, r % 2
+        rows = _rows(c.tz, (d, m))
+        got = o["state"]
+        assert torch.equal(got[0], states.master[:, rows])
+        for a, b in zip(tree.leaves(got[1]), tree.leaves(states.opt)):
+            assert torch.equal(a, b[:, rows] if b.ndim == 3 else b)
+        assert torch.equal(got[2], states.residual[
+            :, d, m * c.tz.n_half:(m + 1) * c.tz.n_half])
+        assert float(got[2].abs().sum()) > 0
+        for k in ("loss", "b_t", "n_scheduled"):
+            assert o["stats"][k] == np.asarray(getattr(st, k)).tolist(), k
+        np.testing.assert_allclose(o["stats"]["ghat_norm"], st.ghat_norm,
+                                   rtol=1e-6)
+        assert o["restored_equal"]
+        assert "master" in o["refused"][0], o["refused"]
+        assert "EF residual" in o["refused"][1], o["refused"]
+    assert np.asarray(st.loss).shape == (2, 3)
+    saved, t_next = c.tz.restore_state(str(tmp_path), arms=3)
+    assert t_next == 2
+    for a, b in zip(tree.leaves(saved), tree.leaves(states)):
+        assert torch.equal(a, b)
+
+
+def test_zoo_train_cli_arms(tmp_path):
+    """``--zoo-train --model-parallel 2 --arms 3`` on 4 ranks prints each
+    arm's losses as the in-turn sweep on the logical 2 x 2 mesh computes
+    them from the CLI's own configuration, init and batch; 1 round then
+    ``--resume`` to 2 leaves the uninterrupted run's checkpoint, leaf for
+    leaf."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import steps as tsteps
+    from repro_torch.launch import train as ttrain
+    from repro_torch.models.registry import build_model
+    a, b = str(tmp_path / "a"), str(tmp_path / "b")
+    base = ["--zoo-train", "--model-parallel", "2", "--arms", "3",
+            "--device", "cpu", "--smoke", "--arch", "gemma2-2b",
+            "--optimizer", "adam", "--batch", "1", "--seq", "16",
+            "--cs-chunk", "256", "--cs-measure", "64", "--cs-topk", "16"]
+    outs = run_world("zoo_cli", 4, {"argvs": [
+        base + ["--steps", "2", "--ckpt-dir", a],
+        base + ["--steps", "1", "--ckpt-dir", b],
+        base + ["--steps", "2", "--ckpt-dir", b, "--resume"]]}, tmp_path)
+    logs = outs[0]["logs"]
+    assert "resumed sweep at round 1" in logs[2]
+    args = ttrain.build_parser().parse_args(base + ["--steps", "2"])
+    tc = ttrain.train_config(args)
+    cfg = get_smoke_config("gemma2-2b")
+    model = build_model(cfg)
+    zr = tsteps.make_zoo_train_round(model, tc, make_zoo_mesh(2, 2),
+                                     device="cpu")
+    master = zr.chunk_params(model.init(0, device="cpu"))
+    arms = ttrain.sweep_arms(tc, args.lr, 3)
+    with one_thread():
+        _, st = zr.reference_sweep(
+            zr.init_sweep_state(master[None].expand(
+                (3,) + tuple(master.shape)).clone()),
+            ttrain.make_zoo_batch(cfg, zr.U, args.batch, args.seq,
+                                  device="cpu"), arms, 2, key=1)
+    want = [f"arm {i}: noise_var={arms['noise_var'][i]:.2e} "
+            f"lr={arms['lr'][i]:.3f} loss {st.loss[0, i]:.4f} -> "
+            f"{st.loss[-1, i]:.4f}" for i in range(3)]
+    assert [ln for ln in logs[0].splitlines()
+            if ln.startswith("arm ")] == want
+    x, y = (np.load(os.path.join(p, "step_00000002", "arrays.npz"))
+            for p in (a, b))
+    assert sorted(x.files) == sorted(y.files)
+    for k in x.files:
+        np.testing.assert_array_equal(x[k], y[k])
 
 
 # --- the CLI ---------------------------------------------------------------
