@@ -74,7 +74,11 @@ result line):
             (argmax equal, rtol = atol = 2e-2), and the same decode with
             window 0 beside it; (10b) deepseek-v2-lite-16b (MLA, 64
             experts top-6 + 2 shared, D = 16,210,324,992), B = 4, prompt
-            32, capacity_factor 8, the same gate and no dropped route;
+            32, capacity_factor 8, the same gate and no dropped route,
+            and 15d's oracles (its first 8 steps with every MoE route
+            recorded, within 1e-5 of the decode's logits, and with its
+            rows decoded in two blocks: its own f32 spread, of the
+            logits and of the router logits);
             init s, prefill ms, ms per decode step, tokens/s, peak memory
             and the device-busy share of decode steps; (10c, with the CLI
             groups) ``python -m repro_torch.launch.decode_demo --arch
@@ -185,6 +189,32 @@ CLIs    the CLIs of phases 9-12, whose times no phase reports, after
             ``param_shardings``, its cache blocks ``cache_shardings``';
             ms a step, the prefill's ms, a step's collectives by group,
             peak memory a rank; no launch of K1-K7
+15d. moe    (after phase 10, before 11) deepseek-v2-lite-16b f32 served
+            split over a 1 x 2 model group at full width (MLA heads and
+            latent, the routed and shared experts' hidden columns, the
+            vocabulary; the router gathered whole): its own 2-rank launch,
+            started with the script, whose ranks touch the card only once
+            this process has freed 10b's weights; each rank's init stages
+            its shares on the host until the last draw
+            (``tensor_parallel.draw_staged``, then ``unstage``), so both
+            draw at once; 10b's
+            config (capacity_factor 8) and prompt, a split prefill and 8
+            greedy steps, then the same decode with its MoE routes pinned
+            to 10b's (recorded in phase 10): the first token and the fed
+            tokens of both equal 10b's; the pinned decode's logits within
+            1e-5 of their max (or 10b's own spread with its rows decoded
+            apart, capped at ``SERVE_SPREAD_CAP``); the free decode's
+            too, unless its first route that parts from 10b's is a near
+            tie within the two runs' measured router-logit difference (an
+            f32 reordering flips it, and its logits then part further);
+            the router logits of both decodes (the free one's up to its
+            first flip) within ``ROUTE_NOISE_FACTOR`` times 10b's own
+            router-logit spread, whatever the gap;
+            no route dropped, each rank's parameter bytes the product
+            rule and its cache blocks ``cache_shardings``'; init s and
+            each rank's device peak during the draws, the dry run's
+            estimate beside the measured peak, prefill ms, ms a step,
+            collectives a step by group; no launch of K1-K7
 16. split   the train step's model axis in phase 14's launch, after 14b:
             the plain trainer's CLI ``--model-parallel 2
             --check-replicas`` through its own ``main`` at internvl2-1b's
@@ -2402,6 +2432,64 @@ def _decode(model, params, cache, first, start: int, feed=None):
     return torch.stack(logits, dim=1), torch.cat(fed, dim=1), ms
 
 
+def moe_oracle(label, model, params, prompt, fed, dec, first) -> dict:
+    """15d's oracles from 10b's weights: the decode (tokens, logits, the
+    first token), the same ``SERVE_GEN`` steps through ``serve_decode``
+    with every MoE route recorded (``routes_recorded``: each call's router
+    logits and experts), its tokens 10b's and its logits within 1e-5 of
+    the decode's max (what 15d's run pinned to these routes is held to),
+    and its own spread (``decode_spread``)."""
+    with routes_recorded() as routes:
+        whole = serve_decode(model, params, prompt)
+    w_log = dec[:, :SERVE_GEN].cpu()
+    apart = float((whole["logits"] - w_log).abs().max() / w_log.abs().max())
+    if not torch.equal(whole["fed"], fed[:, :SERVE_GEN].cpu()) or apart > 1e-5:
+        fail(f"{label}: serve_decode's tokens != the decode's, or its logits "
+             f"{apart:.2e} of their max from the decode's (gate 1e-05)")
+    log(f"{label}: serve_decode over the same prompt: the decode's tokens, "
+        f"logits within {apart:.2e} of its max (gate 1e-05); {len(routes)} "
+        "route calls recorded")
+    spread, route_spread = decode_spread(label, model, params, prompt, fed,
+                                         dec, routes)
+    return {"fed": fed.cpu(), "logits": dec.cpu(), "first": first.cpu(),
+            "spread": spread, "route_spread": route_spread,
+            "whole": whole["logits"], "routes": routes}
+
+
+def decode_spread(label, model, params, prompt, fed, dec, routes):
+    """The whole decode's own f32 spread: its first ``SERVE_GEN`` steps
+    run again with the rows in two blocks of B / 2 (a GEMM of another
+    shape: a mere reordering), against the B-row run: the logits' largest
+    difference in units of their max, and the router logits' largest
+    difference from the B-row run's ``routes`` (``router_noise``). The
+    tokens must not move."""
+    B = prompt.shape[0]
+    rows, recs = [], []
+    for a in (0, B // 2):
+        with routes_recorded() as rec:
+            rows.append(serve_decode(model, params, prompt[a:a + B // 2]))
+        recs.append(rec)
+    r_fed, r_log = (torch.cat([g[k] for g in rows]) for k in ("fed",
+                                                               "logits"))
+    w_log = dec[:, :SERVE_GEN].cpu()
+    if not torch.equal(r_fed, fed[:, :SERVE_GEN].cpu()):
+        fail(f"{label}: the decode's tokens change with its rows decoded "
+             "apart")
+    spread = float((r_log - w_log).abs().max() / w_log.abs().max())
+    # the blocks' token rows of each call, in the B-row run's order
+    apart = [tuple(torch.cat(x) for x in zip(*calls))
+             for calls in zip(*recs)]
+    flip = first_route_flip(apart, routes)
+    route_spread = router_noise(apart, routes)
+    log(f"{label}: its first {SERVE_GEN} steps with the rows decoded in "
+        f"two blocks of {B // 2} within {spread:.2e} of the logits' max "
+        f"(the whole decode's own f32 spread); its router logits within "
+        f"{route_spread:.3e} of the B-row run's over "
+        + ("all its" if flip is None else f"the first {flip[0] + 1} of its")
+        + f" {len(routes)} route calls")
+    return spread, route_spread
+
+
 def run_decode_cell(dev, card: str, label: str, arch: str, B: int, P: int,
                     D_want: int) -> None:
     """One full-width model: ``make_seeded_prefill`` over a P-token
@@ -2467,6 +2555,9 @@ def run_decode_cell(dev, card: str, label: str, arch: str, B: int, P: int,
             ORACLES["10a"] = {
                 "fed": fed.cpu(), "logits": dec.cpu(), "first": first.cpu(),
                 "seeds": tuple(cache[k][:, :, :P].cpu() for k in ("k", "v"))}
+        if label == "10b":          # 15d's oracles
+            ORACLES["10b"] = moe_oracle(label, model, params, prompt, fed,
+                                        dec, first)
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
 
         def steps4():
@@ -4118,91 +4209,131 @@ def serve_oracles(dev) -> dict:
     return out
 
 
-def serve_rank(dev, mesh, tmp, say) -> dict:
-    """Phase 15 on this rank: each cell's split decode from its own share
-    of the seed-0 init (``init_params``: each weight cut to the share as
-    it is drawn), its parameter and cache bytes held to the product rule over
-    ``param_shardings`` and to ``cache_shardings``' blocks, the ranks'
-    tokens equal; rank 0 writes the tokens and logits for the parent.
-    Returns this rank's launch counts (K1-K7: none)."""
+def serve_cell(dev, mesh, logical, cell, say, cfg=None, staged_ranks=None,
+               extra=None) -> dict:
+    """One cell of phase 15 on this rank of ``mesh`` (``logical``: its
+    (W, M) shape): the split decode (``serve_decode``) from the rank's own
+    share of the seed-0 init (``init_params``: each weight cut to the
+    share as it is drawn; with ``staged_ranks``, the ranks that share this
+    host, ``draw_staged`` keeps the shares on the host until the last
+    draw and ``unstage`` moves them to the card), its parameter and cache
+    bytes held to the product rule over ``param_shardings`` and to
+    ``cache_shardings``' blocks, the ranks' tokens equal. Returns the
+    decode's result, the init's seconds and each rank's device peak
+    during the init (the draws: when staged, before the shares move to
+    the card), and what ``extra(model, params)`` returns, called before
+    the weights go."""
     from repro_torch import tree
     from repro_torch.configs import get_config, scaled
     from repro_torch.dist import collectives as coll
     from repro_torch.dist.sharding import local_shape
-    from repro_torch.kernels import build
     from repro_torch.launch import dryrun
-    from repro_torch.launch.mesh import ZooMesh
     from repro_torch.launch.steps import cache_shardings, param_shardings
     from repro_torch.models import tensor_parallel as tp
     from repro_torch.models.registry import build_model
+    label, arch, B, P, D_want = cell
+    W, M = logical.shape["data"], logical.shape["model"]
+    cfg = cfg or scaled(get_config(arch), dtype="float32")
+    model = build_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    if staged_ranks is None:
+        params = tp.init_params(model, 0, mesh, dev)
+        draw_peak = torch.cuda.max_memory_allocated(dev)
+    else:
+        # the draws' peak read before the shares move to the card
+        sp = tp.split_of(cfg, mesh)
+        staged = tp.draw_staged(model, 0, sp.M, sp.m, dev, staged_ranks)
+        draw_peak = torch.cuda.max_memory_allocated(dev)
+        params = tp.unstage(staged, dev)
+        del staged
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = coll.all_gather(torch.tensor([draw_peak], device=dev),
+                                mesh.world, tiled=True).tolist()
+    torch.cuda.reset_peak_memory_stats()
+    shapes = model.init(0, device="meta")
+    if sum(x.numel() for x in tree.leaves(shapes)) != D_want:
+        fail(f"{label} {arch}: D != {D_want:,}")
+    specs, _ = param_shardings(model, logical)
+    want_p = dryrun.spec_bytes(shapes, [dryrun._leaf(specs, k) for k, _
+                                        in tree.flatten_with_keys(
+                                            shapes)], logical)
+    got_p = sum(x.numel() * x.element_size()
+                for x in tree.leaves(params))
+    got = serve_decode(model, params, serve_prompt(cfg, B, P, dev), mesh)
+    total = P + DECODE_GEN
+    whole = model.init_cache(B, total, "meta")
+    cspec = cache_shardings(whole, logical)
+    want_c = {k: local_shape(v.shape, cspec[k], logical)
+              for k, v in whole.items()}
+    got_c = {k: tuple(v.shape) for k, v in got["cache"].items()}
+    if got_p != want_p or got_c != want_c:
+        fail(f"{label} rank {mesh.cell()}: parameter bytes {got_p:,} "
+             f"(the product rule {want_p:,}) or cache blocks {got_c} "
+             f"(cache_shardings' {want_c})")
+    cache_b = sum(x.numel() * x.element_size()
+                  for x in got["cache"].values())
+    if not coll.replicated([got["fed"].to(dev)], mesh.world):
+        fail(f"{label}: the ranks drew different tokens")
+    peak = coll.all_gather(torch.tensor(
+        [torch.cuda.max_memory_allocated(dev)], device=dev), mesh.world,
+        tiled=True).tolist()
+    ms = got["ms"]
+    say(f"{label}: {arch} f32 split over the {W} x {M} ranks, B "
+        f"= {B}, prompt {P} ("
+        + ("a split prefill" if cfg.family != "ssm" else "stepped")
+        + f"), cache {total} rows: init of the share {init_s:.2f} s "
+        + ("(each weight cut to the host as it is drawn, the shares moved "
+           "to the card after the last draw)" if staged_ranks else
+           "(each weight cut as it is drawn)")
+        + f", prefill {got['prefill_ms']:.1f} ms, "
+        f"decode step median {sorted(ms)[len(ms) // 2]:.1f} ms (min "
+        f"{min(ms):.1f}, max {max(ms):.1f}; host clock, synchronised, "
+        f"rank 0); a step's collectives " + "; ".join(
+            f"{g}: " + ", ".join(
+                f"{k} {v[1] // SERVE_GEN} calls {v[0] / SERVE_GEN / 1e3:.1f}"
+                " kB" for k, v in sorted(kinds.items()))
+            for g, kinds in sorted(got["by_group"].items()))
+        + f"; parameters {got_p / 2**30:.3f} GiB a rank (the product "
+        f"rule's, 1/{M} of every leaf param_shardings splits; whole "
+        f"{4 * D_want / 2**30:.3f}), cache {cache_b / 2**20:.2f} MiB a "
+        f"rank (cache_shardings' blocks: " + ", ".join(
+            f"{k} {tuple(map(str, v))}" for k, v in cspec.items())
+        + "); peak of the prefill and decode by rank (GiB) "
+        + ", ".join(f"{v / 2**30:.2f}" for v in peak)
+        + "; peak of the init by rank (GiB) "
+        + ", ".join(f"{v / 2**30:.2f}" for v in init_peak)
+        + (" (the weight being drawn and a block of its share)"
+           if staged_ranks else " (the share and one whole weight)"))
+    out = {k: got[k] for k in ("first", "fed", "logits")}
+    if extra is not None:
+        out.update(extra(model, params))
+    del params
+    out.update(init_s=init_s, init_peak=init_peak, peak=peak,
+               param_bytes=got_p, cache_bytes=cache_b,
+               prefill_ms=got["prefill_ms"], ms=ms)
+    del got
+    torch.cuda.empty_cache()
+    return out
+
+
+def serve_rank(dev, mesh, tmp, say) -> dict:
+    """Phase 15a-15c on this rank (``serve_cell``); rank 0 writes the
+    tokens and logits for the parent. Returns this rank's launch counts
+    (K1-K7: none)."""
+    from repro_torch.dist import collectives as coll
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import ZooMesh
     logical = ZooMesh(("data", "model"), (ZP_W, ZP_M))
     build.reset_launch_counts()
     t_phase = time.perf_counter()
-    for label, arch, B, P, D_want in SERVE_CELLS:
-        cfg = scaled(get_config(arch), dtype="float32")
-        model = build_model(cfg)
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        params = tp.init_params(model, 0, mesh, dev)
-        torch.cuda.synchronize()
-        init_s = time.perf_counter() - t0
-        init_peak = torch.cuda.max_memory_allocated(dev)
-        torch.cuda.reset_peak_memory_stats()
-        shapes = model.init(0, device="meta")
-        if sum(x.numel() for x in tree.leaves(shapes)) != D_want:
-            fail(f"{label} {arch}: D != {D_want:,}")
-        specs, _ = param_shardings(model, logical)
-        want_p = dryrun.spec_bytes(shapes, [dryrun._leaf(specs, k) for k, _
-                                            in tree.flatten_with_keys(
-                                                shapes)], logical)
-        got_p = sum(x.numel() * x.element_size()
-                    for x in tree.leaves(params))
-        got = serve_decode(model, params, serve_prompt(cfg, B, P, dev),
-                           mesh)
-        total = P + DECODE_GEN
-        whole = model.init_cache(B, total, "meta")
-        cspec = cache_shardings(whole, logical)
-        want_c = {k: local_shape(v.shape, cspec[k], logical)
-                  for k, v in whole.items()}
-        got_c = {k: tuple(v.shape) for k, v in got["cache"].items()}
-        if got_p != want_p or got_c != want_c:
-            fail(f"{label} rank {mesh.cell()}: parameter bytes {got_p:,} "
-                 f"(the product rule {want_p:,}) or cache blocks {got_c} "
-                 f"(cache_shardings' {want_c})")
-        cache_b = sum(x.numel() * x.element_size()
-                      for x in got["cache"].values())
-        if not coll.replicated([got["fed"].to(dev)], mesh.world):
-            fail(f"{label}: the ranks drew different tokens")
+    for cell in SERVE_CELLS:
+        got = serve_cell(dev, mesh, logical, cell, say)
         if coll.axis_index(mesh.world) == 0:
             torch.save({k: got[k] for k in ("first", "fed", "logits")},
-                       os.path.join(tmp, f"serve_{label}.pt"))
-        peak = coll.all_gather(torch.tensor(
-            [torch.cuda.max_memory_allocated(dev)], device=dev), mesh.world,
-            tiled=True).tolist()
-        ms = got["ms"]
-        say(f"{label}: {arch} f32 split over the {ZP_W} x {ZP_M} ranks, B "
-            f"= {B}, prompt {P} ("
-            + ("a split prefill" if cfg.family != "ssm" else "stepped")
-            + f"), cache {total} rows: init of the share {init_s:.2f} s "
-            f"(each weight cut as it is drawn), prefill {got['prefill_ms']:.1f} ms, "
-            f"decode step median {sorted(ms)[len(ms) // 2]:.1f} ms (min "
-            f"{min(ms):.1f}, max {max(ms):.1f}; host clock, synchronised, "
-            f"rank 0); a step's collectives " + "; ".join(
-                f"{g}: " + ", ".join(
-                    f"{k} {v[1] // SERVE_GEN} calls {v[0] / SERVE_GEN / 1e3:.1f}"
-                    " kB" for k, v in sorted(kinds.items()))
-                for g, kinds in sorted(got["by_group"].items()))
-            + f"; parameters {got_p / 2**30:.3f} GiB a rank (the product "
-            f"rule's, 1/{ZP_M} of every leaf param_shardings splits; whole "
-            f"{4 * D_want / 2**30:.3f}), cache {cache_b / 2**20:.2f} MiB a "
-            f"rank (cache_shardings' blocks: " + ", ".join(
-                f"{k} {tuple(map(str, v))}" for k, v in cspec.items())
-            + "); peak of the prefill and decode by rank (GiB) "
-            + ", ".join(f"{v / 2**30:.2f}" for v in peak)
-            + f" (rank 0's init: {init_peak / 2**30:.2f}, its share and "
-            "one whole weight)")
-        del params, got
-        torch.cuda.empty_cache()
+                       os.path.join(tmp, f"serve_{cell[0]}.pt"))
+        del got
     counts = build.launch_counts()
     say(f"15: {time.perf_counter() - t_phase:.1f} s on rank 0")
     return counts
@@ -4241,6 +4372,342 @@ def check_serve(tmp, oracle10a, want) -> None:
             + f" decode's, logits within {err:.2e} of their max (gate "
             f"{gate:.2e}: 1e-05, or the whole decode's own spread with its "
             f"rows decoded apart, {floor:.2e}, where larger)")
+
+
+# 15d: deepseek-v2-lite-16b (MLA, 64 routed experts top-6 + 2 shared) in
+# f32, served split over a 1 x 2 model group at full width: 10b's config
+# (capacity_factor 8) and prompt, held to 10b's one-process decode. Its
+# own 2-rank launch, started with the script: the ranks sleep until the
+# parent has freed 10b's weights after phase 10, and each stages its
+# shares on the host during the init (tensor_parallel.draw_staged, then
+# unstage), so the two draw at once in two whole expert leaves' room
+# (18.56 GiB each)
+MOE_CELL = ("15d", "deepseek-v2-lite-16b", 4, 32, 16_210_324_992)
+MOE_M = 2
+# 15d's router logits (the pinned decode's at every route call, the free
+# decode's up to its first flip) may part from 10b's by at most this
+# times 10b's own router-logit spread, its rows decoded in two blocks
+# (``decode_spread``): f32 reordering, not a share gone wrong upstream
+# of the router, whatever a flipped route's gap
+ROUTE_NOISE_FACTOR = 4
+
+
+def moe_serve_cfg():
+    """10b's config: deepseek-v2-lite-16b in f32 at capacity_factor 8."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, scaled
+    cfg = scaled(get_config(MOE_CELL[1]), dtype="float32")
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=8.0))
+
+
+@contextlib.contextmanager
+def routes_recorded():
+    """Within: every MoE route call's router logits (f32) and experts
+    (``moe._route``'s idx), on the CPU, appended to the list it yields."""
+    from repro_torch.models import moe as moe_lib
+    rec, real = [], moe_lib._route
+
+    def route(logits, top_k):
+        w, idx, aux = real(logits, top_k)
+        rec.append((logits.detach().float().cpu(), idx.cpu()))
+        return w, idx, aux
+
+    moe_lib._route = route
+    try:
+        yield rec
+    finally:
+        moe_lib._route = real
+
+
+@contextlib.contextmanager
+def routes_pinned(rec):
+    """Within: the i-th MoE route call takes the experts ``rec`` recorded
+    for its i-th call (``routes_recorded``), weighted by this call's own
+    probabilities at them, normalised as ``moe._route`` does (bit for bit
+    ``_route``'s weights where the experts are its own); the aux term,
+    which serving never reads, 0."""
+    from repro_torch.models import moe as moe_lib
+    calls, real = iter(rec), moe_lib._route
+
+    def route(logits, top_k):
+        _, idx = next(calls)
+        idx = idx.to(logits.device)
+        w = torch.gather(torch.softmax(logits.to(torch.float32), dim=-1),
+                         1, idx)
+        w = w / torch.clamp(torch.sum(w, dim=-1, keepdim=True), min=1e-9)
+        return w, idx, torch.zeros((), device=logits.device)
+
+    moe_lib._route = route
+    try:
+        yield
+    finally:
+        moe_lib._route = real
+
+
+def first_route_flip(mine, theirs):
+    """The first route call where ``mine``'s expert sets differ from
+    ``theirs`` (``routes_recorded`` lists of one decode), or None:
+    (call, [(token row, gap, noise)]): ``gap``, in ``theirs``' router
+    logits, the largest logit of an expert they chose and ``mine`` did not
+    less the smallest of one ``mine`` chose instead; ``noise``, the row's
+    largest |difference| of the two router logits. A flip with gap ≤ 2 ·
+    noise is a near tie that the measured f32 difference explains."""
+    for i, ((lm, im), (lt, it)) in enumerate(zip(mine, theirs)):
+        a, b = im.sort(-1).values, it.sort(-1).values
+        rows = (a != b).any(-1).nonzero().flatten().tolist()
+        if not rows:
+            continue
+        out = []
+        for r in rows:
+            lost = sorted(set(b[r].tolist()) - set(a[r].tolist()))
+            gained = sorted(set(a[r].tolist()) - set(b[r].tolist()))
+            gap = float(lt[r, lost].max() - lt[r, gained].min())
+            out.append((r, gap, float((lm[r] - lt[r]).abs().max())))
+        return i, out
+    return None
+
+
+def router_noise(mine, theirs) -> float:
+    """The largest |difference| of two decodes' router logits
+    (``routes_recorded`` lists of one decode each) over the route calls
+    up to and including the first whose expert sets differ (after it the
+    two decodes part for another cause than f32 noise), over all where
+    none does."""
+    flip = first_route_flip(mine, theirs)
+    last = len(theirs) if flip is None else flip[0] + 1
+    return max(float((lm - lt).abs().max())
+               for (lm, _), (lt, _) in zip(mine[:last], theirs[:last]))
+
+
+def serve_moe_rank() -> None:
+    """15d in each rank that ``torchrun`` starts (``chip_smoke.py
+    --serve-moe-rank DIR``): once the parent's go file is there, join a
+    world of 1 x 2 ranks and run ``serve_cell`` with the init staged on
+    the host, its MoE routes recorded, then the same decode again with
+    the routes pinned to 10b's (``routes_pinned``; its router logits
+    recorded too), the MoE's dropped routes counted in both; rank 0
+    writes the tokens, logits and routes, each rank its launch counts and
+    drops. Exits 1 on a mismatch."""
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.dist import collectives as coll
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import ZooMesh, join_world, leave_world
+    from repro_torch.models import moe as moe_lib
+
+    tmp = sys.argv[2]
+    rank = int(os.environ["RANK"])
+    _wait_for(os.path.join(tmp, "go_15d"), "15d's go", timeout=ZP_LIMIT)
+    mesh, dev = join_world(model_parallel=MOE_M, init_method="file://"
+                           + os.path.join(tmp, "store"))
+    theirs = torch.load(os.path.join(tmp, "routes_10b.pt"))
+
+    def say(msg):
+        if rank == 0:
+            log(msg)
+
+    def pinned(model, params):
+        t0 = time.perf_counter()
+        with routes_pinned(theirs), routes_recorded() as seen:
+            got = serve_decode(model, params, serve_prompt(
+                model.cfg, *MOE_CELL[2:4], dev), mesh)
+        say(f"15d: the decode again with 10b's routes pinned in "
+            f"{time.perf_counter() - t0:.1f} s")
+        return {"pinned": {**{k: got[k] for k in ("first", "fed",
+                                                   "logits")},
+                           "routes": seen}}
+
+    drops = []
+    dispatch = moe_lib._dispatch
+
+    def counted(idx, E, capacity):
+        flat, slot, keep = dispatch(idx, E, capacity)
+        drops.append((~keep).sum())
+        return flat, slot, keep
+
+    moe_lib._dispatch = counted
+    build.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        with routes_recorded() as routes:
+            got = serve_cell(dev, mesh, ZooMesh(("data", "model"),
+                                                (1, MOE_M)),
+                             MOE_CELL, say, cfg=moe_serve_cfg(),
+                             staged_ranks=MOE_M, extra=pinned)
+    finally:
+        moe_lib._dispatch = dispatch
+    counts = build.launch_counts()
+    n_drop = int(torch.stack(drops).sum()) if drops else 0
+    if coll.axis_index(mesh.world) == 0:
+        torch.save({**{k: got[k] for k in ("first", "fed", "logits",
+                                            "pinned")}, "routes": routes},
+                   os.path.join(tmp, "serve_15d.pt"))
+    leave_world()
+    with open(os.path.join(tmp, f"counts_15d_{rank}.json"), "w") as f:
+        json.dump({"counts": counts, "drops": n_drop, "routes": len(drops),
+                   **{k: got[k] for k in ("init_s", "init_peak", "peak",
+                                          "param_bytes", "cache_bytes",
+                                          "prefill_ms", "ms")}}, f)
+    say(f"15d: {time.perf_counter() - t0:.1f} s on rank 0 from the go")
+
+
+def start_serve_moe_procs() -> dict:
+    """Start 15d's 2-rank launch (``serve_moe_rank``) with the script: the
+    ranks start up while the kernels build and sleep, touching no card,
+    until ``run_serve_moe_phase`` writes the go file."""
+    import tempfile
+    tmp = tempfile.TemporaryDirectory(dir=ROOT)
+    h = start_torchrun("15d", MOE_M, [
+        os.path.join(ROOT, "chip_smoke.py"), "--serve-moe-rank", tmp.name])
+    return {"tmp": tmp, "launch": h}
+
+
+def serve_moe_dry_run() -> dict:
+    """The dry run's estimate of 15d's configuration: rank 0 of a
+    "fake" 1 x 2 world on the meta device, the split prefill of the
+    prompt and one split decode step at the cache's last position."""
+    from repro_torch.configs import InputShape
+    from repro_torch.launch import dryrun
+    _, _, B, P, _ = MOE_CELL
+    return {kind: dryrun.measure(moe_serve_cfg(), InputShape(
+        "15d", P if kind == "prefill" else P + DECODE_GEN, B, kind),
+        (1, MOE_M), ("data", "model")) for kind in ("prefill", "decode")}
+
+
+def run_serve_moe_phase(dev, card: str, started: dict) -> dict:
+    """Phase 15d, after phase 10: free this process's weights (10b's),
+    write the go file, compute the dry run's estimate while the ranks
+    run, wait for the launch to end, then hold 15d to 10b's one-process
+    decode: the first token and the ``SERVE_GEN`` fed tokens equal, the
+    logits within 1e-5 of their max (or within the whole decode's own
+    spread, ``ORACLES["10b"]["spread"]``, capped at ``SERVE_SPREAD_CAP``),
+    the router logits within ``ROUTE_NOISE_FACTOR`` times 10b's own
+    router-logit spread, no route dropped, no launch of K1-K7. Returns the
+    ranks' summed launch counts."""
+    import gc
+
+    from repro_torch.models.tensor_parallel import host_available
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"15d: {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated "
+        f"and {torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved in "
+        f"this process after phase 10; host MemAvailable "
+        f"{host_available() / 2**30:.2f} GiB; the ranks go")
+    h, oracle = started["launch"], ORACLES["10b"]
+    with started["tmp"] as tmp:
+        torch.save(oracle["routes"], os.path.join(tmp, "routes_10b.pt"))
+        open(os.path.join(tmp, "go_15d"), "w").close()
+        t0 = time.perf_counter()
+        dry = serve_moe_dry_run()
+        dry_s = time.perf_counter() - t0
+        finish_cli(h, card, limit=ZP_LIMIT)
+        ranks = [json.load(open(os.path.join(tmp, f"counts_15d_{r}.json")))
+                 for r in range(MOE_M)]
+        got = torch.load(os.path.join(tmp, "serve_15d.pt"))
+    label, arch = MOE_CELL[:2]
+    w_fed = oracle["fed"][:, :SERVE_GEN]
+    w_log = oracle["logits"][:, :SERVE_GEN]
+    spread = oracle["spread"]
+    gate = max(1e-5, min(spread, SERVE_SPREAD_CAP))
+    peak = float(w_log.abs().max())
+    err = float((got["logits"] - w_log).abs().max()) / peak
+    steps = ((got["logits"] - w_log).abs().amax(dim=(0, 2)) / peak).tolist()
+    pin = got["pinned"]
+    pin_err = float((pin["logits"] - oracle["whole"]).abs().max()
+                    / oracle["whole"].abs().max())
+    if not (torch.equal(got["first"], oracle["first"])
+            and torch.equal(pin["first"], oracle["first"])):
+        fail(f"{label}: the split prefill's greedy token != 10b's")
+    if not (torch.equal(got["fed"], w_fed) and torch.equal(pin["fed"],
+                                                           w_fed)):
+        fail(f"{label} {arch}: the split decode's tokens differ from 10b's "
+             f"one-process decode (free {got['fed'].tolist()}, routes pinned "
+             f"{pin['fed'].tolist()}, 10b {w_fed.tolist()})")
+    if pin_err > gate:
+        fail(f"{label} {arch}: with 10b's routes pinned, the split decode's "
+             f"logits part from 10b's by {pin_err:.2e} of their max (gate "
+             f"{gate:.2e}: 1e-05, or 10b's own spread {spread:.2e} capped at "
+             f"{SERVE_SPREAD_CAP:.1e}, where larger)")
+    r_bound = ROUTE_NOISE_FACTOR * oracle["route_spread"]
+    noise = {"pinned": router_noise(pin["routes"], oracle["routes"]),
+             "free": router_noise(got["routes"], oracle["routes"])}
+    r_line = (f"router logits from 10b's within {noise['pinned']:.3e} "
+              f"(routes pinned, every call) and {noise['free']:.3e} (its "
+              f"own routes, up to its first flip), the bound "
+              f"{ROUTE_NOISE_FACTOR} x 10b's own router-logit spread "
+              f"{oracle['route_spread']:.3e} = {r_bound:.3e}")
+    if max(noise.values()) > r_bound:
+        fail(f"{label} {arch}: the split's {r_line}: more than f32 "
+             "reordering explains")
+    flip = first_route_flip(got["routes"], oracle["routes"])
+    why = "no route differs from 10b's"
+    if flip is not None:
+        call, rows = flip
+        L = moe_serve_cfg().num_layers
+        why = (f"its routes first differ from 10b's at route call {call} of "
+               f"{len(oracle['routes'])} (layer {call % L}, "
+               + ("the prefill" if call < L else f"step {call // L - 1}")
+               + "): " + "; ".join(
+                   f"token row {r}, 10b's router logits {gap:.3e} apart for "
+                   f"the experts swapped, the two runs' router logits up to "
+                   f"{noise:.3e} apart" for r, gap, noise in rows))
+    if err > gate and (flip is None
+                       or any(gap > 2 * noise for _, gap, noise in flip[1])):
+        fail(f"{label} {arch}: the split decode's logits part from 10b's by "
+             f"{err:.2e} of their max (by step {steps}; gate {gate:.2e}), and "
+             f"no near tie of the routes explains it: {why}")
+    drops = [r["drops"] for r in ranks]
+    if any(drops):
+        fail(f"{label}: routes dropped by rank {drops} at capacity_factor 8")
+    counts = {k: sum(r["counts"][k] for r in ranks)
+              for k in ranks[0]["counts"]}
+    expect_counts(f"serve split ({label})", counts, {}, 0)
+    log(f"{label} {arch}: the first token and the {SERVE_GEN} fed tokens "
+        f"equal 10b's one-process decode, with its own routes and with "
+        f"10b's pinned; with 10b's routes pinned the logits within "
+        f"{pin_err:.2e} of their max (gate {gate:.2e}: 1e-05, or 10b's own "
+        f"spread with its rows decoded apart, {spread:.2e}, capped at "
+        f"{SERVE_SPREAD_CAP:.1e}, where larger); with its own routes "
+        f"within {err:.2e} (by step: " + ", ".join(f"{v:.2e}" for v in steps)
+        + f"): {why}"
+        + (" (gap ≤ 2 x noise: a near tie that f32 reordering flips)"
+           if err > gate else "")
+        + f"; {r_line}; dropped routes by rank {drops} (of "
+        f"{ranks[0]['routes']} "
+        "dispatches each, both decodes, capacity_factor 8)")
+    mem = {k: v["memory"] for k, v in dry.items()}
+    calls = dry["decode"]["collectives"]["calls"]
+    log(f"{label}: init " + ", ".join(f"{r['init_s']:.2f}" for r in ranks)
+        + " s by rank (the draws, the shares staged on the host, then moved "
+        f"to the card); device peak of the init by rank (GiB) "
+        + ", ".join(f"{v / 2**30:.2f}" for v in ranks[0]["init_peak"])
+        + f" (one whole expert leaf is {27 * 64 * 2048 * 1408 * 4 / 2**30:.2f}"
+        f"); measured peak of the prefill and decode by rank (GiB) "
+        + ", ".join(f"{v / 2**30:.2f}" for v in ranks[0]["peak"])
+        + f" beside the dry run's estimate for the same configuration "
+        f"(rank 0 of a fake 1 x {MOE_M} world on the meta device, "
+        f"{dry_s:.1f} s): prefill total "
+        f"{mem['prefill']['total'] / 2**30:.2f} GiB (params "
+        f"{mem['prefill']['params'] / 2**30:.2f}, step_peak "
+        f"{mem['prefill']['step_peak'] / 2**30:.3f}), decode step total "
+        f"{mem['decode']['total'] / 2**30:.2f} GiB (params "
+        f"{mem['decode']['params'] / 2**30:.2f}, cache "
+        f"{mem['decode']['cache'] / 2**20:.2f} MiB, step_peak "
+        f"{mem['decode']['step_peak'] / 2**30:.3f}); the dry run's decode "
+        f"collectives a step " + ", ".join(
+            f"{k} {v / 1e3:.1f} kB in {calls[k]} calls"
+            for k, v in dry["decode"]["collectives"]["bytes"].items())
+        + f"; parameters by rank (GiB) " + ", ".join(
+            f"{r['param_bytes'] / 2**30:.3f}" for r in ranks)
+        + f" (the product rule's: {mem['decode']['params'] / 2**30:.3f} on "
+        f"rank 0), cache by rank (MiB) " + ", ".join(
+            f"{r['cache_bytes'] / 2**20:.2f}" for r in ranks) + f"; {card}")
+    log(f"{label}: phase 15d took {time.perf_counter() - t_phase:.1f} s "
+        "from the go")
+    return counts
 
 
 def zoo_rank() -> None:
@@ -4828,6 +5295,9 @@ def main() -> None:
     if sys.argv[1:2] == ["--zoo-rank"]:
         zoo_rank()
         return
+    if sys.argv[1:2] == ["--serve-moe-rank"]:
+        serve_moe_rank()
+        return
     if sys.argv[1:2] in (["--split-train"], ["--split-train-rank"]):
         sys.path.insert(0, os.path.join(ROOT, "src"))
         split_train_alone()
@@ -4839,6 +5309,7 @@ def main() -> None:
     dev = torch.device("cuda")
     card = banner()
     zoo_procs = start_zoo_procs()
+    moe_procs = start_serve_moe_procs()
     build_kernels()
     results = check_kernels(dev)
     check_round_against_plain(dev)
@@ -4866,6 +5337,7 @@ def main() -> None:
     paths["serve_100k"] = run_serve_phase(dev)
     paths["lm"] = run_lm_phase(dev, card)
     paths["lm_decode"] = run_lm_decode_phase(dev, card)
+    paths["serve_moe_split"] = run_serve_moe_phase(dev, card, moe_procs)
     paths["families"] = run_families_phase(dev, card)
     paths.update(run_zoo_phase(dev, card, results))
     run_cli_groups(card)

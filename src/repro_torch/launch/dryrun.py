@@ -5,6 +5,7 @@ mesh) on an H100 cluster, estimated without a card; port of
     python -m repro_torch.launch.dryrun --arch zamba2-7b --shape train_4k \\
         --mesh single
     python -m repro_torch.launch.dryrun --all --mesh both [--agg mean]
+    python -m repro_torch.launch.dryrun --arch whisper-base --variant opt
 
 The reference compiles each combination for a forced 512-device host
 and reads XLA's per-device analysis. The port runs **one rank's step of
@@ -61,6 +62,17 @@ Each result records:
   first card's ``total_memory`` where there is one, else
   ``H100_80GB_BYTES``.
 
+``--variant opt`` is the reference's: the decode rows of ``decode_32k``
+and ``long_500k`` run the flash-decoding arithmetic in
+``decode_sharded_chunks=16`` chunks, and the train rows use
+``TrainConfig(cs_shard_aligned=True)``. Only the ``obcsaa`` train step
+reads that, and on the production mesh (a model axis of 8) the
+``obcsaa`` row is the zoo-train round and the ``mean`` row takes no
+compression, so their opt rows are the baseline's. Its rows carry
+``"variant"`` and what it changed in the row's program (``"changed"``)
+and go to files suffixed ``__opt``; the baseline's rows and files are
+as without the option.
+
 Results are JSON under ``experiments/dryrun_torch/`` (``--force``
 recomputes). No number in them is measured on a card.
 """
@@ -68,6 +80,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
 import math
 import time
@@ -333,35 +346,79 @@ def measure(cfg, shape, mesh_shape, axis_names, *, agg: str = "obcsaa",
     }
 
 
+#: the shapes whose decode ``--variant opt`` runs as flash-decoding chunks
+OPT_DECODE_SHAPES = ("decode_32k", "long_500k")
+
+
+def variant_config(cfg, shape_name: str, agg: str, variant: str, M: int):
+    """(cfg, tcfg, what the variant changed) of a combination on a mesh
+    with a model axis of M: the reference's rule (``repro/launch/
+    dryrun.py``'s ``lower_combo``). ``opt`` decodes ``decode_32k`` and
+    ``long_500k`` in ``decode_sharded_chunks=16`` chunks and trains with
+    ``cs_shard_aligned``; ``baseline`` changes nothing. What it changed
+    lists only what the row's program reads: ``cs_shard_aligned`` is
+    read by the ``obcsaa`` train step, which ``measure`` runs without a
+    model axis, and neither by the zoo-train round (``obcsaa`` with one)
+    nor by the ``mean`` step."""
+    tcfg = TrainConfig(aggregation=agg)
+    if variant == "baseline":
+        return cfg, tcfg, {}
+    if variant != "opt":
+        raise ValueError(f"unknown variant {variant!r} (baseline | opt)")
+    changed = {}
+    if shape_name in OPT_DECODE_SHAPES:
+        cfg = dataclasses.replace(cfg, decode_sharded_chunks=16)
+        changed["decode_sharded_chunks"] = 16
+    if INPUT_SHAPES[shape_name].kind == "train":
+        tcfg = dataclasses.replace(tcfg, cs_shard_aligned=True)
+        if agg == "obcsaa" and M <= 1:
+            changed["cs_shard_aligned"] = True
+    return cfg, tcfg, changed
+
+
 def lower_combo(arch: str, shape_name: str, *, multi_pod: bool,
-                agg: str = "obcsaa") -> dict:
-    cfg = get_config(arch)
-    shape = INPUT_SHAPES[shape_name]
-    if shape_name == "long_500k" and not cfg.supports_long_context:
-        return {"status": "skipped", "reason": LONG_SKIP}
+                agg: str = "obcsaa", variant: str = "baseline") -> dict:
+    """One combination's result. A ``variant`` other than ``baseline``
+    records ``"variant"`` and what it changed (``"changed"``)."""
     mesh = make_production_mesh(multi_pod=multi_pod)
-    res = measure(cfg, shape, mesh.axis_sizes, mesh.axis_names, agg=agg)
-    return {"status": "ok", "arch": arch, "shape": shape_name,
+    cfg, tcfg, changed = variant_config(
+        get_config(arch), shape_name, agg, variant,
+        mesh.shape.get("model", 1))
+    shape = INPUT_SHAPES[shape_name]
+    tag = {} if variant == "baseline" else {"variant": variant,
+                                            "changed": changed}
+    if shape_name == "long_500k" and not cfg.supports_long_context:
+        return {"status": "skipped", "reason": LONG_SKIP, **tag}
+    res = measure(cfg, shape, mesh.axis_sizes, mesh.axis_names, agg=agg,
+                  tcfg=tcfg)
+    return {"status": "ok", **tag, "arch": arch, "shape": shape_name,
             "mesh": "x".join(map(str, mesh.axis_sizes)),
             "agg": agg if shape.kind == "train" else None,
             "n_devices": math.prod(mesh.axis_sizes), **res}
 
 
-def combo_path(arch, shape_name, mesh_tag, agg) -> Path:
-    return RESULTS_DIR / f"{arch}__{shape_name}__{mesh_tag}__{agg}.json"
+def combo_path(arch, shape_name, mesh_tag, agg,
+               variant: str = "baseline") -> Path:
+    suffix = "" if variant == "baseline" else f"__{variant}"
+    return RESULTS_DIR / (f"{arch}__{shape_name}__{mesh_tag}__{agg}{suffix}"
+                          ".json")
 
 
-def run_combo(arch, shape_name, multi_pod, agg="obcsaa", force=False):
+def run_combo(arch, shape_name, multi_pod, agg="obcsaa", force=False,
+              variant: str = "baseline"):
     mesh_tag = "multi" if multi_pod else "single"
-    path = combo_path(arch, shape_name, mesh_tag, agg)
+    path = combo_path(arch, shape_name, mesh_tag, agg, variant)
     if path.exists() and not force:
         return json.loads(path.read_text())
     try:
-        res = lower_combo(arch, shape_name, multi_pod=multi_pod, agg=agg)
+        res = lower_combo(arch, shape_name, multi_pod=multi_pod, agg=agg,
+                          variant=variant)
     except Exception as e:
         res = {"status": "error", "arch": arch, "shape": shape_name,
                "mesh": mesh_tag, "error": f"{type(e).__name__}: {e}",
                "traceback": traceback.format_exc()[-3000:]}
+        if variant != "baseline":
+            res["variant"] = variant
     path.parent.mkdir(parents=True, exist_ok=True)
     path.write_text(json.dumps(res, indent=1, default=str))
     return res
@@ -376,6 +433,11 @@ def main(argv=None) -> int:
     ap.add_argument("--agg", default="obcsaa", choices=["obcsaa", "mean"])
     ap.add_argument("--all", action="store_true",
                     help="every assigned arch (as without --arch)")
+    ap.add_argument("--variant", default="baseline",
+                    choices=["baseline", "opt"],
+                    help="opt: decode_32k and long_500k in 16 flash-"
+                    "decoding chunks, train with cs_shard_aligned; results "
+                    "in files suffixed __opt")
     ap.add_argument("--force", action="store_true")
     args = ap.parse_args(argv)
     archs = [args.arch] if args.arch else ASSIGNED_ARCHS
@@ -387,7 +449,8 @@ def main(argv=None) -> int:
         for shape in shapes:
             for mp in meshes:
                 tag = "multi" if mp else "single"
-                res = run_combo(arch, shape, mp, args.agg, force=args.force)
+                res = run_combo(arch, shape, mp, args.agg, force=args.force,
+                                variant=args.variant)
                 status = res["status"]
                 if status == "ok":
                     mem = res["memory"]
@@ -401,8 +464,10 @@ def main(argv=None) -> int:
                     extra = res["error"][:160]
                 else:
                     extra = res.get("reason", "")[:80]
+                opt = "" if args.variant == "baseline" else \
+                    f"{args.variant} "
                 print(f"[{status:7s}] {arch:22s} {shape:12s} {tag:6s} "
-                      f"{extra}", flush=True)
+                      f"{opt}{extra}", flush=True)
     return 1 if bad else 0
 
 

@@ -70,10 +70,12 @@ def init_cut(model, seed: int, cut: Callable, device=None):
     """``model.init(seed)`` with each leaf replaced by ``cut(key, w)``, its
     key path and the whole leaf (a rank's share of it, or ``w`` itself):
     a weight the init draws is cut as soon as it is made, and the leaves
-    made otherwise are cut after. The generator runs as it does for the
-    whole init, so the result is the cut of ``model.init(seed)`` bit for
-    bit, and a process holds the cut leaves and at most one whole
-    weight."""
+    made otherwise are cut after. The generator runs on ``device`` as it
+    does for the whole init, so the result is the cut of
+    ``model.init(seed)`` bit for bit. A process holds the cut leaves and
+    at most one whole weight: on ``device``, or, where ``cut`` makes each
+    share on the host (``tensor_parallel.draw_staged``), the host holds
+    the shares and ``device`` only the weight being drawn."""
     order, drawn = iter(_draw_order(model.cfg)), set()
 
     def keep(w):

@@ -38,6 +38,11 @@ the norms' scales and the other small leaves once a call, in one
 all-gather; the router, the image position marker, and every weight of
 a module whose heads, hidden dim or vocabulary do not divide by M (its
 compute then runs whole on every rank of the group) a layer at a time.
+
+A rank's share of the seed-0 init is cut as each weight is drawn
+(``init_params``), so it never holds the whole model; for ranks that
+share one card, ``draw_staged`` keeps the shares on the host until the
+last draw and ``unstage`` moves them to the card.
 """
 from __future__ import annotations
 
@@ -265,12 +270,114 @@ def split_of(cfg: ModelConfig, mesh) -> Optional[Split]:
     return Split(cfg, mesh)
 
 
+#: where a staged init keeps the shares until the last draw: the host
+STAGE = torch.device("cpu")
+#: the bytes of a leaf's whole that ``stage_share`` cuts at once
+STAGE_BLOCK_BYTES = 1 << 28
+
+
+def stage_share(leaf: torch.Tensor, rule: Optional[Rule], cfg: ModelConfig,
+                M: int, m: int, name: str) -> torch.Tensor:
+    """``share_of`` made on ``STAGE`` straight from the whole ``leaf``: a
+    block of its leading dim at a time (``STAGE_BLOCK_BYTES`` of the
+    whole; a layer of a stacked expert leaf), so that ``leaf``'s device
+    holds no more than one block's share beside the whole; a share that
+    is a contiguous slice (the leading dim's own block) is copied as it
+    is. The host memory is pageable: PyTorch's page-locked allocator
+    rounds a block up to a power of two (a 9.28 GiB share would take 16
+    GiB)."""
+    def empty(shape):
+        return torch.empty(shape, dtype=leaf.dtype, device=STAGE)
+
+    if rule is None:
+        return empty(leaf.shape).copy_(leaf)
+    d = rule.dim % leaf.dim()
+    if d == 0:
+        part = (share_of(leaf, rule, cfg, M, m, name) if rule.kind == OWN
+                else leaf.narrow(0, m * (leaf.shape[0] // M),
+                                 leaf.shape[0] // M))
+        return empty(part.shape).copy_(part)
+    n0 = leaf.shape[0]
+    step = max(1, STAGE_BLOCK_BYTES // max(1, leaf[0].numel()
+                                           * leaf.element_size()))
+    out = None
+    for a in range(0, n0, step):
+        part = share_of(leaf[a:a + step], rule, cfg, M, m, name)
+        if out is None:
+            out = empty((n0,) + tuple(part.shape[1:]))
+        out[a:a + step].copy_(part)
+    return out
+
+
+def share_bytes(cfg: ModelConfig, M: int) -> int:
+    """The bytes of one rank's share of ``cfg``'s parameters over M
+    ranks: 1/M of every leaf ``rules_of`` splits, the others whole."""
+    from repro_torch.models.registry import build_model
+    rules = rules_of(cfg, M)
+    return sum(leaf.numel() * leaf.element_size()
+               // (M if tuple(k) in rules else 1)
+               for k, leaf in tree.flatten_with_keys(
+                   build_model(cfg).init(0, device="meta")))
+
+
+def host_available() -> int:
+    """The host's ``MemAvailable`` (``/proc/meminfo``), in bytes."""
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024
+    raise RuntimeError("/proc/meminfo has no MemAvailable line")
+
+
+def check_host_room(need: int, ranks: int) -> None:
+    """Fail unless the host has ``need`` bytes free for each of the
+    ``ranks`` ranks that stage their shares on it at once."""
+    have = host_available()
+    if have < need * ranks:
+        raise RuntimeError(
+            f"a staged init needs {need / 2**30:.2f} GiB of host memory a "
+            f"rank for {ranks} rank(s) on this host "
+            f"({need * ranks / 2**30:.2f} GiB), and MemAvailable is "
+            f"{have / 2**30:.2f} GiB: run fewer ranks a host, or an init "
+            "that is not staged where the card holds it")
+
+
+def draw_staged(model, seed: int, M: int, m: int, device, ranks: int):
+    """The first half of a staged init: model shard m's share (of M) of
+    ``model.init(seed)``, every share made on the host (``stage_share``)
+    as its weight is drawn on ``device``; returns the shares there. The
+    generator runs on ``device`` as for the whole init, so ``unstage``
+    of the result is ``init_params``' share bit for bit, while
+    ``device`` holds only the weight being drawn and a block of its
+    share: M ranks that share one card draw at once in M whole weights'
+    room (deepseek-v2-lite-16b's stacked experts: 18.56 GiB each in
+    f32). ``ranks``: the ranks that stage on this host at once; the init
+    fails before it draws when ``MemAvailable`` cannot hold all their
+    shares."""
+    cfg = model.cfg
+    rules = rules_of(cfg, M)
+    check_host_room(share_bytes(cfg, M), ranks)
+    return init_cut(model, seed, lambda k, w: stage_share(
+        w, rules.get(k), cfg, M, m, k[-1]), device=device)
+
+
+def unstage(staged, device):
+    """The second half of a staged init: the device's cached blocks freed
+    (the last whole weight's), then every share moved to ``device``."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return tree.tree_map(lambda x: x.to(dev), staged)
+
+
 def init_params(model, seed: int, mesh, device=None):
     """This rank's share of ``model.init(seed)``, exactly the slice of the
     whole: each weight cut to this rank's share as the init draws it
-    (``layers.init_cut``). A rank holds its share and at most one whole
-    weight; the ranks need not take turns. Without a model axis: the
-    whole init."""
+    (``layers.init_cut``). A rank holds its shares and at most one whole
+    weight on ``device``; where the ranks of a model group share one card
+    and their whole weights do not fit beside the shares, stage the init
+    on the host instead (``draw_staged``, then ``unstage``). Without a
+    model axis: the whole init."""
     sp = split_of(model.cfg, mesh)
     if sp is None:
         return model.init(seed, device=device)

@@ -15,6 +15,7 @@ gloo, the ranks share the card) through a file store in DIR, as the
 The case ``zoo_cli`` joins no world itself: it runs the trainer's CLI,
 which joins and leaves its own.
 """
+import dataclasses
 import os
 import subprocess
 import sys
@@ -453,6 +454,9 @@ def serve_split(inp, mesh, dev):
     for name, case in inp["cases"].items():
         cfg = configs.scaled(configs.get_smoke_config(case["arch"]),
                              dtype="float32")
+        if "capacity_factor" in case:
+            cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+                cfg.moe, capacity_factor=case["capacity_factor"]))
         model = build_model(cfg)
         params = lm_params_share(case["params"], cfg, M, m)
         own = tp.init_params(model, 0, mesh, dev)

@@ -224,3 +224,78 @@ def test_serve_bytes_match_live_world(tmp_path):
             if kind == "decode":
                 assert o[kind]["cache"] == r["memory"]["cache"]
     assert res["decode"]["cache_shapes"]["ckv"] == [2, 2, 32, 32]
+
+
+@pytest.mark.parametrize("agg", ["mean", "obcsaa"])
+def test_variant_opt_rows(agg, tmp_path, monkeypatch, capsys):
+    """``--variant opt`` on gemma2's smoke model (small shapes under the
+    production names, so that the reference's rule reads them): the opt
+    rows go to files suffixed ``__opt`` with ``"variant": "opt"``; they
+    differ from the baseline's only where the rule changes what the
+    row's program reads (``decode_sharded_chunks=16`` at decode_32k and
+    long_500k, recorded in ``"changed"``). The train rows get
+    ``cs_shard_aligned`` as the reference's do, but neither the ``mean``
+    step nor the zoo-train round (``obcsaa`` on the production mesh's
+    model axis) reads it: their ``"changed"`` is empty and they equal
+    the baseline's but for their time, as the prefill row does; only
+    the ``obcsaa`` train step, without a model axis, records it. The
+    baseline files stay as they were."""
+    import json
+    smoke = tcfg.get_smoke_config("gemma2-2b")
+    monkeypatch.setattr(dryrun, "RESULTS_DIR", tmp_path)
+    monkeypatch.setattr(dryrun, "get_config", lambda arch: smoke)
+    monkeypatch.setattr(dryrun, "INPUT_SHAPES", {
+        "train_4k": InputShape("train_4k", 32, 32, "train"),
+        "prefill_32k": InputShape("prefill_32k", 64, 32, "prefill"),
+        "decode_32k": InputShape("decode_32k", 1024, 32, "decode"),
+        "long_500k": InputShape("long_500k", 2048, 1, "decode")})
+    seen = []
+    measure = dryrun.measure
+
+    def spy(cfg, shape, *a, tcfg=None, **k):
+        seen.append((shape.name, cfg.decode_sharded_chunks,
+                     tcfg.cs_shard_aligned))
+        return measure(cfg, shape, *a, tcfg=tcfg, **k)
+
+    monkeypatch.setattr(dryrun, "measure", spy)
+    args = ["--arch", "gemma2-2b", "--mesh", "single", "--agg", agg]
+    assert dryrun.main(args) == 0
+    base = {p.name: p.read_text() for p in tmp_path.glob("*.json")}
+    assert len(base) == 4 and not any("__opt" in n for n in base)
+    assert dryrun.main(args + ["--variant", "opt"]) == 0
+    out = capsys.readouterr().out
+    assert out.count("[ok     ]") == 8 and out.count(" opt ") == 4
+    assert {p.name: p.read_text() for p in tmp_path.glob("*.json")
+            if "__opt" not in p.name} == base
+    assert seen == [
+        ("train_4k", 0, False), ("prefill_32k", 0, False),
+        ("decode_32k", 0, False), ("long_500k", 0, False),
+        ("train_4k", 0, True), ("prefill_32k", 0, False),
+        ("decode_32k", 16, False), ("long_500k", 16, False)]
+    want = {"train_4k": {}, "prefill_32k": {},
+            "decode_32k": {"decode_sharded_chunks": 16},
+            "long_500k": {"decode_sharded_chunks": 16}}
+    for shape, changed in want.items():
+        name = f"gemma2-2b__{shape}__single__{agg}"
+        b = json.loads(base[name + ".json"])
+        o = json.loads((tmp_path / (name + "__opt.json")).read_text())
+        assert "variant" not in b and "changed" not in b
+        assert o.pop("variant") == "opt" and o.pop("changed") == changed
+        for r in (b, o):
+            r.pop("run_s")
+        if not changed:
+            assert o == b
+        else:
+            assert o["memory"]["params"] == b["memory"]["params"]
+    # the flash-decoding chunks change the decode step's own tensors
+    o, b = (json.loads((tmp_path / f"gemma2-2b__decode_32k__single__{agg}"
+                                   f"{s}.json").read_text())
+            for s in ("__opt", ""))
+    assert o["memory"]["step_peak"] != b["memory"]["step_peak"]
+    # the obcsaa train step (no model axis) is the one program that reads
+    # cs_shard_aligned
+    for M, rec in ((1, agg == "obcsaa"), (8, False)):
+        _, tc, changed = dryrun.variant_config(smoke, "train_4k", agg,
+                                               "opt", M)
+        assert tc.cs_shard_aligned
+        assert changed == ({"cs_shard_aligned": True} if rec else {})

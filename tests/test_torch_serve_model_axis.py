@@ -7,7 +7,10 @@ one-process port decode and the reference's jitted decode fed the same
 tokens, at the smoke configs of seven families in f32.
 
 One module-scoped world of 2 x 2 ranks runs every family; a 1 x 2 world
-(the model split, the batch whole) runs minicpm3-4b and a 2 x 1 world
+(the model split, the batch whole) runs minicpm3-4b and
+deepseek-v2-lite-16b at ``capacity_factor`` 8 (the card's phase 15d: its
+experts' hidden columns, MLA heads and latent split, the router gathered
+whole) and a 2 x 1 world
 (``world_mesh(1)``: the K/V length split over the data group, every
 weight whole) gemma2-2b. The ranks import no JAX
 (``_torch_dist_child``).
@@ -24,6 +27,9 @@ Tolerances:
   the reference (f32: the ranks add their partial sums in another
   order), the gates of ``tests/test_torch_shardings.py``.
 """
+import dataclasses
+import weakref
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -45,12 +51,27 @@ from test_torch_shardings import G, _case, _close_to_max, _reference_logits
 ARCHS = {"gemma2-2b": 60, "minicpm3-4b": 8, "deepseek-v2-lite-16b": 8,
          "mamba2-2.7b": 8, "zamba2-7b": 8, "internvl2-1b": 8,
          "whisper-base": 8}
-WORLDS = {"2x2": ((2, 2), sorted(ARCHS)), "1x2": ((1, 2), ["minicpm3-4b"]),
+# deepseek-v2-lite-16b at capacity_factor 8, as the card's phase 15d serves it
+CF8 = "deepseek-v2-lite-16b@cf8"
+WORLDS = {"2x2": ((2, 2), sorted(ARCHS)),
+          "1x2": ((1, 2), ["minicpm3-4b", CF8]),
           "2x1": ((2, 1), ["gemma2-2b"])}
 
 
-def _cfg(arch):
-    return tcfg.scaled(tcfg.get_smoke_config(arch), dtype="float32")
+def _cfg(name):
+    arch, _, cf = name.partition("@cf")
+    cfg = tcfg.scaled(tcfg.get_smoke_config(arch), dtype="float32")
+    if cf:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=float(cf)))
+    return cfg
+
+
+def _cases():
+    """{case name: (arch, prompt length, capacity_factor or None)}."""
+    out = {a: (a, P, None) for a, P in ARCHS.items()}
+    out[CF8] = ("deepseek-v2-lite-16b", ARCHS["deepseek-v2-lite-16b"], 8.0)
+    return out
 
 
 @pytest.fixture(scope="module")
@@ -60,9 +81,9 @@ def worlds(tmp_path_factory):
     oracles."""
     from concurrent.futures import ThreadPoolExecutor
     cases, refs = {}, {}
-    for arch, P in ARCHS.items():
-        jm, jp, cases[arch] = _case(arch, P)
-        refs[arch] = (jm, jp)
+    for name, (arch, P, cf) in _cases().items():
+        jm, jp, cases[name] = _case(arch, P, capacity_factor=cf)
+        refs[name] = (jm, jp)
     with ThreadPoolExecutor(len(WORLDS)) as pool:
         runs = {name: pool.submit(
             run_world, "serve_split", W * M,
@@ -263,3 +284,93 @@ def test_serving_leaves_no_cycle_holding_weights(arch):
     finally:
         gc.set_debug(was)
         gc.garbage.clear()
+
+
+STAGED = ("deepseek-v2-lite-16b", "gemma2-2b", "mamba2-2.7b")
+
+
+@pytest.mark.parametrize("arch", STAGED)
+def test_staged_init_is_the_slice_of_the_whole(arch, monkeypatch):
+    """The staged init (``draw_staged``: every share made on the host as
+    its weight is drawn; ``unstage``: moved to the device after the last
+    draw) is rank m's slice of the whole seed-0 init,
+    ``shard_params(model.init(0))``, bit for bit, for every m of M = 2;
+    so is the unstaged ``init_params``, and the small blocks
+    ``stage_share`` cuts a leaf's whole in give the same shares as one
+    block."""
+    from types import SimpleNamespace
+    cfg = _cfg(arch)
+    model = tbuild(cfg)
+    whole = model.init(0, device="cpu")
+    rules = ttp.rules_of(cfg, 2)
+    for m in range(2):
+        want = ttp.shard_params(whole, cfg, 2, m)
+        got = ttp.unstage(ttp.draw_staged(model, 0, 2, m, "cpu", 1), "cpu")
+        # init_params as rank m of a model group of 2 sees it
+        monkeypatch.setattr(ttp, "split_of", lambda c, mesh: SimpleNamespace(
+            M=2, m=m, rules=rules))
+        plain = ttp.init_params(model, 0, None, "cpu")
+        monkeypatch.setattr(ttp, "STAGE_BLOCK_BYTES", 1)
+        small = [ttp.stage_share(x, rules.get(tuple(k)), cfg, 2, m, k[-1])
+                 for k, x in tree.flatten_with_keys(whole)]
+        monkeypatch.undo()
+        for w, g, p, s in zip(tree.leaves(want), tree.leaves(got),
+                              tree.leaves(plain), small):
+            assert g.device.type == "cpu" and g.is_contiguous()
+            assert torch.equal(g, w) and torch.equal(p, w)
+            assert torch.equal(s, w)
+    assert ttp.share_bytes(cfg, 2) == sum(
+        x.numel() * x.element_size() for x in tree.leaves(want))
+
+
+@pytest.mark.parametrize("arch", STAGED)
+def test_staged_init_keeps_no_share_on_the_device(arch, monkeypatch):
+    """The property that bounds the card's peak during a staged init: at
+    every draw of ``draw_staged``, each share cut so far already sits on
+    the stage (here ``meta``, so that it differs from the init's ``cpu``)
+    and every whole weight drawn before has been freed; the init draws
+    each weight of ``_draw_order`` once, and returns every leaf on the
+    stage."""
+    from repro_torch.models import layers
+    cfg = _cfg(arch)
+    model = tbuild(cfg)
+    made, wholes, draws = [], [], []
+    real, stage = layers._drawn, ttp.stage_share
+
+    def spy(w):
+        if w.device.type == "cpu":      # not the shape-only inits on meta
+            draws.append(({s.device.type for s in made},
+                          sum(r() is not None for r in wholes)))
+            wholes.append(weakref.ref(w))
+        return real(w)
+
+    def cut(*a):
+        made.append(stage(*a))
+        return made[-1]
+
+    monkeypatch.setattr(layers, "_drawn", spy)
+    monkeypatch.setattr(ttp, "stage_share", cut)
+    monkeypatch.setattr(ttp, "STAGE", torch.device("meta"))
+    out = ttp.draw_staged(model, 0, 2, 1, "cpu", 1)
+    n = sum(k is not None for k in layers._draw_order(cfg))
+    assert len(draws) == n and n > 0
+    for i, (devices, alive) in enumerate(draws):
+        assert devices <= {"meta"}, (i, devices)
+        assert alive == 0, i
+    assert len(made) == len(tree.leaves(out))
+    assert all(x.device.type == "meta" for x in tree.leaves(out))
+
+
+def test_staged_init_refuses_a_short_host(monkeypatch):
+    """A staged init that the host cannot hold for all the ranks staging
+    on it fails before it draws, with the bytes it needs."""
+    cfg = _cfg("gemma2-2b")
+    need = ttp.share_bytes(cfg, 2)
+    monkeypatch.setattr(ttp, "host_available", lambda: 2 * need - 1)
+    drawn = []
+    monkeypatch.setattr(ttp, "init_cut", lambda *a, **k: drawn.append(1))
+    with pytest.raises(RuntimeError, match="MemAvailable"):
+        ttp.draw_staged(tbuild(cfg), 0, 2, 0, "cpu", 2)
+    assert not drawn
+    ttp.draw_staged(tbuild(cfg), 0, 2, 0, "cpu", 1)
+    assert drawn == [1]

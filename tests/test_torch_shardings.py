@@ -16,6 +16,7 @@ Tolerances:
   weighted V in another order), and against the reference's decode fed
   the same tokens (f32 in two packages).
 """
+import dataclasses
 import functools
 
 import numpy as np
@@ -98,8 +99,15 @@ DECODE_ARCHS = {"gemma2-2b": 60, "internvl2-1b": 8, "whisper-base": 8,
 G = 8                               # window of 64
 
 
-def _case(arch, P):
-    jm = jbuild(jcfg.scaled(jcfg.get_smoke_config(arch), dtype="float32"))
+def _case(arch, P, capacity_factor=None):
+    """The reference's seed-0 smoke model of ``arch`` in f32 (its MoE at
+    ``capacity_factor`` where given), its weights in the port's layout,
+    2 x (P + G) tokens and the family's stub inputs."""
+    jc = jcfg.scaled(jcfg.get_smoke_config(arch), dtype="float32")
+    if capacity_factor is not None:
+        jc = dataclasses.replace(jc, moe=dataclasses.replace(
+            jc.moe, capacity_factor=capacity_factor))
+    jm = jbuild(jc)
     jp = jm.init(jax.random.PRNGKey(0))
     tp = lm_params_from_reference(jax.tree_util.tree_map(np.asarray, jp),
                                   device="cpu")
@@ -115,9 +123,12 @@ def _case(arch, P):
             (2, cfg.encoder_seq_len, cfg.d_model))).astype(np.float32)
     n_img = cfg.num_image_tokens if cfg.family == "vlm" else 0
     total = -(-(n_img + P + G) // 2) * 2
-    return jm, jp, {"arch": arch, "params": tp, "tok": torch.from_numpy(tok),
-                    "stub": {k: torch.from_numpy(v) for k, v in
-                             stub.items()}, "P": P, "G": G, "total": total}
+    case = {"arch": arch, "params": tp, "tok": torch.from_numpy(tok),
+            "stub": {k: torch.from_numpy(v) for k, v in stub.items()},
+            "P": P, "G": G, "total": total}
+    if capacity_factor is not None:
+        case["capacity_factor"] = capacity_factor
+    return jm, jp, case
 
 
 def _reference_logits(jm, jp, case, tokens):
