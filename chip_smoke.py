@@ -126,7 +126,7 @@ result line):
             ``--arms 3``
 CLIs    the CLIs of phases 9-12, whose times no phase reports, after
             phase 12 in two groups that each run at once
-            (``run_cli_groups``)
+            (``run_cli_groups``), phase 17's ranks beside them
 13. fed.    the federation over processes at internvl2-1b's full width
             (D = 493,982,720), U = 4 ranks sharing the card over gloo
             (NCCL refuses two ranks on one device): (13a) the collectives
@@ -134,10 +134,11 @@ CLIs    the CLIs of phases 9-12, whose times no phase reports, after
             ``psum_bits_mac`` at the zoo's geometry against the einsum
             of the symbols bit for bit, f32 ``psum``/``pmean``, the
             gathers and their backward passes, an NCCL group of one
-            against ``group=None``, the bytes counter; (13b) ``python -m
-            torch.distributed.run --standalone --nproc-per-node 4 -m
-            repro_torch.launch.train --arch internvl2-1b --steps 2``
-            (``obcsaa``, batch 4 x 128, one sequence a worker): s per
+            against ``group=None``, the bytes counter; (13b) the trainer
+            CLI's ``main(["--arch", "internvl2-1b", "--steps", "2",
+            ...])`` in the 4 ranks of phase 14's launch, which are up and
+            idle by then (``obcsaa``, batch 4 x 128, one sequence a
+            worker; 13c's runs the same way): s per
             step, the all-reduce's and the broadcast's share from CUDA
             events, peak memory per rank, the ranks' parameters bit-
             identical; each step again with the 4 workers in turn in
@@ -152,10 +153,11 @@ CLIs    the CLIs of phases 9-12, whose times no phase reports, after
             through the same CLI, one step, equal to the single-process
             step bit for bit; no launch of K1-K7 in this process. The
             runs whose times are not reported share the card with
-            others (13c's stopped and resumed runs, 13d)
+            others (13c's stopped run and its resume with 13a, 13d, the
+            check of 13d and phase 14's oracles)
 14. zoo/proc the zoo over processes: one 4-rank launch (``chip_smoke.py
             --zoo-rank``), started with the script, its ranks asleep until
-            this phase; 2 x 2 ranks, one a (worker, model-shard) cell,
+            this phase but for phases 17 and 13; 2 x 2 ranks, one a (worker, model-shard) cell,
             sharing the card over gloo. (14a) 12a's surrogate round at
             gemma2-2b's D with K1-K4 and K7, two rounds: each rank's rows
             against the in-turn round's row checksums (written by this
@@ -235,6 +237,27 @@ CLIs    the CLIs of phases 9-12, whose times no phase reports, after
             broadcast's ms, MB and calls, peak memory per rank beside
             the dry run's estimate for 16a's configuration; no launch of
             K1-K7 (alone: ``python3 chip_smoke.py --split-train``)
+17. sweep   the §V sweep's arm axis over processes
+            (``EngineRun.run_sweep(mesh=world_mesh(M))``), after phase 12:
+            fig5's grid (4 σ² x seeds 0-2 = 12 arms, 100 rounds, U = 10 x
+            K = 3000, ``all``, eval every 20, BIHT 25) in scan mode on
+            phase 6's data and weights, first in this process with a
+            checkpoint at every boundary (the oracle, timed alone), then
+            by phase 14's launch, whose ranks run it in a world of 4 of
+            their own before 13, sharing the card with the CLI groups
+            (their seconds so shared; ``--sweep-procs`` has them alone): (17a) ``world_mesh(1)``, 3
+            arms a rank, a checkpoint at every boundary (world rank 0
+            writes); (17b) ``world_mesh(2)``, 6 arms a worker group, the 2
+            ranks of its model group checked equal at each save; (17c)
+            1 -> 4, this process's checkpoint cut after its middle
+            boundary and resumed by the ranks, and 4 -> 1, 17a's cut the
+            same way and resumed here: every rank's whole result, and the
+            resumed ones, bit for bit the one-process grid (every stream
+            and every arm's carry, generator states included); K1-K4
+            launched in every rank, 27/1/25/26 an arm-round; s for the
+            grid in one process and by rank, the gathers' MB and ms a
+            boundary, save ms, peak memory by rank (alone: ``python3
+            chip_smoke.py --sweep-procs``, its own 4-rank launch)
 
 Each path's launch counters are set to 0 just before it and read just
 after; a kernel of the path that was not launched fails the run.
@@ -950,12 +973,11 @@ def device_busy(fn, setup: bool = True):
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA
+    every = prof.key_averages()         # one pass: a long trace takes s
+    events = [e for e in every if e.device_type == DeviceType.CUDA
               and e.self_device_time_total > 0]
     busy_us = sum(e.self_device_time_total for e in events)
-    every_us = sum(getattr(e, "self_device_time_total", 0)
-                   for e in prof.key_averages())
+    every_us = sum(getattr(e, "self_device_time_total", 0) for e in every)
     return wall_us / 1e3, busy_us / 1e3, events, every_us / 1e3
 
 
@@ -1027,17 +1049,29 @@ def where_the_time_goes(tr, agg: str) -> float:
     return median(per_round)
 
 
+_MNIST: list = []      # load_mnist()'s arrays, loaded once a process
+
+
+def mnist_arrays() -> tuple:
+    """``load_mnist()``'s arrays, loaded at the first call of the
+    process."""
+    from repro_torch.data import load_mnist
+    if not _MNIST:
+        _MNIST.append(load_mnist())
+    return _MNIST[0]
+
+
 class Task:
     """The §V task on the card: data, MLP at seed 0, loss and eval."""
 
     def __init__(self, dev, workers: int = U_WORKERS,
                  samples: int = SAMPLES):
-        from repro_torch.data import load_mnist, partition_workers
+        from repro_torch.data import partition_workers
         from repro_torch.models import mlp_mnist as mm
 
         t0 = time.perf_counter()
         self.workers, self.samples = workers, samples
-        xtr, ytr, xte, yte = load_mnist()
+        xtr, ytr, xte, yte = mnist_arrays()
         wx, wy = partition_workers(xtr, ytr, workers, samples, seed=0)
         self.data = {"x": torch.from_numpy(wx), "y": torch.from_numpy(wy)}
         xe, ye = torch.from_numpy(xte).to(dev), torch.from_numpy(yte).to(dev)
@@ -3390,9 +3424,9 @@ def _ckpt_arrays(path):
         return {k: f[k] for k in f.files}
 
 
-def finish_clis(hs, card, limit: float = 600.0) -> list:
-    """``finish_cli`` for CLIs that run at once, each one's time taken to
-    its own exit. Returns their stdouts."""
+def await_exits(hs, limit: float = 600.0) -> None:
+    """Wait for CLIs that run at once to exit (or ``limit`` s after the
+    first's start), each one's exit time noted for ``finish_cli``."""
     t0 = min(h["t0"] for h in hs)
     while time.perf_counter() - t0 < limit:
         for h in hs:
@@ -3401,13 +3435,20 @@ def finish_clis(hs, card, limit: float = 600.0) -> list:
         if all("t_end" in h for h in hs):
             break
         time.sleep(0.2)
+
+
+def finish_clis(hs, card, limit: float = 600.0) -> list:
+    """``finish_cli`` for CLIs that run at once, each one's time taken to
+    its own exit. Returns their stdouts."""
+    await_exits(hs, limit)
     return [finish_cli(h, card, limit) for h in hs]
 
 
 def run_cli_groups(card) -> None:
     """The CLIs of phases 9-12, whose times no phase reports, as a user
     starts them, in two groups that each run at once on the card (their
-    peaks fit it together): (A) 11c ``--arch mamba2-2.7b --agg mean
+    peaks fit it together), B once all of A but 11e has exited (11e's
+    whisper-base, ~2.5 GiB, ends beside B): (A) 11c ``--arch mamba2-2.7b --agg mean
     --steps 2``, 11d ``--arch internvl2-1b --steps 2``, 11e ``--arch
     whisper-base --steps 2`` and 12c's uninterrupted 3 rounds and 2
     rounds of ``--zoo-train --smoke`` with Adam, EF and token shards
@@ -3438,7 +3479,7 @@ def run_cli_groups(card) -> None:
             ("11e", train, ["--arch", "whisper-base", "--steps", "2"]),
             ("12c", train, base + ["--steps", "3", "--ckpt-dir", a]),
             ("12c", train, base + ["--steps", "2", "--ckpt-dir", b]))]
-        finish_clis(group_a, card)
+        await_exits([h for h in group_a if h["label"] != "11e"])
         group_b = [start_cli(*x) for x in (
             ("lm", train, ["--arch", LM_ARCH, "--steps", "1"]),
             ("10c decode_demo", demo, ["--arch", "gemma2-2b", "--batch",
@@ -3449,6 +3490,7 @@ def run_cli_groups(card) -> None:
             ("12c", train, base + ["--steps", "3", "--ckpt-dir", b,
                                    "--resume"]),
             ("12c", train, base + ["--steps", "2", "--arms", "3"]))]
+        finish_clis(group_a, card)
         outs = finish_clis(group_b, card)
         for label, out in zip(("10c", "11f"), outs[1:3]):
             if "tok/s" not in out:
@@ -3603,7 +3645,87 @@ def run_torchrun(label, nproc: int, args, card) -> str:
 
 
 # the trainer CLI at the federation's width
-FED_CLI = ["-m", "repro_torch.launch.train", "--arch", FED_ARCH]
+FED_ARGV = ["--arch", FED_ARCH]
+FED_CLI = ["-m", "repro_torch.launch.train"] + FED_ARGV
+
+
+def fed_ckpts(tmp: str) -> dict:
+    """Phase 13's checkpoint directories, under phase 14's launch's
+    directory."""
+    return {r: os.path.join(tmp, "fed", r)
+            for r in ("b", "stopped", "whole", "d")}
+
+
+def fed_rank_runs(tmp: str) -> list:
+    """(label, argv) of the trainer CLI runs that phase 14's ranks make
+    for phase 13, in their order: 13c's stopped run, its resume, 13b,
+    13c's uninterrupted run."""
+    ck = fed_ckpts(tmp)
+    scan = FED_ARGV + ["--scan-rounds", "2"]
+    return [("13c stopped", scan + ["--steps", "2", "--ckpt-dir",
+                                    ck["stopped"]]),
+            ("13c resumed", scan + ["--steps", "4", "--ckpt-dir",
+                                    ck["stopped"], "--resume"]),
+            ("13b", FED_ARGV + ["--steps", str(FED_STEPS), "--ckpt-dir",
+                                ck["b"], "--ckpt-every", "1",
+                                "--check-replicas"]),
+            ("13c whole", scan + ["--steps", "4", "--ckpt-dir", ck["whole"],
+                                  "--check-replicas"])]
+
+
+def _tag(label: str) -> str:
+    return label.replace(" ", "_")
+
+
+def _go(tmp: str, label: str) -> None:
+    """Wake the ranks' step ``label``."""
+    open(os.path.join(tmp, f"go_{_tag(label)}"), "w").close()
+
+
+def federation_in_ranks(tmp: str, rank: int) -> None:
+    """Phase 13's trainer runs on this rank of phase 14's launch
+    (``fed_rank_runs``), each through the CLI's own ``main`` (which joins
+    and leaves a world of its own, a file store) once the parent writes
+    its go. Rank 0 writes the CLI's lines and its seconds to
+    ``fed_TAG.json``."""
+    import gc
+
+    from repro_torch.launch import train
+    for label, argv in fed_rank_runs(tmp):
+        tag = _tag(label)
+        _wait_for(os.path.join(tmp, f"go_{tag}"), f"{label}'s go",
+                  timeout=ZP_LIMIT)
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            code = train.main(argv + ["--init-method", "file://"
+                                      + os.path.join(tmp, f"store_{tag}")])
+        secs = time.perf_counter() - t0
+        if code:
+            fail(f"{label} rank {rank}: the CLI returned {code}")
+        gc.collect()
+        torch.cuda.empty_cache()
+        if rank == 0:
+            path = os.path.join(tmp, f"fed_{tag}.json")
+            with open(path + ".tmp", "w") as f:
+                json.dump({"out": buf.getvalue(), "s": secs}, f)
+            os.replace(path + ".tmp", path)
+
+
+def fed_rank_out(tmp: str, label: str, card: str, launch) -> str:
+    """Wait for the ranks' run ``label`` (``federation_in_ranks``) and log
+    its lines as a CLI's. Returns its stdout."""
+    path = os.path.join(tmp, f"fed_{_tag(label)}.json")
+    _wait_for(path, f"the ranks' {label}", timeout=ZP_LIMIT, launch=launch)
+    with open(path) as f:
+        got = json.load(f)
+    argv = dict(fed_rank_runs(tmp))[label]
+    for line in got["out"].strip().splitlines():
+        log(f"{label} CLI: {line}")
+    log(f"{label} CLI: main({' '.join(argv)}) in phase 14's 4 ranks: "
+        f"{got['s']:.1f} s on rank 0 (its world's start, the init, the "
+        f"steps and the checkpoints); {card}")
+    return got["out"]
 
 
 def _ckpt_params(path: str, step: int) -> list:
@@ -3643,16 +3765,12 @@ def _ulps(a, b, before) -> tuple:
     return int((d > 0).sum()), float((d / step).max())
 
 
-def run_federation_trainer(dev, card, tmp):
-    """13b: the trainer CLI under ``torchrun`` with 4 ranks on the card
-    (gloo), ``--steps 2 --ckpt-every 1 --check-replicas``: s per step,
-    the all-reduce's and the broadcast's share (CUDA events), peak memory
-    per rank, the loss finite, the ranks' parameters bit-identical.
-    Returns what ``check_federation_trainer`` holds it against."""
-    ck = os.path.join(tmp, "b")
-    out = run_torchrun("13b", FED_U, FED_CLI + [
-        "--steps", str(FED_STEPS), "--ckpt-dir", ck, "--ckpt-every", "1",
-        "--check-replicas"], card)
+def federation_trainer_steps(out: str, card: str) -> list:
+    """13b: the trainer CLI in 4 ranks on the card (gloo), ``--steps 2
+    --ckpt-every 1 --check-replicas``: s per step, the all-reduce's and
+    the broadcast's share (CUDA events), peak memory per rank, the loss
+    finite, the ranks' parameters bit-identical. Returns the steps'
+    matches, what ``check_federation_trainer`` holds it against."""
     steps = [FED_STEP.search(ln) for ln in out.splitlines()]
     steps = [m for m in steps if m]
     if len(steps) != FED_STEPS or not all(
@@ -3668,7 +3786,7 @@ def run_federation_trainer(dev, card, tmp):
             f"of the step), broadcast {m.group(6)} MB in {bc:.1f} ms "
             f"({100 * bc / (1e3 * s):.1f}%; the wait for the PS's decode "
             f"included); {card}")
-    return ck, steps
+    return steps
 
 
 def check_federation_trainer(dev, card, ck, steps) -> None:
@@ -3826,47 +3944,53 @@ def check_federation_nccl(dev, ck) -> None:
         f"in all {len(mine)} parameter leaves")
 
 
-def run_federation_phase(dev, card: str) -> dict:
+def run_federation_phase(dev, card: str, started: dict, beside=None):
     """Phase 13, the federation over processes on the one card (13a-13d
-    above). What is not timed shares the card: 13c's stopped run and
-    13d's world of one run beside 13a, 13c's resumed run beside the
-    in-process checks of 13b and 13d; 13b and 13c's uninterrupted run,
-    whose times are reported, run alone. Returns the in-process checks'
-    launch counts (all 0)."""
-    import tempfile
+    above). 13a and 13d are launches of their own (``torchrun``); 13b and
+    13c's three runs are made by phase 14's launch ``started``, whose 4
+    ranks are up and idle by then (``federation_in_ranks``), each on its
+    go. What is not timed shares the card: 13c's stopped run and its
+    resume beside 13a, 13d, this process's check of 13d and
+    ``beside()``; 13b, then this process's check of it, then 13c's
+    uninterrupted run, whose times are reported, run alone. Returns (the
+    in-process checks' launch counts, all 0; what ``beside()``
+    returned)."""
+    import shutil
 
     from repro_torch.kernels import build
 
     t_phase = time.perf_counter()
     torch.cuda.empty_cache()
+    tmp, h = started["tmp"].name, started["launch"]
+    ck = fed_ckpts(tmp)
+    nccl = start_torchrun("13d", 1, FED_CLI + [
+        "--steps", "1", "--ckpt-dir", ck["d"]])
+    _go(tmp, "13c stopped")
+    _go(tmp, "13c resumed")
+    run_torchrun("13a", FED_U, [os.path.join(ROOT, "chip_smoke.py"),
+                                "--federation-rank"], card)
+    got = beside() if beside is not None else None
+    if "world: 1 workers over nccl" not in finish_cli(nccl, card):
+        fail("13d: the world of one did not run over NCCL")
     build.reset_launch_counts()
-    scan = FED_CLI + ["--scan-rounds", "2"]
-    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
-        ck = {r: os.path.join(tmp, r) for r in ("whole", "stopped", "d")}
-        stopped = start_torchrun("13c stopped", FED_U, scan + [
-            "--steps", "2", "--ckpt-dir", ck["stopped"]])
-        nccl = start_torchrun("13d", 1, FED_CLI + [
-            "--steps", "1", "--ckpt-dir", ck["d"]])
-        run_torchrun("13a", FED_U, [os.path.join(ROOT, "chip_smoke.py"),
-                                    "--federation-rank"], card)
-        if "world: 1 workers over nccl" not in finish_cli(nccl, card):
-            fail("13d: the world of one did not run over NCCL")
-        outs = {"stopped": finish_cli(stopped, card)}
-        b_ck, b_steps = run_federation_trainer(dev, card, tmp)
-        resumed = start_torchrun("13c resumed", FED_U, scan + [
-            "--steps", "4", "--ckpt-dir", ck["stopped"], "--resume"])
-        check_federation_trainer(dev, card, b_ck, b_steps)
-        check_federation_nccl(dev, ck["d"])
-        outs["resumed"] = finish_cli(resumed, card)
-        ck["resumed"] = ck["stopped"]
-        outs["whole"] = run_torchrun("13c whole", FED_U, scan + [
-            "--steps", "4", "--ckpt-dir", ck["whole"], "--check-replicas"],
-            card)
-        check_federation_scan(outs, ck)
+    check_federation_nccl(dev, ck["d"])
     counts = build.launch_counts()
+    outs = {r: fed_rank_out(tmp, f"13c {r}", card, h)
+            for r in ("stopped", "resumed")}
+    _go(tmp, "13b")
+    b_steps = federation_trainer_steps(fed_rank_out(tmp, "13b", card, h),
+                                       card)
+    build.reset_launch_counts()
+    check_federation_trainer(dev, card, ck["b"], b_steps)
+    counts = {k: v + counts[k] for k, v in build.launch_counts().items()}
+    _go(tmp, "13c whole")
+    outs["whole"] = fed_rank_out(tmp, "13c whole", card, h)
+    ck["resumed"] = ck["stopped"]
+    check_federation_scan(outs, ck)
+    shutil.rmtree(os.path.join(tmp, "fed"))
     expect_counts("federation (13)", counts, {}, 0)
     log(f"federation: phase 13 took {time.perf_counter() - t_phase:.1f} s")
-    return counts
+    return counts, got
 
 # -- phase 14 -----------------------------------------------------------------
 
@@ -3968,6 +4092,7 @@ def zoo_rank_surrogate(dev, mesh, tmp, say) -> dict:
     in-turn rows' checksums. Returns its launch counts."""
     from repro_torch.dist import collectives as coll
     from repro_torch.kernels import build
+    held = torch.cuda.memory_allocated(dev)      # what earlier phases left
     zr = zoo_surrogate_round(dev, mesh)
     d, m = zr.cell
     t_start = time.perf_counter()
@@ -4009,10 +4134,12 @@ def zoo_rank_surrogate(dev, mesh, tmp, say) -> dict:
         f"{({k: v for k, v in counts.items() if v})} = {ZP_ROUNDS} x "
         f"{per_round}")
     peak = coll.all_gather(torch.tensor(
-        [torch.cuda.max_memory_allocated(dev)], device=dev), mesh.world,
-        tiled=True)
-    say("14a: peak memory by rank (GiB): " + ", ".join(
-        f"{v / 2**30:.2f}" for v in peak.tolist())
+        [torch.cuda.max_memory_allocated(dev) - held, held], device=dev),
+        mesh.world)
+    say("14a: peak memory by rank over what the rank held before 14a "
+        "(GiB): " + ", ".join(f"{v / 2**30:.2f}" for v, _ in peak.tolist())
+        + "; held before 14a, left by phases 17 and 13 (MiB): "
+        + ", ".join(f"{h / 2**20:.1f}" for _, h in peak.tolist())
         + f"; {time.perf_counter() - t_start:.1f} s from the oracle's file")
     del params
     torch.cuda.empty_cache()
@@ -4711,11 +4838,13 @@ def run_serve_moe_phase(dev, card: str, started: dict) -> dict:
 
 
 def zoo_rank() -> None:
-    """Phases 14, 15 and 16 in each rank that ``torchrun`` starts
-    (``chip_smoke.py --zoo-rank DIR``): 14a, 14c and 15 in a world of the
-    2 x 2 mesh, then 14b, 16a and 16b through the trainer's CLI
-    (``main(argv)``, which joins and leaves its own world each time). Each rank writes its launch counts to DIR;
-    rank 0 prints. Exits 1 on a mismatch."""
+    """Phases 17, 13 and 14-16 in each rank that ``torchrun`` starts
+    (``chip_smoke.py --zoo-rank DIR``): 17 in a world of its own, beside
+    the parent's CLI groups; 13b and 13c through the trainer's CLI; then
+    14a, 14c and 15 in a world of the 2 x 2 mesh, then 14b, 16a and 16b through the trainer's CLI
+    (``main(argv)``, which joins and leaves its own world each time).
+    Each rank writes its launch counts to DIR; rank 0 prints. Exits 1 on
+    a mismatch."""
     sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch.kernels import build
     from repro_torch.launch import train
@@ -4723,7 +4852,12 @@ def zoo_rank() -> None:
 
     tmp = sys.argv[2]
     rank = int(os.environ["RANK"])
-    # started with the script: wait, imports done, for the parent's go
+    counts = {}
+    # started with the script: phase 17 beside the CLI groups once the
+    # parent's grid is on disk (its data loaded while we wait), phase
+    # 13's runs on their goes, then wait for 14a's oracle
+    sweep_procs_rank(tmp, rank, counts)
+    federation_in_ranks(tmp, rank)
     _wait_for(os.path.join(tmp, "oracle_14a.pt"), "14a's oracle",
               timeout=ZP_LIMIT)
     mesh, dev = join_world(model_parallel=ZP_M, init_method="file://"
@@ -4733,8 +4867,7 @@ def zoo_rank() -> None:
         if rank == 0:
             log(msg)
 
-    counts = {"zoo_procs_surrogate": zoo_rank_surrogate(dev, mesh, tmp,
-                                                        say)}
+    counts["zoo_procs_surrogate"] = zoo_rank_surrogate(dev, mesh, tmp, say)
     t0 = time.perf_counter()
     zoo_rank_decode(dev, mesh, tmp, say)
     say(f"14c: {time.perf_counter() - t0:.1f} s")
@@ -4792,9 +4925,11 @@ def zoo_train_oracle(dev):
 
 def start_zoo_procs() -> dict:
     """Start phase 14's 4-rank launch (``zoo_rank``) with the script:
-    the ranks start up (imports, ~25 s of a launch) while the kernels
-    build, then sleep until ``run_zoo_procs_phase`` writes 14a's oracle
-    file; they join their world and touch the card only then."""
+    the ranks start up (imports, ~25 s of a launch) and load phase 17's
+    data while the kernels build, then sleep until phase 17's go (after
+    phase 12); they touch the card only then, run 17, then phase 13's
+    trainer runs on their goes (``federation_in_ranks``), and sleep
+    again until ``run_zoo_procs_phase`` writes 14a's oracle file."""
     import tempfile
     tmp = tempfile.TemporaryDirectory(dir=ROOT)
     h = start_torchrun("14", ZP_W * ZP_M, [
@@ -4802,11 +4937,24 @@ def start_zoo_procs() -> dict:
     return {"tmp": tmp, "launch": h}
 
 
-def run_zoo_procs_phase(dev, card: str, started: dict) -> dict:
-    """Phase 14 on the launch ``start_zoo_procs`` started. The parent
-    writes 10a's prompt state for 14c, computes 14a's in-turn checksums
-    (the ranks' signal to go), stays idle while the ranks run 14a and
-    14c (timed alone), runs 14b's in-turn rounds 0-2 beside the ranks'
+def zoo_procs_prepare(dev, tmp: str) -> dict:
+    """What phase 14 holds its ranks against, made beforehand (beside
+    13a, 13d and 13c's stopped and resumed runs): 15b's and 15c's one-process decodes
+    (``serve_oracles``) and 14a's in-turn checksums, written where
+    ``run_zoo_procs_phase`` moves them into the ranks' sight."""
+    path = os.path.join(tmp, "oracle_14a.next.pt")
+    out = {"serve": serve_oracles(dev), "oracle_14a": path}
+    zoo_procs_oracle(dev, path)
+    return out
+
+
+def run_zoo_procs_phase(dev, card: str, started: dict,
+                        prepared: dict) -> dict:
+    """Phase 14 on the launch ``start_zoo_procs`` started, with the
+    oracles ``zoo_procs_prepare`` made. The parent writes 10a's prompt
+    state for 14c, moves 14a's in-turn checksums where the ranks wait
+    for them (their signal to go), stays idle while the ranks run 14a
+    and 14c (timed alone), runs 14b's in-turn rounds 0-2 beside the ranks'
     14b, then holds: 14c's tokens and logits against 10a's one-process
     decode, the ranks' 14b checkpoint against the in-turn carry after
     round 1 (bit for bit), and round 2 from that checkpoint against the
@@ -4814,7 +4962,7 @@ def run_zoo_procs_phase(dev, card: str, started: dict) -> dict:
     oracles (``split_train_oracles``) once its 14b rounds are done, which
     wake the ranks' 16a and 16b, then their gates (``check_split_train``)
     once the launch has ended. Returns the ranks' summed launch counts by
-    path."""
+    path (phase 17's, run earlier in the launch, included)."""
     import gc
 
     from repro_torch import tree
@@ -4828,8 +4976,9 @@ def run_zoo_procs_phase(dev, card: str, started: dict) -> dict:
         torch.save({"first": oracle["first"], "seeds": oracle["seeds"]},
                    path + ".tmp")
         os.replace(path + ".tmp", path)
-        serve_want = serve_oracles(dev)
-        zoo_procs_oracle(dev, os.path.join(tmp, "oracle_14a.pt"))
+        serve_want = prepared["serve"]
+        os.replace(prepared["oracle_14a"], os.path.join(tmp,
+                                                        "oracle_14a.pt"))
         _wait_for(os.path.join(tmp, "done_15"),
                   "the ranks' 14a, 14c and 15", launch=h)
         t15 = time.perf_counter()
@@ -4892,7 +5041,8 @@ def run_zoo_procs_phase(dev, card: str, started: dict) -> dict:
     torch.cuda.empty_cache()
     paths = {p: {k: sum(c[p][k] for c in counts) for k in counts[0][p]}
              for p in ("zoo_procs_surrogate", "zoo_procs_train",
-                       "serve_split", "split_16a", "split_16b")}
+                       "serve_split", "split_16a", "split_16b",
+                       "sweep_procs")}
     expect_counts("serve split (15)", paths["serve_split"], {}, 0)
     log(f"zoo over processes: phase 14 took "
         f"{time.perf_counter() - t_phase:.1f} s")
@@ -5261,6 +5411,335 @@ def split_rows_witness(dev, tcfg) -> None:
         "alone against the whole product's: " + "; ".join(out))
 
 
+# -- phase 17 -----------------------------------------------------------------
+
+# the §V sweep's arm axis over processes: fig5's grid (benchmarks/
+# fig5_noise.py:15-17: 4 σ² x seeds 0-2 = 12 arms, 100 rounds) with
+# benchmarks/common.py:58-81's settings (U = 10 x K = 3000, scheduler
+# ``all``, eval every 20, BIHT 25) in scan mode on phase 6's data and
+# weights, in phase 14's launch before 13: (17a) over world_mesh(1), 3 arms
+# a rank, (17b) over world_mesh(2), 6 arms a worker group replicated over
+# its model group, (17c) resumed across world sizes, 1 -> 4 and 4 -> 1
+P17_NV, P17_SEEDS = [1e-6, 1e-4, 1e-2, 1.0], [0, 1, 2]
+P17_ROUNDS, P17_EVAL = 100, 20
+P17_RANKS = 4
+P17_RUNS = (("17a", 1, "ck17a", False), ("17b", 2, "ck17b", False),
+            ("17c", 1, "ck17_from1", True))
+P17_STREAMS = ("n_scheduled", "b_t", "rt_bound", "eval_rounds", "loss",
+               "accuracy")
+
+
+def sweep17_engine(dev, task: Task):
+    """(EngineRun, Arms) of phase 17's grid: arm i = (σ² of
+    P17_NV[i // 3], seed i % 3), as fig5_noise.py lays them out."""
+    from repro_torch.engine import EngineRun, FLConfig, make_arms
+    cfg = FLConfig(aggregator="obcsaa", rounds=P17_ROUNDS,
+                   eval_every=P17_EVAL, seed=0, mode="scan",
+                   obcsaa=task.obcsaa(biht_iters=SWEEP_ITERS),
+                   topk_dense=1000)
+    run = EngineRun(cfg, task.loss_fn, task.params0, task.data,
+                    task.k_weights(), eval_fn=task.eval_fn, device=dev)
+    return run, make_arms(cfg, seeds=P17_SEEDS * len(P17_NV),
+                          noise_var=[nv for nv in P17_NV
+                                     for _ in P17_SEEDS])
+
+
+def plain_sweep(res) -> dict:
+    """A ``run_sweep`` result as tensors on the CPU, what the ranks and
+    this process exchange through files: the streams, the budget's
+    fields, ``t_start`` and every arm's carry leaves (the generator's
+    state in the generator's place)."""
+    from repro_torch import tree
+    from repro_torch.engine.state import with_generator_state
+    out = {k: torch.from_numpy(np.array(res[k])) for k in P17_STREAMS}
+    out["budget"] = [torch.from_numpy(np.array(b)) for b in res["budget"]]
+    out["t_start"] = res["t_start"]
+    out["state"] = [[x.detach().cpu() for x in tree.leaves(
+        with_generator_state(s))] for s in res["state"]]
+    return out
+
+
+def plain_diffs(got: dict, want: dict) -> list:
+    """What differs, bit for bit, between two ``plain_sweep``s; a resumed
+    ``got`` is held to the tail of the uninterrupted ``want``."""
+    def tail(x, n):
+        return x[..., x.shape[-1] - n:]
+
+    n, e = got["n_scheduled"].shape[-1], got["eval_rounds"].shape[-1]
+    bad = [k for k in P17_STREAMS if not torch.equal(
+        got[k], tail(want[k], e if k in ("eval_rounds", "loss", "accuracy")
+                     else n))]
+    bad += [f"budget.{i}" for i, (g, w) in enumerate(zip(got["budget"],
+                                                        want["budget"]))
+            if not torch.equal(g, tail(w, n))]
+    if len(got["state"]) != len(want["state"]):
+        bad.append(f"{len(got['state'])} arms, not {len(want['state'])}")
+    bad += [f"carry of arm {a}" for a, (g, w) in enumerate(
+        zip(got["state"], want["state"]))
+        if len(g) != len(w) or not all(torch.equal(x, y)
+                                       for x, y in zip(g, w))]
+    return bad
+
+
+def _cut_after_middle(src: str, dst: str) -> tuple:
+    """Copy the checkpoint ``src`` to ``dst`` and delete its steps past
+    the middle boundary. Returns (the steps of ``src``, the kept one)."""
+    import shutil
+    from repro_torch import checkpoint
+    steps = sorted(int(n.split("_")[1]) for n in os.listdir(src))
+    mid = steps[(len(steps) - 1) // 2]
+    shutil.copytree(src, dst)
+    for n in steps:
+        if n > mid:
+            shutil.rmtree(checkpoint.step_dir(dst, n))
+    return steps, mid
+
+
+def sweep_procs_rank(tmp, rank: int, counts: dict) -> None:
+    """Phase 17 on this rank, once the parent's one-process grid is on
+    disk (``go_17``): a world of 4 ranks (its own file store), then 17a
+    over ``world_mesh(1)`` with a checkpoint at every boundary, 17b over
+    ``world_mesh(2)`` (its saves check the model group's replicas), 17c
+    the one-process checkpoint cut after its middle boundary resumed over
+    ``world_mesh(1)``: each rank's whole result against the one-process
+    grid, bit for bit, its launches against 27/1/25/26 an arm-round (the
+    warm-up rounds counted), its seconds (host clock, from a barrier),
+    the gathers' and the replica checks' MB, ms and calls, save ms; the
+    peak memory. Written to ``sweep17_RANK.json``; the card's cache is
+    emptied after. The data's host arrays load before the wait
+    (``mnist_arrays``, ~7 s of host work)."""
+    import gc
+
+    from repro_torch.dist import collectives as coll
+    from repro_torch.dist.sharding import batch_indices
+    from repro_torch.engine import RoundGraph
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import join_world, leave_world, world_mesh
+    mnist_arrays()
+    _wait_for(os.path.join(tmp, "go_17"), "phase 17's one-process grid",
+              timeout=ZP_LIMIT)
+    dev = torch.device("cuda", int(os.environ["LOCAL_RANK"])
+                       % torch.cuda.device_count())
+    with contextlib.redirect_stdout(io.StringIO()):
+        task = Task(dev)
+    mesh, dev = join_world(model_parallel=1, init_method="file://"
+                           + os.path.join(tmp, "store_17"))
+    meshes = {1: mesh, 2: world_mesh(2)}
+    want = torch.load(os.path.join(tmp, "oracle_17.pt"))
+    A = len(P17_NV) * len(P17_SEEDS)
+    res = {}
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated(dev)
+    for label, M, ck, resume in P17_RUNS:
+        run, arms = sweep17_engine(dev, task)
+        coll.barrier(mesh.world)
+        coll.reset_counters()
+        build.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = run.run_sweep(arms, ckpt_dir=os.path.join(tmp, ck),
+                            resume=resume, mesh=meshes[M])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = build.launch_counts()
+        st = coll.stats()
+        coll.barrier(mesh.world)
+        wall = time.perf_counter() - t0
+        got = plain_sweep(out)
+        own = batch_indices(A, meshes[M])
+        res[label] = {
+            "diffs": plain_diffs(got, want), "t_start": out["t_start"],
+            "own": list(own), "s": secs, "wall_s": wall,
+            "launches": launches,
+            "want": {k: SWEEP_PER_ROUND.get(k, 0) * len(own)
+                     * (RoundGraph.WARMUP + P17_ROUNDS - out["t_start"])
+                     for k in launches},
+            "boundaries": len(run.save_s),
+            "save_ms": [1e3 * x for x in run.save_s],
+            "coll": {k: [st["bytes"].get(k, 0), st["ms"].get(k, 0.0),
+                         st["calls"].get(k, 0)] for k in st["calls"]}}
+        if label == "17a":
+            counts["sweep_procs"] = launches
+        del run, out, got
+        torch.cuda.empty_cache()
+        res[label]["held_after"] = torch.cuda.memory_allocated(dev)
+    res["peak"] = torch.cuda.max_memory_allocated(dev) - base
+    res["done"] = time.time()
+    leave_world()
+    del task, meshes, want
+    gc.collect()                # what reference cycles still hold
+    torch.cuda.empty_cache()
+    res["base"] = base
+    res["held_after"] = torch.cuda.memory_allocated(dev)
+    path = os.path.join(tmp, f"sweep17_{rank}.json")
+    with open(path + ".tmp", "w") as f:
+        json.dump(res, f)
+    os.replace(path + ".tmp", path)
+
+
+def sweep_procs_oracle(dev, tmp, task: Task) -> dict:
+    """Phase 17's grid in this process, before the ranks' go: 12 arms x
+    100 rounds in scan mode with a checkpoint at every boundary, timed;
+    its launches, its loss falling in the σ² ≤ 1e-2 arms and finite in
+    all; the result to ``oracle_17.pt`` and the checkpoint cut after its
+    middle boundary to ``ck17_from1`` (17c's 1 -> 4); then ``go_17``."""
+    from repro_torch.engine import RoundGraph
+    from repro_torch.kernels import build
+    run, arms = sweep17_engine(dev, task)
+    A = len(P17_NV) * len(P17_SEEDS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    build.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = run.run_sweep(arms, ckpt_dir=os.path.join(tmp, "ck17_one"))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    expect_counts("17 one process", build.launch_counts(), SWEEP_PER_ROUND,
+                  A * (RoundGraph.WARMUP + P17_ROUNDS))
+    peak = torch.cuda.max_memory_allocated() - base
+    loss = res["loss"]
+    if not (np.isfinite(loss).all() and np.isfinite(res["rt_bound"]).all()):
+        fail("17: a loss or rt_bound of the one-process grid is not finite")
+    low = np.asarray(arms.noise_var) <= 1e-2
+    if not (loss[low, -1] < task.loss0).all():
+        fail(f"17: the loss did not fall in every σ² ≤ 1e-2 arm "
+             f"({task.loss0} -> {loss[:, -1].tolist()})")
+    want = plain_sweep(res)
+    steps, mid = _cut_after_middle(os.path.join(tmp, "ck17_one"),
+                                   os.path.join(tmp, "ck17_from1"))
+    path = os.path.join(tmp, "oracle_17.pt")
+    torch.save(want, path + ".tmp")
+    os.replace(path + ".tmp", path)
+    open(os.path.join(tmp, "go_17"), "w").close()
+    t_go = time.time()
+    log(f"17 one process: {A} arms x {P17_ROUNDS} rounds (fig5's grid, "
+        f"scan) in {secs:.3f} s, captures and saves included = "
+        f"{secs * 1e3 / (A * P17_ROUNDS):.3f} ms per arm-round; save ms "
+        "per boundary " + ", ".join(f"{x * 1e3:.1f}" for x in run.save_s)
+        + f"; peak {peak / 2**20:.1f} MiB over what this process held "
+        "before; final loss by σ² "
+        + "; ".join(f"{nv:g}: " + ", ".join(
+            f"{v:.4f}" for v in loss[i * 3:(i + 1) * 3, -1])
+            for i, nv in enumerate(P17_NV))
+        + f"; steps saved {steps}, 17c cuts after {mid}")
+    del run, res
+    torch.cuda.empty_cache()
+    return {"want": want, "steps": steps, "mid": mid, "secs": secs,
+            "go": t_go}
+
+
+def run_sweep_procs_phase(dev, card: str, tmp, task: Task, launch,
+                          oracle: dict, beside: str = "") -> None:
+    """Phase 17's parent once ``sweep_procs_oracle`` gave the ranks their
+    go: each rank's verdicts and numbers (``sweep17_RANK.json``): 17a,
+    17b and 17c's 1 -> 4 bit for bit, K1-K4 launched in every rank as
+    counted; then 4 -> 1: 17a's checkpoint, which world rank 0 wrote at
+    every boundary, cut after its middle boundary and resumed here, bit
+    for bit the uninterrupted grid. ``beside``: what shared the card with
+    the ranks' runs, for the log."""
+    from repro_torch.engine import RoundGraph
+    for r in range(P17_RANKS):
+        _wait_for(os.path.join(tmp, f"sweep17_{r}.json"),
+                  f"rank {r}'s phase 17", timeout=ZP_LIMIT, launch=launch)
+    ranks = [json.load(open(os.path.join(tmp, f"sweep17_{r}.json")))
+             for r in range(P17_RANKS)]
+    for label, M, _, _ in P17_RUNS:
+        for r, res in enumerate(ranks):
+            got = res[label]
+            if got["diffs"]:
+                fail(f"{label} rank {r}: the sweep over processes differs "
+                     f"from the one-process grid in {got['diffs']}")
+            if got["launches"] != got["want"]:
+                fail(f"{label} rank {r}: launches {got['launches']} != "
+                     f"{got['want']}")
+            if not all(got["launches"][k] for k in (
+                    "topk_select", "cs_project", "cs_project_resid",
+                    "backproject")):
+                fail(f"{label} rank {r}: K1-K4 did not all launch")
+        r0 = ranks[0][label]
+        gath = [res[label]["coll"].get("all_gather_arms", [0, 0.0, 0])
+                for res in ranks]
+        chk = [res[label]["coll"].get("broadcast", [0, 0.0, 0])
+               for res in ranks]
+        log(f"{label}: world_mesh({M}), arms by rank "
+            + ", ".join(f"{res[label]['own'][0]}-{res[label]['own'][-1]}"
+                        for res in ranks)
+            + f", from round {r0['t_start']}: every rank's whole result ≡ "
+            f"the one-process grid bit for bit (streams, budget, every arm's"
+            f" carry, generator states included); s by rank (host clock, "
+            f"from a barrier, captures and saves included"
+            + (f", beside {beside}" if beside else "") + ") "
+            + ", ".join(f"{res[label]['s']:.3f}" for res in ranks)
+            + f", {max(res[label]['wall_s'] for res in ranks):.3f} to the "
+            f"last rank's barrier; gathers ({gath[0][2]} calls: one a "
+            f"boundary, then the final carries) "
+            f"{gath[0][0] / max(gath[0][2], 1) / 2**20:.3f} MB a call, ms "
+            "a call by rank "
+            + ", ".join(f"{g[1] / max(g[2], 1):.2f}" for g in gath)
+            + f"; replica checks (broadcast) "
+            f"{chk[0][0] / 2**20:.3f} MB in {chk[0][2]} calls, "
+            f"{chk[0][1]:.1f} ms on rank 0; save ms on rank 0 "
+            + ", ".join(f"{x:.1f}" for x in r0["save_ms"])
+            + f"; launches on rank 0 {r0['launches']} = {len(r0['own'])} "
+            f"arms x ({RoundGraph.WARMUP} + {P17_ROUNDS - r0['t_start']}) "
+            f"x {SWEEP_PER_ROUND}")
+    log("17: peak by rank over what it held before 17a (MiB) " + ", ".join(
+        f"{res['peak'] / 2**20:.1f}" for res in ranks)
+        + "; allocated by rank (MiB) before 17a "
+        + ", ".join(f"{res['base'] / 2**20:.1f}" for res in ranks)
+        + ", after each run "
+        + "; ".join(", ".join(f"{res[label]['held_after'] / 2**20:.1f}"
+                              for res in ranks) for label, *_ in P17_RUNS)
+        + ", after the phase "
+        + ", ".join(f"{res['held_after'] / 2**20:.1f}" for res in ranks)
+        + f"; {card}")
+    # 4 -> 1: 17a's checkpoint, cut after its middle boundary, here
+    run, arms = sweep17_engine(dev, task)
+    steps, mid = _cut_after_middle(os.path.join(tmp, "ck17a"),
+                                   os.path.join(tmp, "ck17_from4"))
+    if steps != oracle["steps"]:
+        fail(f"17a: world rank 0 saved steps {steps}, the one-process grid "
+             f"{oracle['steps']}")
+    t0 = time.perf_counter()
+    out = run.run_sweep(arms, ckpt_dir=os.path.join(tmp, "ck17_from4"),
+                        resume=True)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    if out["t_start"] != mid:
+        fail(f"17c 4 -> 1: resumed at {out['t_start']}, not {mid}")
+    bad = plain_diffs(plain_sweep(out), oracle["want"])
+    if bad:
+        fail(f"17c 4 -> 1: the resumed sweep differs from the uninterrupted "
+             f"grid in {bad}")
+    log(f"17c: 1 -> 4 (the one-process checkpoint at step {mid} resumed by "
+        f"the 4 ranks) and 4 -> 1 (17a's, resumed here in {secs:.3f} s) ≡ "
+        f"the uninterrupted grid bit for bit; the ranks' 17 ended "
+        f"{max(res['done'] for res in ranks) - oracle['go']:.1f} s after "
+        "their go")
+    del run, out
+    torch.cuda.empty_cache()
+
+
+def sweep_procs_alone() -> None:
+    """Phase 17 alone (``chip_smoke.py --sweep-procs``): its own 4-rank
+    launch (``--sweep-procs-rank DIR``), the parent's grid, the gates."""
+    import tempfile
+    if sys.argv[1] == "--sweep-procs-rank":
+        sweep_procs_rank(sys.argv[2], int(os.environ["RANK"]), {})
+        return
+    card, dev = banner(), torch.device("cuda")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        h = start_torchrun("17", P17_RANKS, [
+            os.path.join(ROOT, "chip_smoke.py"), "--sweep-procs-rank", tmp])
+        build_kernels()
+        task = Task(dev)
+        run_sweep_procs_phase(dev, card, tmp, task, h,
+                              sweep_procs_oracle(dev, tmp, task))
+        finish_cli(h, card, limit=ZP_LIMIT)
+    log(f"phase 17 alone: {time.perf_counter() - t0:.1f} s; {card}")
+
+
 SOURCES = {
     "topk_select": ("src/repro_torch/kernels/csrc/topk_select.cu",
                     "src/repro/kernels/topk_select.py:23"),
@@ -5302,6 +5781,11 @@ def main() -> None:
         sys.path.insert(0, os.path.join(ROOT, "src"))
         split_train_alone()
         return
+    if sys.argv[1:2] in (["--sweep-procs"], ["--sweep-procs-rank"]):
+        sys.path.insert(0, os.path.join(ROOT, "src"))
+        sweep_procs_alone()
+        return
+    t_script = time.perf_counter()
     src = os.path.join(ROOT, "src")
     if not os.path.isdir(os.path.join(src, "repro_torch")):
         fail(f"no src/repro_torch beside {__file__}: run from a checkout")
@@ -5340,9 +5824,16 @@ def main() -> None:
     paths["serve_moe_split"] = run_serve_moe_phase(dev, card, moe_procs)
     paths["families"] = run_families_phase(dev, card)
     paths.update(run_zoo_phase(dev, card, results))
+    # phase 17: the grid here, then the zoo launch's ranks beside the CLIs
+    grid17 = sweep_procs_oracle(dev, zoo_procs["tmp"].name, task)
     run_cli_groups(card)
-    paths["federation"] = run_federation_phase(dev, card)
-    paths.update(run_zoo_procs_phase(dev, card, zoo_procs))
+    run_sweep_procs_phase(dev, card, zoo_procs["tmp"].name, task,
+                          zoo_procs["launch"], grid17,
+                          beside="the CLI groups of phases 9-12")
+    paths["federation"], prepared = run_federation_phase(
+        dev, card, zoo_procs, beside=lambda: zoo_procs_prepare(
+            dev, zoo_procs["tmp"].name))
+    paths.update(run_zoo_procs_phase(dev, card, zoo_procs, prepared))
     kernels = []
     for name, r in results.items():
         source, replaces = SOURCES[name]
@@ -5367,6 +5858,8 @@ def main() -> None:
                 **{k: v for k, v in r.items() if k.startswith(
                     ("ms_serve_", "plain_ms_serve_", "bound_ms_serve_"))}}
                if name == "prefix_eval" else {})})
+    log(f"the whole script: {time.perf_counter() - t_script:.1f} s of the "
+        "1,200 it may take")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

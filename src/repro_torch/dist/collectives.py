@@ -29,6 +29,10 @@ the host clock otherwise);
 given (``name_group``; ``launch.mesh.world_mesh`` names its "data" and
 "model" groups); ``reset_counters()`` sets everything to 0.
 
+A sweep's arms over the worker group (``engine/runner.py``) add
+``gather_rows``, every rank's rows of a list of leaves of any dtypes in
+one all-gather of their bytes, and ``barrier``.
+
 The serving path's tensor parallelism (``models/tensor_parallel.py``)
 adds two: ``psum_``, a forward-only sum in place (no copy, no autograd),
 and ``argmax_split``, the greedy pick over a vocabulary whose columns
@@ -240,6 +244,34 @@ def _gather(x: torch.Tensor, group, kind: str = "all_gather"
     with _Count(kind, x, group):
         dist.all_gather(out, wire, group=group)
     return [o.view(x.dtype) for o in out]
+
+
+def barrier(group) -> None:
+    """Wait for every rank of the group (no group: return)."""
+    if group is not None:
+        dist.barrier(group=group)
+
+
+def gather_rows(leaves, group, *, kind: str = "all_gather_rows") -> list:
+    """Each leaf (n, ...), n ≥ 1, of every rank of the group concatenated along
+    dim 0 in rank order, (n·R, ...): the leaves' bytes travel in one
+    all-gather, so their dtypes may differ (complex, uint8, bool) and
+    the bits come back as they were. Every rank must pass leaves of the
+    same shapes and dtypes, on one device that the group's backend takes
+    (the CPU for gloo). No group: the leaves."""
+    leaves = [x.contiguous() for x in leaves]
+    if group is None or not leaves:
+        return leaves
+    parts = [x.reshape(-1).view(torch.uint8) for x in leaves]
+    every = _gather(torch.cat(parts), group, kind)
+    out, off = [], 0
+    for x, p in zip(leaves, parts):
+        n = p.numel()
+        # a copy: a slice at an odd byte offset cannot be viewed as x's type
+        out.append(torch.cat([b[off:off + n].clone().view(x.dtype)
+                              .reshape(x.shape) for b in every]))
+        off += n
+    return out
 
 
 def argmax_split(x: torch.Tensor, group) -> torch.Tensor:

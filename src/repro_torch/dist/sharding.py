@@ -15,6 +15,11 @@ of names, or None; ``()`` replicates (the reference's ``P()``).
   model axis; worker axes are never used, every FL worker holds the
   whole model. Leaves under a ``STACKED_KEYS`` collection keep their
   leading dim (the layer axis) whole.
+- ``infer_batch_sharding(tree, mesh)``: a sweep's (A, ...)-stacked
+  leaves split along the arm axis over the worker axes where A divides
+  their product W, replicated where it does not; ``batch_indices(A,
+  mesh)`` the arms one rank holds under it (worker d the block
+  ``[d·A/W, (d+1)·A/W)``, every arm when replicated or in one process).
 - ``local_shape(shape, spec, mesh)``: the block of a leaf one rank holds
   under a spec (each dim over the product of the sizes of its axes);
   ``spec_bytes`` the bytes a rank holds of a tree of leaves (the product
@@ -24,6 +29,8 @@ of names, or None; ``()`` replicates (the reference's ``P()``).
 from __future__ import annotations
 
 from typing import Sequence
+
+import torch
 
 from repro_torch import tree
 
@@ -82,6 +89,39 @@ def best_spec(shape: Sequence[int], hints, mesh) -> tuple:
         else:
             parts.append(None)
     return tuple(parts)
+
+
+def infer_batch_sharding(t, mesh, *, dim: int = 0):
+    """Spec pytree for an (A, ...)-stacked sweep carry or ``Arms``: dim
+    ``dim`` of every leaf over the worker axes (``best_spec``'s ``data``
+    hint, ``("pod", "data")`` on a 3-axis mesh) when the arm count
+    divides, replicated (``()``) otherwise; leaves without that dim
+    replicate. Arms share nothing, so either layout is correct."""
+    def spec_of(keys, leaf):
+        shape = tuple(getattr(leaf, "shape", ()))
+        if len(shape) <= dim:
+            return ()
+        hints = [None] * len(shape)
+        hints[dim] = "data"
+        return best_spec(shape, hints, mesh)
+
+    return _rebuild(t, _map_with_keys(spec_of, t))
+
+
+def batch_indices(n: int, mesh) -> range:
+    """The arms of an ``n``-arm sweep this process holds on ``mesh`` under
+    ``infer_batch_sharding``: worker d of W the block ``[d·n/W,
+    (d+1)·n/W)`` (the ranks of one model group hold the same block), every
+    arm where W does not divide n, and every arm without a mesh or in one
+    process (a mesh without a ``world``, whose cells run in turn)."""
+    if mesh is None or getattr(mesh, "world", None) is None:
+        return range(n)
+    spec = infer_batch_sharding(torch.empty((n,), device="meta"), mesh)
+    if spec[0] is None:
+        return range(n)
+    per = local_shape((n,), spec, mesh)[0]
+    d = mesh.cell()[0]
+    return range(d * per, (d + 1) * per)
 
 
 def local_shape(shape: Sequence[int], spec, mesh) -> tuple:

@@ -28,7 +28,11 @@ Capture, in order:
 
 1. warm-up: ``WARMUP`` eager rounds on the capture stream, so that the
    kernels are built and loaded, cuBLAS and autograd have set up, and the
-   stats buffer exists: nothing is built or allocated lazily under capture;
+   stats buffer exists: nothing is built or allocated lazily under capture.
+   Every capture on a device shares one side stream (``capture_stream``):
+   cuBLAS keeps a 32 MiB workspace for each stream it has run on, for the
+   life of the process, so a stream of its own per arm kept 64 MiB an arm
+   (the forward's and the backward's threads) after the sweep;
 2. the carry and the arm's generator state are put back as they were
    before the warm-up, so the warm-up consumes no draw the host path
    would not make;
@@ -52,6 +56,18 @@ from repro_torch import control, tree
 from repro_torch.engine.state import Arms, EngineState, RoundStats
 from repro_torch.kernels import build
 from repro_torch.theory.bounds import ErrorBudget
+
+_STREAMS: Dict[int, torch.cuda.Stream] = {}
+
+
+def capture_stream(device: torch.device) -> torch.cuda.Stream:
+    """The side stream every capture on ``device`` runs on, made at the
+    first."""
+    index = torch.device(device).index
+    index = torch.cuda.current_device() if index is None else index
+    if index not in _STREAMS:
+        _STREAMS[index] = torch.cuda.Stream(index)
+    return _STREAMS[index]
 
 
 def _diff(after: Dict[str, int], before: Dict[str, int]) -> Dict[str, int]:
@@ -131,7 +147,7 @@ class RoundGraph:
     def _capture(self) -> None:
         saved = [t.clone() for t in self._leaves]
         gen_state = self.generator.get_state()
-        stream = torch.cuda.Stream(self.device)
+        stream = capture_stream(self.device)
         stream.wait_stream(torch.cuda.current_stream(self.device))
         t0 = time.perf_counter()
         before = build.launch_counts()

@@ -23,6 +23,22 @@ chunk boundary (``checkpoint.save``: the carry of every arm stacked, each
 generator's state as a uint8 leaf, the arms, ``t_next``); ``resume``
 restores the latest step, puts each generator back in the state it had,
 and continues bit for bit as the uninterrupted sweep would.
+
+Over processes (``mesh=`` a ``launch.mesh.world_mesh``): the arm axis
+is laid out as ``dist.sharding.infer_batch_sharding`` lays it out, split
+over the worker axes where their product W divides A (worker d runs the
+arms ``[d·A/W, (d+1)·A/W)``, the ranks of one model group the same
+ones) and replicated where it does not. Each rank initialises, captures
+and runs only its own arms; at each chunk boundary the chunk's stats
+and evals of every arm, and the carries where a save or the result needs
+them, are gathered over the worker group (``dist.collectives.
+gather_rows``), so every rank returns the whole result. World rank 0
+alone writes each checkpoint, in the same format, with every arm; every
+rank waits for it on a barrier, and the ranks that hold the same arms
+are checked equal at each save. At restore every rank reads the whole
+checkpoint and takes its own arms, so a sweep saved by W ranks resumes
+under any other layout, one process included. Arms share nothing: the
+layout changes no bit.
 """
 from __future__ import annotations
 
@@ -35,6 +51,8 @@ import torch
 from repro_torch import checkpoint, tree
 from repro_torch.core.sparsify import flatten_pytree
 from repro_torch.device import resolve_device
+from repro_torch.dist import collectives as coll
+from repro_torch.dist.sharding import batch_indices
 from repro_torch.engine.core import EngineFns, build_engine
 from repro_torch.engine.graph import RoundGraph
 from repro_torch.engine.state import (Arms, EngineState, RoundStats,
@@ -190,13 +208,26 @@ class EngineRun:
     # -- checkpoints -------------------------------------------------------
 
     @staticmethod
-    def _stacked(states: List[EngineState]) -> EngineState:
-        """The arms' carries stacked (A, ...) on the CPU, each generator
-        replaced by its state (a uint8 tensor)."""
-        flats = [tree.flatten(with_generator_state(st)) for st in states]
+    def _stack(items: list) -> tuple:
+        """(leaves, treedef) of the trees ``items`` stacked (A, ...) on the
+        CPU, leaf by leaf."""
+        flats = [tree.flatten(x) for x in items]
         cols = zip(*(leaves for leaves, _ in flats))
-        return tree.unflatten(flats[0][1], [
-            torch.stack([x.detach().cpu() for x in col]) for col in cols])
+        return ([torch.stack([x.detach().cpu() for x in col])
+                 for col in cols], flats[0][1])
+
+    def _unstacked(self, stacked: EngineState, arms) -> Dict[int, EngineState]:
+        """Arms ``arms`` of a stacked carry as states on the run's device,
+        each generator rebuilt from its state."""
+        flat, treedef = tree.flatten(stacked)
+        states = {}
+        for a in arms:
+            st = tree.unflatten(treedef, [x[a].clone().to(self.device)
+                                          for x in flat])
+            gen = torch.Generator(device=self.device)
+            gen.set_state(st.generator.cpu())   # a view here crashes torch
+            states[a] = st._replace(generator=gen)
+        return states
 
     def sweep_template(self, arms: Arms) -> SweepCheckpoint:
         """The shape and dtype template of the sweep checkpoint, on the
@@ -213,11 +244,12 @@ class EngineRun:
             state=tree.unflatten(treedef, meta), arms=arms,
             t_next=torch.empty((), dtype=torch.int32, device="meta"))
 
-    def _restore_sweep(self, ckpt_dir: str, arms: Arms):
-        """(per-arm states, t_start) from the latest checkpoint step, or
-        None. The saved arms must equal the requested ones bit for bit: a
-        sweep resumed under other seeds, σ², P^Max or learning rates would
-        mix two trajectories."""
+    def _restore_sweep(self, ckpt_dir: str, arms: Arms, own):
+        """({arm: state} for the arms ``own``, t_start) from the latest
+        checkpoint step, or None. The whole checkpoint is read,
+        whoever wrote it. The saved arms must equal the requested ones bit
+        for bit: a sweep resumed under other seeds, σ², P^Max or learning
+        rates would mix two trajectories."""
         step = checkpoint.latest_step(ckpt_dir)
         if step is None:
             return None
@@ -229,22 +261,14 @@ class EngineRun:
                     f"under different arms (field {name!r} differs); "
                     f"resuming would mix trajectories — pass the arms the "
                     f"sweep was started with")
-        flat, treedef = tree.flatten(ck.state)
-        states = []
-        for a in range(n_arms(arms)):
-            st = tree.unflatten(treedef, [x[a].clone().to(self.device)
-                                          for x in flat])
-            gen = torch.Generator(device=self.device)
-            gen.set_state(st.generator.cpu())   # a view here crashes torch
-            states.append(st._replace(generator=gen))
-        return states, int(ck.t_next)
+        return self._unstacked(ck.state, own), int(ck.t_next)
 
     # -- arms sweep --------------------------------------------------------
 
     def run_sweep(self, arms: Arms, rounds: Optional[int] = None,
                   eval_every: Optional[int] = None, *,
                   ckpt_dir: Optional[str] = None,
-                  resume: Optional[bool] = None,
+                  resume: Optional[bool] = None, mesh=None,
                   draws: Optional[Draws] = None) -> Dict:
         """Run every arm for ``rounds`` rounds in chunks cut at the eval
         cadence (``run_chunk``: graph replays in scan mode on the card, the
@@ -252,8 +276,11 @@ class EngineRun:
         ``cfg.ckpt_dir``) saves a ``SweepCheckpoint`` at every chunk
         boundary, with its seconds in ``self.save_s``; ``resume`` (or
         ``cfg.ckpt_resume``) restores the latest step and continues, the
-        streams then covering [t_start, rounds). ``draws`` replaces the
-        generators' draws, in ``mode="host"``."""
+        streams then covering [t_start, rounds). ``mesh``: the arms over
+        the processes of a ``world_mesh`` (see the module's docstring); a
+        mesh without a world runs every arm here, as ``None`` does.
+        ``draws`` replaces the generators' draws, in ``mode="host"``,
+        indexed by the arm's place in ``arms``."""
         cfg = self.cfg
         rounds = rounds or cfg.rounds
         eval_every = eval_every if eval_every is not None \
@@ -265,19 +292,23 @@ class EngineRun:
                              "generators in mode='host' only")
         A = n_arms(arms)
         spans = chunk_spans(rounds, eval_every)
-        states, devarms = [], []
-        for a in range(A):
+        world = None if mesh is None else mesh.world
+        own = batch_indices(A, mesh)
+        # the worker group the arms are split over, and the ranks that
+        # hold the same arms as this one
+        group = mesh.group if world is not None and len(own) < A else None
+        replicas = mesh.model_group if group is not None else world
+        states, devarms = {}, {}
+        for a in own:
             arm_a = arm_at(arms, a) if arms.noise_var.ndim else arms
-            state, arm = self.init(
+            states[a], devarms[a] = self.init(
                 arm_a, fade0_w=None if draws is None else draws.fade0[a])
-            states.append(state)
-            devarms.append(arm)
         t_start = 0
         if resume:
             if not ckpt_dir:
                 raise ValueError("run_sweep(resume=True) needs ckpt_dir "
                                  "(or FLConfig.ckpt_dir)")
-            restored = self._restore_sweep(ckpt_dir, arms)
+            restored = self._restore_sweep(ckpt_dir, arms, own)
             if restored is not None:
                 states, t_start = restored
         stats = [[] for _ in range(A)]
@@ -294,27 +325,43 @@ class EngineRun:
                     f"boundary for rounds={rounds}, eval_every={eval_every} "
                     f"— resume must use the cadence the sweep was saved "
                     f"with (boundary before it: t0={t0})")
-            for a in range(A):
+            recs = []
+            for a in own:
                 if draws is None:
                     states[a], st = self.run_chunk(states[a], devarms[a],
                                                    t0, n)
                 else:
                     states[a], st = self._eager_chunk(
                         states[a], devarms[a], t0, n, draws, a)
-                stats[a].append(st)
+                rec = {"stats": st}
                 if self.eval_fn:
-                    loss, acc = self.eval_fn(states[a].params)
-                    losses[a].append(torch.as_tensor(loss).detach().cpu())
-                    accs[a].append(torch.as_tensor(acc).detach().cpu())
+                    rec["eval"] = tuple(torch.as_tensor(v).detach().cpu()
+                                        for v in self.eval_fn(
+                                            states[a].params))
+                if ckpt_dir:
+                    rec["carry"] = with_generator_state(states[a])
+                recs.append(rec)
+            recs = self._collect(recs, group)
+            for a, rec in enumerate(recs):
+                stats[a].append(rec["stats"])
+                if self.eval_fn:
+                    losses[a].append(rec["eval"][0])
+                    accs[a].append(rec["eval"][1])
             eval_ts.append(t0 + n - 1)
             if ckpt_dir:
                 t = time.perf_counter()
-                checkpoint.save(ckpt_dir, t0 + n, SweepCheckpoint(
-                    state=self._stacked(states), arms=arms,
-                    t_next=torch.tensor(t0 + n, dtype=torch.int32)))
+                self._save(ckpt_dir, t0 + n, [rec["carry"] for rec in recs],
+                           arms, world, replicas)
                 self.save_s.append(time.perf_counter() - t)
-        for state, arm in zip(states, devarms):
-            self.release(state, arm)
+        for a in own:
+            self.release(states[a], devarms[a])
+        if group is not None:               # every arm's final carry here
+            recs = self._collect([{"carry": with_generator_state(states[a])}
+                                  for a in own], group)
+            leaves, treedef = self._stack([rec["carry"] for rec in recs])
+            states = self._unstacked(tree.unflatten(treedef, leaves),
+                                     range(A))
+        states = [states[a] for a in range(A)]
         joined = [_join(s, torch.cat) if s else None for s in stats]
 
         def host(get):
@@ -341,14 +388,44 @@ class EngineRun:
                                         for a in accs])
         return out
 
+    def _collect(self, recs: list, group) -> list:
+        """Every arm's record (a tree of tensors) from the records of this
+        rank's arms: gathered over the worker ``group`` in one
+        ``gather_rows`` (counted as ``all_gather_arms``), on the CPU; no
+        group: ``recs``, every arm's already."""
+        if group is None:
+            return recs
+        leaves, treedef = self._stack(recs)
+        got = coll.gather_rows(leaves, group, kind="all_gather_arms")
+        return [tree.unflatten(treedef, [x[a] for x in got])
+                for a in range(int(got[0].shape[0]))]
+
+    def _save(self, ckpt_dir: str, step: int, carries: list, arms: Arms,
+              world, replicas) -> None:
+        """Save every arm's carry at ``step``: world rank 0 alone writes;
+        the ranks that hold the same arms are checked equal first, and
+        every rank waits on a barrier over the world for the step to be
+        on disk."""
+        leaves, treedef = self._stack(carries)
+        if not coll.replicated(leaves, replicas):
+            raise RuntimeError(
+                f"run_sweep: the ranks that hold the same arms differ at "
+                f"the save of step {step}")
+        if coll.axis_index(world) == 0:
+            checkpoint.save(ckpt_dir, step, SweepCheckpoint(
+                state=tree.unflatten(treedef, leaves), arms=arms,
+                t_next=torch.tensor(step, dtype=torch.int32)))
+        coll.barrier(world)
+
 
 def run_sweep(cfg, loss_fn, params, worker_data, k_weights, *,
               arms: Optional[Arms] = None, eval_fn=None, optimizer=None,
               rounds: Optional[int] = None,
               eval_every: Optional[int] = None,
               ckpt_dir: Optional[str] = None,
-              resume: Optional[bool] = None, phi=None, device=None,
-              draws: Optional[Draws] = None, **arm_axes) -> Dict:
+              resume: Optional[bool] = None, mesh=None, phi=None,
+              device=None, draws: Optional[Draws] = None,
+              **arm_axes) -> Dict:
     """One-call sweep: build the engine, broadcast ``arm_axes`` (seeds /
     noise_var / p_max / lr) into ``Arms`` and run them. See
     ``EngineRun.run_sweep`` for the result."""
@@ -357,4 +434,5 @@ def run_sweep(cfg, loss_fn, params, worker_data, k_weights, *,
                     device=device)
     arms = arms if arms is not None else make_arms(cfg, **arm_axes)
     return run.run_sweep(arms, rounds=rounds, eval_every=eval_every,
-                         ckpt_dir=ckpt_dir, resume=resume, draws=draws)
+                         ckpt_dir=ckpt_dir, resume=resume, mesh=mesh,
+                         draws=draws)

@@ -2,7 +2,8 @@
 (``tests/test_torch_collectives.py``, ``tests/test_torch_workers.py``,
 ``tests/test_torch_zoo_procs.py``, ``tests/test_torch_shardings.py``,
 ``tests/test_torch_dryrun.py``, ``tests/test_torch_serve_model_axis.py``,
-``tests/test_torch_train_model_axis.py``). It imports torch and ``repro_torch``
+``tests/test_torch_train_model_axis.py``, ``tests/test_torch_sweep_procs.py``).
+It imports torch and ``repro_torch``
 only, never JAX: the tests compute the reference's oracles in their own
 process.
 
@@ -348,6 +349,106 @@ def zoo_sweep(inp, mesh, dev):
     return out
 
 
+def sweep_engine(spec, dev="cpu"):
+    """(EngineRun, Arms) of a sweep case. ``spec["task"]`` "small" is
+    tests/test_torch_checkpoint.py's resume sweep (a quadratic of D =
+    1,200 over U = 4 workers; EF and warm-start IHT under
+    ``greedy_batched``; Adam; 8 rounds in chunks cut at 0, 3, 6, 7; the
+    CUDA kernels with ``spec["kernels"]``), "mlp"
+    the §V MLP on ``spec``'s weights, data, config (``ob``, ``const``,
+    ``fl``) and Φ. The arms: ``spec``'s seeds and σ²."""
+    from repro_torch.core.obcsaa import OBCSAAConfig
+    from repro_torch.engine import EngineRun, FLConfig, make_arms
+    from repro_torch.optim import make
+    if spec["task"] == "small":
+        U, D = 4, 1200
+        cfg = FLConfig(aggregator="obcsaa", scheduler="greedy_batched",
+                       rounds=8, eval_every=3, error_feedback=True,
+                       obcsaa=OBCSAAConfig(chunk=256, measure=64, topk=16,
+                                           biht_iters=3, warm_start=True,
+                                           recon_alg="iht", recon_tau=0.25,
+                                           use_kernels=spec.get("kernels",
+                                                                False)))
+        data = {"c": torch.randn((U, D), generator=torch.Generator()
+                                 .manual_seed(3))}
+
+        def loss(p, d):
+            return 0.5 * torch.sum((p["w"] - d["c"]) ** 2, dim=-1)
+
+        def ev(p):
+            return torch.sum(p["w"] ** 2), torch.tensor(0.0)
+
+        run = EngineRun(cfg, loss, {"w": torch.linspace(-1.0, 1.0, D)},
+                        data, np.ones(U), eval_fn=ev,
+                        optimizer=make("adam"), device=dev)
+    else:
+        from repro_torch.models import mlp_mnist as tm
+        from repro_torch.theory import AnalysisConstants
+        cfg = FLConfig(obcsaa=OBCSAAConfig(**spec["ob"]),
+                       const=AnalysisConstants(**spec["const"]),
+                       **spec["fl"])
+        xe, ye = spec["xte"], spec["yte"]
+        run = EngineRun(
+            cfg, lambda p, d: tm.mlp_mnist_loss(p, d["x"], d["y"]),
+            spec["params"], {"x": spec["wx"], "y": spec["wy"]},
+            spec["k_weights"], eval_fn=lambda p: (
+                tm.mlp_mnist_loss(p, xe, ye),
+                tm.mlp_mnist_accuracy(p, xe, ye)),
+            phi=spec["phi"], device=dev)
+    return run, make_arms(cfg, seeds=spec["seeds"],
+                          noise_var=spec["noise_var"])
+
+
+def sweep_summary(res) -> dict:
+    """A ``run_sweep`` result in tensors (what a rank hands back): the
+    streams, the budget's fields, ``t_start``, every arm's carry leaves
+    (its generator's state in the generator's place) and the stacked
+    parameters."""
+    from repro_torch import tree
+    from repro_torch.engine.state import with_generator_state
+    out = {k: torch.from_numpy(np.array(res[k])) for k in (
+        "n_scheduled", "b_t", "rt_bound", "eval_rounds", "loss",
+        "accuracy") if k in res}
+    out["budget"] = [torch.from_numpy(np.array(b)) for b in res["budget"]]
+    out["t_start"] = res["t_start"]
+    out["state"] = [[x.cpu() for x in tree.leaves(with_generator_state(s))]
+                    for s in res["state"]]
+    out["params"] = {k: v.cpu() for k, v in res["params"].items()}
+    return out
+
+
+def sweep(inp, mesh, dev):
+    """``EngineRun.run_sweep(mesh=world_mesh(M))`` for each run of
+    ``inp["runs"]``, in order: its ``sweep_summary``, the arms this rank
+    ran, the collectives' bytes by kind, the kernels' launches, or the
+    message of the ``ValueError`` it was refused with."""
+    from repro_torch.dist import collectives as coll
+    from repro_torch.kernels import build
+    from repro_torch.dist.sharding import batch_indices
+    from repro_torch.engine import Draws
+    from repro_torch.launch.mesh import world_mesh
+    out = {}
+    for name, spec in inp["runs"].items():
+        m = world_mesh(spec.get("M", 1))
+        run, arms = sweep_engine(spec, dev)
+        draws = Draws(*spec["draws"]) if "draws" in spec else None
+        coll.reset_counters()
+        build.reset_launch_counts()
+        try:
+            res = run.run_sweep(arms, eval_every=spec.get("every"),
+                                ckpt_dir=spec.get("ckpt"),
+                                resume=spec.get("resume"), mesh=m,
+                                draws=draws)
+        except ValueError as e:
+            out[name] = {"refused": str(e)}
+            continue
+        out[name] = dict(sweep_summary(res),
+                         own=list(batch_indices(len(spec["seeds"]), m)),
+                         bytes=coll.stats()["bytes"],
+                         launches=build.launch_counts())
+    return out
+
+
 def zoo_cli(inp, rank, tmp_dir):
     """The trainer's CLI under the file store, once per argv of
     ``inp["argvs"]`` (each joins and leaves a world of its own)."""
@@ -541,7 +642,7 @@ def main(argv) -> int:
            "train": train, "train_split": train_split, "zoo": zoo,
            "zoo_train": zoo_train, "zoo_sweep": zoo_sweep,
            "decode": decode, "serve_split": serve_split,
-           "serve_bytes": serve_bytes}[case](inp, mesh, dev)
+           "serve_bytes": serve_bytes, "sweep": sweep}[case](inp, mesh, dev)
     torch.save(out, os.path.join(tmp_dir, f"out_{rank}.pt"))
     leave_world()
     return 0

@@ -968,3 +968,30 @@ def test_moe_mean_step_over_ranks_remat_full(cuda, seq, tmp_path):
             want = want.cpu()
             moved = torch.linalg.vector_norm(want - start)
             assert torch.linalg.vector_norm(got - want) <= 1e-4 * moved
+
+
+@pytest.mark.cuda
+def test_sweep_over_ranks_on_card(cuda, tmp_path):
+    """tests/test_torch_sweep_procs.py's A = 4 sweep with the kernels, in
+    scan mode (each arm's round replayed from a CUDA graph): 2 gloo ranks
+    sharing the card, 2 arms a rank, a checkpoint at every boundary,
+    against the one-process sweep on the card in this process, bit for
+    bit; K1-K4 launch in both ranks."""
+    from _torch_dist_child import run_world, sweep_engine, sweep_summary
+    spec = dict(task="small", seeds=[0, 1, 2, 3],
+                noise_var=[1e-4, 1e-3, 1e-2, 1e-1], kernels=True,
+                ckpt=str(tmp_path / "ck"))
+    outs = run_world("sweep", 2, {"runs": {"split4": spec}}, tmp_path,
+                     device="cuda")
+    run, arms = sweep_engine(spec, cuda)
+    assert run.mode == "scan"
+    want = sweep_summary(run.run_sweep(arms))
+    for r, o in enumerate(outs):
+        got = o["split4"]
+        assert got["own"] == [2 * r, 2 * r + 1]
+        for k in ("n_scheduled", "b_t", "rt_bound", "loss"):
+            assert torch.equal(got[k], want[k]), k
+        for ga, wa in zip(got["state"], want["state"]):
+            assert all(torch.equal(x, y) for x, y in zip(ga, wa))
+        assert all(got["launches"][k] for k in (
+            "topk_select", "cs_project", "cs_project_resid", "backproject"))

@@ -18,7 +18,10 @@ Tolerances:
 - float projections and back-projections: rtol = atol = 1e-5 (f32 sums in
   another order).
 - BIHT: cosine ≥ 0.999 per row and ≥ 95% support overlap, because one
-  flipped borderline lane changes every later iterate.
+  flipped borderline lane changes every later iterate; the oracles of
+  ``kernels/ref.py``: ``biht_ref`` by NMSE ≤ 1e-6 and ≥ 95% support
+  overlap, ``sign_residual_planes_ref`` exact apart from borderline
+  lanes (as tests/test_torch_packed.py holds K5).
 
 The CUDA kernels themselves are held against these plain versions on the
 card by tests/test_torch_cuda.py and chip_smoke.py.
@@ -30,8 +33,11 @@ import torch
 
 from repro.kernels import cs_project as jcs
 from repro.kernels import ops as jops
+from repro.kernels import ref as jref
 from repro.kernels import topk_select as jtopk
 from repro_torch.kernels import build, ops
+from repro_torch.kernels import ref as tref
+from repro_torch.kernels.sign import pack_signs, unpack_bits
 from repro_torch.kernels.cs_project import project
 from repro_torch.kernels.topk_select import N_BISECT, topk_select_plain
 
@@ -231,6 +237,52 @@ def test_biht_composition(iters):
         np.sum(want != 0, axis=1), 1)
     assert overlap.min() >= 0.95, overlap
     np.testing.assert_allclose(np.linalg.norm(got, axis=1), 1.0, rtol=1e-5)
+
+
+@pytest.mark.parametrize("iters", [0, 5])
+def test_biht_ref_matches_reference(iters):
+    n, s, d, k = 7, 256, 1024, 32
+    phi, xt = _phi(s, d, 18), _rows(n, d, 19, k=k)
+    y = np.where(xt @ phi.T >= 0, 1.0, -1.0).astype(np.float32)
+    got = tref.biht_ref(_t(y), _t(phi), k, iters, 1.0).numpy()
+    want = np.asarray(jref.biht_ref(jnp.asarray(y), jnp.asarray(phi), k,
+                                    iters, 1.0))
+    nmse = np.sum((got - want) ** 2, axis=1) / np.sum(want ** 2, axis=1)
+    assert nmse.max() <= 1e-6, nmse
+    overlap = np.sum((got != 0) & (want != 0), axis=1) / np.maximum(
+        np.sum(want != 0, axis=1), 1)
+    assert overlap.min() >= 0.95, overlap
+    # the oracle is the plain composition of the kernels' loop
+    np.testing.assert_allclose(got, ops.biht(_t(y), _t(phi), k, iters,
+                                             1.0).numpy(), rtol=1e-5,
+                               atol=1e-6)
+
+
+@pytest.mark.parametrize("n,s,d", [(8, 128, 512), (13, 256, 1024)])
+def test_sign_residual_planes_ref(n, s, d):
+    phi, x, xt = _phi(s, d, 20), _rows(n, d, 21, k=d // 16), _rows(n, d, 22)
+    y = np.where(xt @ phi.T >= 0, 1.0, -1.0).astype(np.float32)
+    yp = pack_signs(_t(y))
+    plus, minus = tref.sign_residual_planes_ref(_t(phi), _t(x), yp)
+    jplus, jminus = jref.sign_residual_planes_ref(
+        jnp.asarray(phi), jnp.asarray(x),
+        jnp.asarray(yp.numpy().view(np.uint32)))
+
+    def resid(p, m):
+        return 2.0 * (unpack_bits(_t(np.asarray(p).view(np.int32)),
+                                  torch.float32)
+                      - unpack_bits(_t(np.asarray(m).view(np.int32)),
+                                    torch.float32)).numpy()
+
+    got, want = resid(plus, minus), resid(jplus, jminus)
+    assert _hard_flips(phi, x, y - got, y - want) == 0
+    same = ~np.any(got != want, axis=1)
+    np.testing.assert_array_equal(plus.numpy()[same].view(np.uint32),
+                                  np.asarray(jplus)[same])
+    np.testing.assert_array_equal(minus.numpy()[same].view(np.uint32),
+                                  np.asarray(jminus)[same])
+    np.testing.assert_array_equal(got, y - ops.cs_project_sign(
+        _t(phi), _t(x)).numpy())
 
 
 def test_plain_path_builds_nothing(monkeypatch):

@@ -9,7 +9,10 @@ Tolerances:
   borderline (|x·Φ_s| ≤ 2·D·2⁻²⁴·‖x‖·‖Φ_s‖, see test_torch_kernels.py);
   chunk norms rtol 1e-6 (f32 sums of squares in another order).
 - fades: |h| and g within 1e-6 relative (complex magnitude in another
-  library).
+  library); ``gauss_markov_step`` with the innovation injected, and
+  ``rayleigh_cdf``, ``mac_aggregate`` and ``post_process``, rtol/atol
+  1e-6; the uint8 codec ``pack_bits`` / ``unpack_bits`` exact, with its
+  round trip.
 - a decoded round: cosine ≥ 0.999 and ‖Δ‖/‖ĝ‖ ≤ 1e-3, because one flipped
   borderline lane changes every later BIHT iterate.
 - fixed-step IHT: rtol = atol = 1e-5 (no sign step; the selection is the
@@ -23,11 +26,13 @@ import torch
 
 from repro.core import channel as jchan
 from repro.core import obcsaa as job
+from repro.core import quantize as jq
 from repro.core import sparsify as jsp
 from repro.sched.problem import BatchedProblem
 from repro.theory.bounds import AnalysisConstants
 from repro_torch.core import channel as tchan
 from repro_torch.core import obcsaa as tob
+from repro_torch.core import quantize as tq
 from repro_torch.core import sparsify as tsp
 from repro_torch.sched import problem as tprob
 
@@ -125,6 +130,75 @@ def test_draw_fades_injected(rho):
     np.testing.assert_allclose(th.numpy(), _np(jh), rtol=1e-6)
     tiny = torch.tensor([1e-5 + 0j], dtype=torch.complex64)
     assert tchan.draw_fades(w=tiny)[0].item() == pytest.approx(tchan.H_MIN)
+
+
+@pytest.mark.parametrize("rho", [0.0, 0.5, 0.99])
+def test_gauss_markov_step_injected(rho):
+    key = jax.random.PRNGKey(11)
+    g = _np(jchan.draw_cn(jax.random.PRNGKey(12), (7,)))
+    w = _np(jchan.draw_cn(key, (7,)))
+    want = _np(jchan.gauss_markov_step(jnp.asarray(g), key, rho))
+    got = tchan.gauss_markov_step(_t(g), rho=rho, w=_t(w))
+    assert got.dtype == torch.complex64
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
+    # draw_fades steps the same recursion
+    h, g1 = tchan.draw_fades(rho=rho, prev=_t(g), w=_t(w))
+    assert torch.equal(g1, got)
+    # drawn from a generator: draw_fades's draw, and draw_channels its |h|
+    gen = lambda: torch.Generator().manual_seed(5)  # noqa: E731
+    assert torch.equal(tchan.gauss_markov_step(_t(g), gen(), rho),
+                       tchan.draw_fades(gen(), rho=rho, prev=_t(g))[1])
+    assert torch.equal(tchan.draw_channels(gen(), 7, device="cpu"),
+                       tchan.draw_fades(gen(), (7,), device="cpu")[0])
+
+
+def test_rayleigh_cdf():
+    x = np.linspace(0.0, 4.0, 101).astype(np.float32)
+    np.testing.assert_allclose(tchan.rayleigh_cdf(_t(x)).numpy(),
+                               _np(jchan.rayleigh_cdf(x)), rtol=1e-6,
+                               atol=1e-6)
+    assert float(tchan.rayleigh_cdf(0.5)) == pytest.approx(
+        float(jchan.rayleigh_cdf(0.5)), rel=1e-6)
+
+
+def test_mac_aggregate_and_post_process():
+    rng = np.random.default_rng(21)
+    U, S = 6, 128
+    sym = np.where(rng.standard_normal((U, S)) >= 0, 1.0, -1.0).astype(
+        np.float32)
+    h = rng.rayleigh(size=U).astype(np.float32)
+    p = rng.uniform(0.5, 10.0, U).astype(np.float32)
+    z = (rng.standard_normal(S) * 1e-2).astype(np.float32)
+    y = tchan.mac_aggregate(_t(sym), _t(h), _t(p), _t(z))
+    jy = _np(jchan.mac_aggregate(*map(jnp.asarray, (sym, h, p, z))))
+    np.testing.assert_allclose(y.numpy(), jy, rtol=1e-6, atol=1e-6)
+    k = rng.uniform(100, 3000, U).astype(np.float32)
+    for beta in ((rng.uniform(size=U) > 0.4).astype(np.float32),
+                 np.zeros(U, np.float32)):      # nothing scheduled
+        for b_t in (np.float32(0.37), np.float32(0.0)):
+            got = tchan.post_process(y, _t(k), _t(beta), torch.tensor(b_t))
+            want = _np(jchan.post_process(jnp.asarray(jy), jnp.asarray(k),
+                                          jnp.asarray(beta), b_t))
+            np.testing.assert_allclose(got.numpy(), want, rtol=1e-6,
+                                       atol=1e-6)
+
+
+@pytest.mark.parametrize("n", [8, 64, 1024])
+def test_uint8_codec_exact(n):
+    rng = np.random.default_rng(n)
+    signs = np.where(rng.standard_normal(n) >= 0, 1.0, -1.0).astype(
+        np.float32)
+    signs[::7] = 0.0                         # 0 packs as a 0 bit, like -1
+    got = tq.pack_bits(_t(signs))
+    want = _np(jq.pack_bits(jnp.asarray(signs)))
+    assert got.dtype == torch.uint8 and got.shape == (n // 8,)
+    np.testing.assert_array_equal(got.numpy(), want)
+    for m in (n, n - 3):
+        back = tq.unpack_bits(got, m)
+        np.testing.assert_array_equal(
+            back.numpy(), _np(jq.unpack_bits(jnp.asarray(want), m)))
+        np.testing.assert_array_equal(back.numpy(),
+                                      np.where(signs > 0, 1.0, -1.0)[:m])
 
 
 def _jphi(cfg):
