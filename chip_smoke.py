@@ -150,11 +150,13 @@ CLIs    the CLIs of phases 9-12, whose times no phase reports, after
             greedy-scheduled span, and a run of ``--steps 2`` that stops
             at step 2 then ``--resume``s to 4: equal to the uninterrupted
             run bit for bit at steps 2 and 4; (13d) an NCCL world of one
-            through the same CLI, one step, equal to the single-process
-            step bit for bit; no launch of K1-K7 in this process. The
-            runs whose times are not reported share the card with
-            others (13c's stopped run and its resume with 13a, 13d, the
-            check of 13d and phase 14's oracles)
+            (``chip_smoke.py --nccl-rank``, one rank under ``torchrun``)
+            through the same CLI's ``main``, one step, equal to the
+            single-process step bit for bit, then 17d in the same rank;
+            no launch of K1-K7 in this process. The runs whose times are
+            not reported share the card with others (13c's stopped run
+            and its resume with 13a, 13d and 17d, the check of 13d and
+            phase 14's oracles)
 14. zoo/proc the zoo over processes: one 4-rank launch (``chip_smoke.py
             --zoo-rank``), started with the script, its ranks asleep until
             this phase but for phases 17 and 13; 2 x 2 ranks, one a (worker, model-shard) cell,
@@ -257,7 +259,16 @@ CLIs    the CLIs of phases 9-12, whose times no phase reports, after
             launched in every rank, 27/1/25/26 an arm-round; s for the
             grid in one process and by rank, the gathers' MB and ms a
             boundary, save ms, peak memory by rank (alone: ``python3
-            chip_smoke.py --sweep-procs``, its own 4-rank launch)
+            chip_smoke.py --sweep-procs``, its own 4-rank launch). 17a-17c
+            run over gloo, their records on the CPU. (17d) in 13d's rank
+            after its step, an NCCL world of one of its own: the grid
+            over ``world_mesh(1)`` (W = 1: every boundary's records go
+            through NCCL's all-gather, on the card) with a checkpoint at
+            every boundary, then this process's checkpoint cut after its
+            middle boundary resumed; both bit for bit the one-process
+            grid, the backend NCCL, K1-K4 27/1/25/26 an arm-round; s, the
+            gathers' MB, ms (CUDA events) and calls, save ms, peak memory
+            (13d and 17d alone: ``python3 chip_smoke.py --nccl-world``)
 
 Each path's launch counters are set to 0 just before it and read just
 after; a kernel of the path that was not launched fails the run.
@@ -1197,8 +1208,9 @@ def finish_cli(h, card, limit: float = 600.0) -> str:
     h["out"].close()
     h["err"].close()
     if code:
+        # torchrun's own summary takes ~2 kB after the rank's traceback
         fail(f"{label}: python -m {module} {args} exited {code}: "
-             f"{err.strip()[-2000:]}")
+             f"{err.strip()[-12000:]}")
     for line in out.strip().splitlines():
         log(f"{label} CLI: {line}")
     log(f"{label} CLI: python -m {module} {args}: exit 0 in {secs:.1f} s "
@@ -3646,7 +3658,6 @@ def run_torchrun(label, nproc: int, args, card) -> str:
 
 # the trainer CLI at the federation's width
 FED_ARGV = ["--arch", FED_ARCH]
-FED_CLI = ["-m", "repro_torch.launch.train"] + FED_ARGV
 
 
 def fed_ckpts(tmp: str) -> dict:
@@ -3946,11 +3957,12 @@ def check_federation_nccl(dev, ck) -> None:
 
 def run_federation_phase(dev, card: str, started: dict, beside=None):
     """Phase 13, the federation over processes on the one card (13a-13d
-    above). 13a and 13d are launches of their own (``torchrun``); 13b and
-    13c's three runs are made by phase 14's launch ``started``, whose 4
-    ranks are up and idle by then (``federation_in_ranks``), each on its
-    go. What is not timed shares the card: 13c's stopped run and its
-    resume beside 13a, 13d, this process's check of 13d and
+    above), and 17d. 13a and 13d are launches of their own (``torchrun``;
+    13d's rank runs 17d after its step, ``nccl_rank``); 13b and 13c's
+    three runs are made by phase 14's launch ``started``, whose 4 ranks
+    are up and idle by then (``federation_in_ranks``), each on its go.
+    What is not timed shares the card: 13c's stopped run and its resume
+    beside 13a, 13d and 17d, this process's check of 13d and
     ``beside()``; 13b, then this process's check of it, then 13c's
     uninterrupted run, whose times are reported, run alone. Returns (the
     in-process checks' launch counts, all 0; what ``beside()``
@@ -3963,18 +3975,15 @@ def run_federation_phase(dev, card: str, started: dict, beside=None):
     torch.cuda.empty_cache()
     tmp, h = started["tmp"].name, started["launch"]
     ck = fed_ckpts(tmp)
-    nccl = start_torchrun("13d", 1, FED_CLI + [
-        "--steps", "1", "--ckpt-dir", ck["d"]])
+    nccl = start_nccl_rank(tmp)
     _go(tmp, "13c stopped")
     _go(tmp, "13c resumed")
     run_torchrun("13a", FED_U, [os.path.join(ROOT, "chip_smoke.py"),
                                 "--federation-rank"], card)
     got = beside() if beside is not None else None
-    if "world: 1 workers over nccl" not in finish_cli(nccl, card):
-        fail("13d: the world of one did not run over NCCL")
-    build.reset_launch_counts()
-    check_federation_nccl(dev, ck["d"])
-    counts = build.launch_counts()
+    counts = check_nccl_world(dev, card, tmp, nccl,
+                              beside="13d's check in this process and "
+                              "13c's runs in 14's ranks")
     outs = {r: fed_rank_out(tmp, f"13c {r}", card, h)
             for r in ("stopped", "resumed")}
     _go(tmp, "13b")
@@ -5427,6 +5436,8 @@ P17_RUNS = (("17a", 1, "ck17a", False), ("17b", 2, "ck17b", False),
             ("17c", 1, "ck17_from1", True))
 P17_STREAMS = ("n_scheduled", "b_t", "rt_bound", "eval_rounds", "loss",
                "accuracy")
+P17_KERNELS = ("topk_select", "cs_project", "cs_project_resid",
+               "backproject")
 
 
 def sweep17_engine(dev, task: Task):
@@ -5652,9 +5663,7 @@ def run_sweep_procs_phase(dev, card: str, tmp, task: Task, launch,
             if got["launches"] != got["want"]:
                 fail(f"{label} rank {r}: launches {got['launches']} != "
                      f"{got['want']}")
-            if not all(got["launches"][k] for k in (
-                    "topk_select", "cs_project", "cs_project_resid",
-                    "backproject")):
+            if not all(got["launches"][k] for k in P17_KERNELS):
                 fail(f"{label} rank {r}: K1-K4 did not all launch")
         r0 = ranks[0][label]
         gath = [res[label]["coll"].get("all_gather_arms", [0, 0.0, 0])
@@ -5740,6 +5749,190 @@ def sweep_procs_alone() -> None:
     log(f"phase 17 alone: {time.perf_counter() - t0:.1f} s; {card}")
 
 
+P17D_RUNS = (("17d", "ck17d", False), ("17d resumed", "ck17d_from1", True))
+
+
+def start_nccl_rank(tmp: str) -> dict:
+    """Start 13d's world of one (``nccl_rank`` under ``torchrun``)."""
+    return start_torchrun("13d", 1, [os.path.join(ROOT, "chip_smoke.py"),
+                                     "--nccl-rank", tmp])
+
+
+def nccl_rank(tmp: str) -> None:
+    """13d and 17d in the world of one that ``torchrun`` starts
+    (``chip_smoke.py --nccl-rank DIR``): one rank on the card, so
+    ``join_world`` picks NCCL. 13d: the trainer CLI's ``main`` at
+    internvl2-1b's width, one step and its checkpoint (a world of its own,
+    a file store), then ``done_13d``. 17d, once the parent's one-process
+    grid is on disk (``go_17``), in a world of its own: fig5's grid over
+    ``world_mesh(1)`` (W = 1: every boundary's records through NCCL's
+    all-gather) with a checkpoint at every boundary, then the
+    one-process checkpoint cut after its middle boundary resumed; each
+    held to the grid bit for bit (``plain_diffs``). The backend, the
+    wait for ``go_17``, each run's launches against 27/1/25/26 an
+    arm-round (the warm-up rounds counted), its seconds, the gathers'
+    MB, ms (CUDA events) and calls, save ms, the steps saved and the peak
+    memory go to ``sweep17d.json``; the parent checks them. Nothing here
+    catches a refused collective: the rank raises and ``torchrun``
+    exits non-zero."""
+    import gc
+
+    import torch.distributed as dist
+
+    from repro_torch.dist import collectives as coll
+    from repro_torch.engine import RoundGraph
+    from repro_torch.kernels import build
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import join_world, leave_world
+    code = train.main(FED_ARGV + [
+        "--steps", "1", "--ckpt-dir", fed_ckpts(tmp)["d"], "--init-method",
+        "file://" + os.path.join(tmp, "store_13d")])
+    if code:
+        fail(f"13d: the CLI returned {code}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    open(os.path.join(tmp, "done_13d"), "w").close()
+    mnist_arrays()
+    t0 = time.perf_counter()
+    _wait_for(os.path.join(tmp, "go_17"), "phase 17's one-process grid",
+              timeout=ZP_LIMIT)
+    res = {"waited_s": time.perf_counter() - t0}
+    mesh, dev = join_world(init_method="file://"
+                           + os.path.join(tmp, "store_17d"))
+    res["backend"] = dist.get_backend(mesh.world)
+    with contextlib.redirect_stdout(io.StringIO()):
+        task = Task(dev)
+    want = torch.load(os.path.join(tmp, "oracle_17.pt"))
+    res["steps_one"], res["mid"] = _cut_after_middle(
+        os.path.join(tmp, "ck17_one"), os.path.join(tmp, P17D_RUNS[1][1]))
+    A = len(P17_NV) * len(P17_SEEDS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated(dev)
+    for label, ck, resume in P17D_RUNS:
+        run, arms = sweep17_engine(dev, task)
+        coll.barrier(mesh.world)        # NCCL's set-up before the clock
+        coll.reset_counters()
+        build.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = run.run_sweep(arms, ckpt_dir=os.path.join(tmp, ck),
+                            resume=resume, mesh=mesh)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = build.launch_counts()
+        st = coll.stats()
+        res[label] = {
+            "diffs": plain_diffs(plain_sweep(out), want),
+            "t_start": out["t_start"], "s": secs, "launches": launches,
+            "want": {k: SWEEP_PER_ROUND.get(k, 0) * A
+                     * (RoundGraph.WARMUP + P17_ROUNDS - out["t_start"])
+                     for k in launches},
+            "save_ms": [1e3 * x for x in run.save_s],
+            "coll": {k: [st["bytes"].get(k, 0), st["ms"].get(k, 0.0),
+                         st["calls"].get(k, 0)] for k in st["calls"]}}
+        del run, out
+        torch.cuda.empty_cache()
+    res["steps"] = sorted(int(n.split("_")[1]) for n in os.listdir(
+        os.path.join(tmp, P17D_RUNS[0][1])))
+    res["peak"] = torch.cuda.max_memory_allocated(dev) - base
+    leave_world()
+    path = os.path.join(tmp, "sweep17d.json")
+    with open(path + ".tmp", "w") as f:
+        json.dump(res, f)
+    os.replace(path + ".tmp", path)
+
+
+def check_sweep_nccl(tmp: str, card: str, beside: str) -> None:
+    """17d's verdicts and numbers (``sweep17d.json``, from ``nccl_rank``):
+    the backend NCCL, both runs bit for bit the one-process grid, the
+    resume from the cut's step, K1-K4 launched as counted, every
+    boundary's records gathered through NCCL, the steps saved those of
+    the one-process grid. ``beside``: what shared the card, for the
+    log."""
+    from repro_torch.engine import RoundGraph
+    with open(os.path.join(tmp, "sweep17d.json")) as f:
+        got = json.load(f)
+    if got["backend"] != "nccl":
+        fail(f"17d: the world of one joined over {got['backend']}, not "
+             "NCCL")
+    if got["steps"] != got["steps_one"]:
+        fail(f"17d: saved steps {got['steps']}, the one-process grid "
+             f"{got['steps_one']}")
+    for label, _, resume in P17D_RUNS:
+        r = got[label]
+        if r["diffs"]:
+            fail(f"{label}: the sweep in the NCCL world of one differs from "
+                 f"the one-process grid in {r['diffs']}")
+        if r["t_start"] != (got["mid"] if resume else 0):
+            fail(f"{label}: started at round {r['t_start']}")
+        if r["launches"] != r["want"] or not all(
+                r["launches"][k] for k in P17_KERNELS):
+            fail(f"{label}: launches {r['launches']} != {r['want']}")
+        gath = r["coll"].get("all_gather_arms", [0, 0.0, 0])
+        if not gath[2]:
+            fail(f"{label}: no record went through NCCL's all-gather")
+        log(f"{label}: world_mesh(1) of an NCCL world of one, from round "
+            f"{r['t_start']}: ≡ the one-process grid bit for bit (streams, "
+            f"budget, every arm's carry, generator states included); "
+            f"{r['s']:.3f} s (host clock, captures and saves included, "
+            f"beside {beside}); gathers on the card {gath[2]} calls, "
+            f"{gath[0] / gath[2] / 2**20:.3f} MB and "
+            f"{gath[1] / gath[2]:.2f} ms a call (CUDA events); save ms "
+            + ", ".join(f"{x:.1f}" for x in r["save_ms"])
+            + f"; launches {r['launches']} = "
+            f"{len(P17_NV) * len(P17_SEEDS)} arms x ({RoundGraph.WARMUP} "
+            f"+ {P17_ROUNDS - r['t_start']}) x {SWEEP_PER_ROUND}")
+    log(f"17d: backend {got['backend']}; the rank waited "
+        f"{got['waited_s']:.1f} s for the one-process grid after 13d's "
+        f"step; steps saved {got['steps']}, resumed after {got['mid']}; "
+        f"peak {got['peak'] / 2**20:.1f} MiB over what the rank held "
+        f"before; {card}")
+
+
+def check_nccl_world(dev, card: str, tmp: str, launch, beside: str) -> dict:
+    """13d's and 17d's checks once 13d's world of one (``launch``, from
+    ``start_nccl_rank``) has made its step: 13d against this process's
+    step (``check_federation_nccl``) while the rank runs 17d, then the
+    CLI's NCCL line and 17d (``check_sweep_nccl``). Returns the launch
+    counts of this process's check, all 0."""
+    from repro_torch.kernels import build
+    t0 = time.perf_counter()
+    _wait_for(os.path.join(tmp, "done_13d"), "13d's step", timeout=ZP_LIMIT,
+              launch=launch)
+    t1 = time.perf_counter()
+    build.reset_launch_counts()
+    check_federation_nccl(dev, fed_ckpts(tmp)["d"])
+    counts = build.launch_counts()
+    t2 = time.perf_counter()
+    if "world: 1 workers over nccl" not in finish_cli(launch, card):
+        fail("13d: the world of one did not run over NCCL")
+    log(f"13d: this process waited {t1 - t0:.1f} s for the rank's step, "
+        f"checked it in {t2 - t1:.1f} s (17d beside it), then waited "
+        f"{time.perf_counter() - t2:.1f} s for the rank's exit")
+    check_sweep_nccl(tmp, card, beside)
+    return counts
+
+
+def nccl_world_alone() -> None:
+    """13d and 17d alone (``chip_smoke.py --nccl-world``): 13d's world of
+    one, started first (``--nccl-rank DIR``), the parent's one-process
+    grid (phase 17's oracle), then 13d's and 17d's checks."""
+    import tempfile
+    if sys.argv[1] == "--nccl-rank":
+        nccl_rank(sys.argv[2])
+        return
+    card, dev = banner(), torch.device("cuda")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        h = start_nccl_rank(tmp)
+        build_kernels()
+        task = Task(dev)
+        sweep_procs_oracle(dev, tmp, task)
+        expect_counts("13d's check", check_nccl_world(
+            dev, card, tmp, h, beside="13d's check in this process"), {}, 0)
+    log(f"13d and 17d alone: {time.perf_counter() - t0:.1f} s; {card}")
+
+
 SOURCES = {
     "topk_select": ("src/repro_torch/kernels/csrc/topk_select.cu",
                     "src/repro/kernels/topk_select.py:23"),
@@ -5784,6 +5977,10 @@ def main() -> None:
     if sys.argv[1:2] in (["--sweep-procs"], ["--sweep-procs-rank"]):
         sys.path.insert(0, os.path.join(ROOT, "src"))
         sweep_procs_alone()
+        return
+    if sys.argv[1:2] in (["--nccl-world"], ["--nccl-rank"]):
+        sys.path.insert(0, os.path.join(ROOT, "src"))
+        nccl_world_alone()
         return
     t_script = time.perf_counter()
     src = os.path.join(ROOT, "src")

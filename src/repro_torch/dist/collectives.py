@@ -13,11 +13,15 @@ or None. None is the reference's "no worker axes", a one-worker
 federation: ``psum`` is the identity, ``axis_index`` 0 and ``axis_size``
 1, so the one-worker call sites run the same code.
 
-Backends. NCCL and gloo both take every collective here on CUDA
-tensors: PyTorch's table lists only all-reduce and broadcast for gloo on
-the GPU, but its all-gather of CUDA tensors ran and held on an H100 with
-ranks sharing the card (``chip_smoke.py`` phase 13a checks it). Nothing
-here retries a collective or switches backend.
+Backends. NCCL takes CUDA tensors only; gloo takes CPU tensors, and on
+CUDA tensors every collective here: PyTorch's table lists only
+all-reduce and broadcast for gloo on the GPU, but its all-gather of CUDA
+tensors ran and held on an H100 with ranks sharing the card
+(``chip_smoke.py`` phase 13a checks it). Where a caller chooses the
+device of what it hands to a collective (a sweep's records,
+``engine/runner.py``), ``wire_device`` gives it: the CPU under gloo, the
+run's card under NCCL. Nothing here retries a collective or switches
+backend: a tensor the backend refuses raises.
 
 ``BYTES`` and ``CALLS`` count, by kind, what this process hands to the
 collectives: a tensor's bytes for an all-reduce or a broadcast, the input
@@ -31,7 +35,7 @@ given (``name_group``; ``launch.mesh.world_mesh`` names its "data" and
 
 A sweep's arms over the worker group (``engine/runner.py``) add
 ``gather_rows``, every rank's rows of a list of leaves of any dtypes in
-one all-gather of their bytes, and ``barrier``.
+one all-gather of their bytes, ``barrier`` and ``wire_device``.
 
 The serving path's tensor parallelism (``models/tensor_parallel.py``)
 adds two: ``psum_``, a forward-only sum in place (no copy, no autograd),
@@ -233,6 +237,16 @@ def replicated(tensors, group) -> bool:
     return int(_all_reduce_(flag, group)) == 0
 
 
+def wire_device(group, device) -> torch.device:
+    """The device on which the group's backend takes the tensors that a
+    caller stages for it: the CPU under gloo; ``device``, the run's
+    device (its card), under NCCL and any other backend; ``device``
+    without a group. The backend is ``dist.get_backend(group)``'s."""
+    if group is not None and dist.get_backend(group) == "gloo":
+        return torch.device("cpu")
+    return torch.device(device)
+
+
 def _gather(x: torch.Tensor, group, kind: str = "all_gather"
             ) -> List[torch.Tensor]:
     """Every worker's ``x``, in rank order, counted as ``kind``. bfloat16
@@ -258,7 +272,9 @@ def gather_rows(leaves, group, *, kind: str = "all_gather_rows") -> list:
     all-gather, so their dtypes may differ (complex, uint8, bool) and
     the bits come back as they were. Every rank must pass leaves of the
     same shapes and dtypes, on one device that the group's backend takes
-    (the CPU for gloo). No group: the leaves."""
+    (``wire_device``: the card under NCCL, which refuses CPU tensors; the
+    CPU or the card under gloo); the rows come back on that device. No
+    group: the leaves."""
     leaves = [x.contiguous() for x in leaves]
     if group is None or not leaves:
         return leaves

@@ -28,17 +28,21 @@ Over processes (``mesh=`` a ``launch.mesh.world_mesh``): the arm axis
 is laid out as ``dist.sharding.infer_batch_sharding`` lays it out, split
 over the worker axes where their product W divides A (worker d runs the
 arms ``[d·A/W, (d+1)·A/W)``, the ranks of one model group the same
-ones) and replicated where it does not. Each rank initialises, captures
-and runs only its own arms; at each chunk boundary the chunk's stats
-and evals of every arm, and the carries where a save or the result needs
-them, are gathered over the worker group (``dist.collectives.
-gather_rows``), so every rank returns the whole result. World rank 0
-alone writes each checkpoint, in the same format, with every arm; every
-rank waits for it on a barrier, and the ranks that hold the same arms
-are checked equal at each save. At restore every rank reads the whole
-checkpoint and takes its own arms, so a sweep saved by W ranks resumes
-under any other layout, one process included. Arms share nothing: the
-layout changes no bit.
+ones; W = 1, a world of one, is a split too) and replicated where it
+does not. Each rank initialises, captures and runs only its own arms;
+at each chunk boundary the chunk's stats and evals of every arm, and
+the carries where a save or the result needs them, are gathered over
+the worker group (``dist.collectives.gather_rows``), so every rank
+returns the whole result. World rank 0 alone writes each checkpoint, in
+the same format, with every arm; every rank waits for it on a barrier,
+and the ranks that hold the same arms are checked equal at each save.
+The gathers and the checks take their records on the device that the
+group's backend takes (``collectives.wire_device``: the card under
+NCCL, the CPU under gloo); the result and the checkpoint get them back
+on the CPU. At restore every rank reads the whole checkpoint and takes
+its own arms, so a sweep saved by W ranks resumes under any other
+layout, one process included. Arms share nothing: the layout changes no
+bit.
 """
 from __future__ import annotations
 
@@ -208,12 +212,12 @@ class EngineRun:
     # -- checkpoints -------------------------------------------------------
 
     @staticmethod
-    def _stack(items: list) -> tuple:
-        """(leaves, treedef) of the trees ``items`` stacked (A, ...) on the
-        CPU, leaf by leaf."""
+    def _stack(items: list, device="cpu") -> tuple:
+        """(leaves, treedef) of the trees ``items`` stacked (A, ...) on
+        ``device``, leaf by leaf."""
         flats = [tree.flatten(x) for x in items]
         cols = zip(*(leaves for leaves, _ in flats))
-        return ([torch.stack([x.detach().cpu() for x in col])
+        return ([torch.stack([x.detach().to(device) for x in col])
                  for col in cols], flats[0][1])
 
     def _unstacked(self, stacked: EngineState, arms) -> Dict[int, EngineState]:
@@ -294,10 +298,12 @@ class EngineRun:
         spans = chunk_spans(rounds, eval_every)
         world = None if mesh is None else mesh.world
         own = batch_indices(A, mesh)
-        # the worker group the arms are split over, and the ranks that
-        # hold the same arms as this one
-        group = mesh.group if world is not None and len(own) < A else None
-        replicas = mesh.model_group if group is not None else world
+        # the worker group the arms are split over (W = 1 too: a world of
+        # one gathers as any other), and the ranks that hold the same arms
+        # as this one
+        split = world is not None and A % coll.axis_size(mesh.group) == 0
+        group = mesh.group if split else None
+        replicas = mesh.model_group if split else world
         states, devarms = {}, {}
         for a in own:
             arm_a = arm_at(arms, a) if arms.noise_var.ndim else arms
@@ -391,30 +397,35 @@ class EngineRun:
     def _collect(self, recs: list, group) -> list:
         """Every arm's record (a tree of tensors) from the records of this
         rank's arms: gathered over the worker ``group`` in one
-        ``gather_rows`` (counted as ``all_gather_arms``), on the CPU; no
-        group: ``recs``, every arm's already."""
+        ``gather_rows`` (counted as ``all_gather_arms``) on the device its
+        backend takes, returned on the CPU; no group: ``recs``, every
+        arm's already."""
         if group is None:
             return recs
-        leaves, treedef = self._stack(recs)
-        got = coll.gather_rows(leaves, group, kind="all_gather_arms")
+        leaves, treedef = self._stack(recs, coll.wire_device(group,
+                                                             self.device))
+        got = [x.cpu() for x in coll.gather_rows(leaves, group,
+                                                 kind="all_gather_arms")]
         return [tree.unflatten(treedef, [x[a] for x in got])
                 for a in range(int(got[0].shape[0]))]
 
     def _save(self, ckpt_dir: str, step: int, carries: list, arms: Arms,
               world, replicas) -> None:
-        """Save every arm's carry at ``step``: world rank 0 alone writes;
-        the ranks that hold the same arms are checked equal first, and
-        every rank waits on a barrier over the world for the step to be
-        on disk."""
-        leaves, treedef = self._stack(carries)
+        """Save every arm's carry at ``step``: world rank 0 alone writes,
+        from the CPU; the ranks that hold the same arms are checked equal
+        first, on the device their group's backend takes, and every rank
+        waits on a barrier over the world for the step to be on disk."""
+        leaves, treedef = self._stack(
+            carries, "cpu" if replicas is None
+            else coll.wire_device(replicas, self.device))
         if not coll.replicated(leaves, replicas):
             raise RuntimeError(
                 f"run_sweep: the ranks that hold the same arms differ at "
                 f"the save of step {step}")
         if coll.axis_index(world) == 0:
             checkpoint.save(ckpt_dir, step, SweepCheckpoint(
-                state=tree.unflatten(treedef, leaves), arms=arms,
-                t_next=torch.tensor(step, dtype=torch.int32)))
+                state=tree.unflatten(treedef, [x.cpu() for x in leaves]),
+                arms=arms, t_next=torch.tensor(step, dtype=torch.int32)))
         coll.barrier(world)
 
 

@@ -10,9 +10,10 @@ process.
     python tests/_torch_dist_child.py CASE DIR RANK WORLD [DEVICE [M]]
 
 joins a world of WORLD ranks on DEVICE ("cpu", the default, or "cuda":
-gloo, the ranks share the card) through a file store in DIR, as the
-(WORLD / M, M) mesh (M = 1 by default), runs CASE on ``DIR/inputs.pt``
-(written by ``run_world``) and writes ``DIR/out_RANK.pt``, on the CPU.
+the ranks share the card over gloo, a world of one runs over NCCL)
+through a file store in DIR, as the (WORLD / M, M) mesh (M = 1 by
+default), runs CASE on ``DIR/inputs.pt`` (written by ``run_world``) and
+writes ``DIR/out_RANK.pt``, on the CPU.
 The case ``zoo_cli`` joins no world itself: it runs the trainer's CLI,
 which joins and leaves its own.
 """
@@ -417,23 +418,46 @@ def sweep_summary(res) -> dict:
     return out
 
 
+def _spied(fn, name, dev, calls):
+    """``fn(leaves, group, ...)`` that first appends (``name``, the
+    devices of ``leaves``, ``wire_device(group, dev)``, whether the group
+    is None) to ``calls``."""
+    from repro_torch.dist import collectives as coll
+
+    def spy(leaves, group, *args, **kw):
+        calls.append((name, sorted({str(x.device) for x in leaves}),
+                      str(coll.wire_device(group, dev)), group is None))
+        return fn(leaves, group, *args, **kw)
+    return spy
+
+
 def sweep(inp, mesh, dev):
     """``EngineRun.run_sweep(mesh=world_mesh(M))`` for each run of
     ``inp["runs"]``, in order: its ``sweep_summary``, the arms this rank
-    ran, the collectives' bytes by kind, the kernels' launches, or the
-    message of the ``ValueError`` it was refused with."""
+    ran, the collectives' bytes by kind, the kernels' launches, every
+    call of ``gather_rows`` and ``replicated`` as (name, the devices of
+    its leaves, ``wire_device`` of its group, whether the group is None),
+    the world's backend, or the message of the ``ValueError`` it was
+    refused with."""
+    import torch.distributed as dist
+
     from repro_torch.dist import collectives as coll
     from repro_torch.kernels import build
     from repro_torch.dist.sharding import batch_indices
     from repro_torch.engine import Draws
     from repro_torch.launch.mesh import world_mesh
     out = {}
+    calls = []
+    real = coll.gather_rows, coll.replicated
+    coll.gather_rows = _spied(real[0], "gather_rows", dev, calls)
+    coll.replicated = _spied(real[1], "replicated", dev, calls)
     for name, spec in inp["runs"].items():
         m = world_mesh(spec.get("M", 1))
         run, arms = sweep_engine(spec, dev)
         draws = Draws(*spec["draws"]) if "draws" in spec else None
         coll.reset_counters()
         build.reset_launch_counts()
+        calls.clear()
         try:
             res = run.run_sweep(arms, eval_every=spec.get("every"),
                                 ckpt_dir=spec.get("ckpt"),
@@ -445,7 +469,9 @@ def sweep(inp, mesh, dev):
         out[name] = dict(sweep_summary(res),
                          own=list(batch_indices(len(spec["seeds"]), m)),
                          bytes=coll.stats()["bytes"],
-                         launches=build.launch_counts())
+                         launches=build.launch_counts(),
+                         wire=list(calls), backend=dist.get_backend())
+    coll.gather_rows, coll.replicated = real
     return out
 
 

@@ -995,3 +995,47 @@ def test_sweep_over_ranks_on_card(cuda, tmp_path):
             assert all(torch.equal(x, y) for x, y in zip(ga, wa))
         assert all(got["launches"][k] for k in (
             "topk_select", "cs_project", "cs_project_resid", "backproject"))
+
+
+@pytest.mark.cuda
+def test_sweep_world_of_one_nccl_on_card(cuda, tmp_path):
+    """The same sweep in a world of one on the card, which joins over
+    NCCL: its arms split over W = 1 worker, each boundary's records
+    gathered on the card (NCCL refuses CPU tensors), a checkpoint at
+    every boundary; bit for bit the one-process sweep, and its
+    checkpoint cut after round 4 resumes in this process bit for bit."""
+    import os
+    import shutil
+
+    from _torch_dist_child import run_world, sweep_engine, sweep_summary
+    ck = str(tmp_path / "ck")
+    spec = dict(task="small", seeds=[0, 1, 2, 3],
+                noise_var=[1e-4, 1e-3, 1e-2, 1e-1], kernels=True, ckpt=ck)
+    (got,) = (o["split4"] for o in run_world(
+        "sweep", 1, {"runs": {"split4": spec}}, tmp_path, device="cuda"))
+    assert got["backend"] == "nccl"
+    assert got["bytes"]["all_gather_arms"] > 0
+    # over the group: the gathers, on the card; the save's replica check
+    # has no group in a world of one, and its carries stay on the CPU
+    over = [(fn, devices, w) for fn, devices, w, none in got["wire"]
+            if not none]
+    assert {fn for fn, _, _ in over} == {"gather_rows"}
+    assert all(devices == [w] == ["cuda:0"] for _, devices, w in over)
+    assert all(devices == ["cpu"] for fn, devices, _, none in got["wire"]
+               if none)
+    run, arms = sweep_engine(spec, cuda)
+    want = sweep_summary(run.run_sweep(arms))
+    for k in ("n_scheduled", "b_t", "rt_bound", "loss"):
+        assert torch.equal(got[k], want[k]), k
+    for ga, wa in zip(got["state"], want["state"]):
+        assert all(torch.equal(x, y) for x, y in zip(ga, wa))
+    for sub in os.listdir(ck):
+        if int(sub.split("_")[1]) > 4:
+            shutil.rmtree(os.path.join(ck, sub))
+    run, arms = sweep_engine(spec, cuda)
+    back = sweep_summary(run.run_sweep(arms, ckpt_dir=ck, resume=True))
+    assert back["t_start"] == 4
+    for k in ("n_scheduled", "b_t", "loss"):
+        assert torch.equal(back[k], want[k][:, -back[k].shape[1]:]), k
+    for ga, wa in zip(back["state"], want["state"]):
+        assert all(torch.equal(x, y) for x, y in zip(ga, wa))

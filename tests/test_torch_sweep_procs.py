@@ -16,8 +16,14 @@ Tolerances:
   world (2 arms a worker group, replicated over its model group); resume
   1 -> 2 and 2 -> 1 against the uninterrupted sweep, as
   tests/test_checkpoint.py:214-233 holds the reference's mesh resume;
-  ``mesh=make_zoo_mesh(4, 2)`` in one process against ``mesh=None``.
-  Arms share nothing, so a split changes no bit.
+  ``mesh=make_zoo_mesh(4, 2)`` in one process against ``mesh=None``; a
+  world of one (its arms split over W = 1 worker, its records through
+  the group's all-gather) against the one-process sweep. Arms share
+  nothing, so a split changes no bit.
+- exact: ``collectives.wire_device``'s rule (gloo: the CPU; NCCL: the
+  run's device; no group: the run's device); every leaf that a sweep
+  over ranks hands to ``gather_rows`` and ``replicated`` lies on
+  ``wire_device`` of their group (the CPU under gloo).
 - against the reference's single-placement ``run_sweep`` (its draws
   injected, host mode, the 2-rank A = 4 split of the §V MLP at small
   width): tests/test_torch_engine.py's gates, ``n_scheduled`` exact,
@@ -41,6 +47,7 @@ from repro.dist.sharding import infer_batch_sharding as j_infer
 from repro.engine import run_sweep as jrun_sweep
 from repro.models import mlp_mnist as jm
 from repro_torch import convert
+from repro_torch.dist import collectives as coll
 from repro_torch.dist.sharding import batch_indices, infer_batch_sharding
 from repro_torch.engine import Draws
 from repro_torch.launch.mesh import ZooMesh, make_zoo_mesh
@@ -125,6 +132,28 @@ def test_zoo_mesh_in_one_process_equals_none():
     spec = small(4)
     assert_same(one_process(spec, mesh=make_zoo_mesh(4, 2)),
                 one_process(spec))
+
+
+# --- the wire device ------------------------------------------------------------
+
+@pytest.mark.parametrize("backend,want", [("gloo", "cpu"), ("nccl", "cuda:0"),
+                                          (None, "cuda:0")])
+def test_wire_device_rule(monkeypatch, backend, want):
+    """gloo takes a sweep's records on the CPU, NCCL on the run's card;
+    without a group they stay on the run's device. The backend is read
+    from ``dist.get_backend`` of the group passed."""
+    seen = []
+
+    def get_backend(group):
+        seen.append(group)
+        return backend
+
+    monkeypatch.setattr(coll.dist, "get_backend", get_backend)
+    group = None if backend is None else object()
+    assert coll.wire_device(group, torch.device("cuda", 0)) \
+        == torch.device(want)
+    assert coll.wire_device(group, "cpu") == torch.device("cpu")
+    assert seen == ([] if group is None else [group, group])
 
 
 # --- over processes ------------------------------------------------------------------
@@ -249,6 +278,43 @@ def test_resume_checks_on_every_rank(two_ranks):
         assert "chunk boundary" in o["off_cadence"]["refused"]
 
 
+def test_records_on_the_wire_device(two_ranks):
+    """Every leaf that the split and resumed sweeps hand to
+    ``gather_rows`` and ``replicated`` lies on ``wire_device`` of the
+    group they pass, the CPU under gloo; the replicated sweep, which
+    saves nothing, hands them nothing."""
+    for o in two_ranks["outs"]:
+        for name in ("split4", "resume12", "mlp"):
+            calls = o[name]["wire"]
+            assert calls, name
+            for fn, devices, want, _ in calls:
+                assert devices == [want] == ["cpu"], (name, fn)
+            assert {fn for fn, _, _, none in calls if not none} \
+                == {"gather_rows"}, name
+        assert o["rep3"]["wire"] == []
+        assert o["split4"]["backend"] == "gloo"
+
+
+def test_world_of_one_gathers(tmp_path):
+    """A world of one splits its arms over W = 1 worker: each boundary's
+    records go through the group's all-gather, on ``wire_device``'s CPU
+    under gloo; the result is the one-process sweep bit for bit, and the
+    checkpoint it wrote resumes in one process."""
+    d = str(tmp_path / "ck")
+    (o,) = run_world("sweep", 1, {"runs": {"split4": small(4, ckpt=d)}},
+                     tmp_path, timeout=300)
+    got, want = o["split4"], one_process(small(4))
+    assert got["own"] == [0, 1, 2, 3]
+    assert_same(got, want)
+    assert got["bytes"]["all_gather_arms"] > 0
+    assert {fn for fn, _, _, none in got["wire"] if not none} \
+        == {"gather_rows"}
+    assert all(devices == [w] == ["cpu"] for _, devices, w, _ in got["wire"])
+    _trim(d, 4)
+    assert_same(one_process(small(4), ckpt_dir=d, resume=True), want,
+                tail=4)
+
+
 def test_split_sweep_matches_reference(two_ranks, mlp, task):
     want, spec = mlp
     ours = one_process(spec, draws=Draws(*spec["draws"]))
@@ -285,6 +351,12 @@ def test_two_by_two_replicas_equal(tmp_path):
         got = o["split4"]
         assert got["own"] == [2 * (r // 2), 2 * (r // 2) + 1]
         assert_same(got, want)
+        # gathers over the worker group, replica checks over the model
+        # group, every leaf on the CPU
+        assert {fn for fn, _, _, none in got["wire"] if not none} \
+            == {"gather_rows", "replicated"}
+        assert all(devices == [w] == ["cpu"]
+                   for _, devices, w, _ in got["wire"])
     _trim(d, 4)
     assert_same(one_process(small(4), ckpt_dir=d, resume=True), want,
                 tail=4)
